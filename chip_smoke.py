@@ -7,13 +7,23 @@ Phases, each fatal on failure:
   1. the card (name and power limit from nvidia-smi), torch and CUDA;
   2. build the CUDA kernels from find_circ2_tpu_torch/csrc/;
   3. every kernel against its plain PyTorch version on the card, exactly,
-     at the main path's shapes, with CUDA-event times of both;
+     at the main path's shapes (detect's 32-byte rows, §2b explore's 8-
+     and 120-byte rows), with CUDA-event times of both;
   4. the port's `find_circ` CLI on test_data/ must reproduce the golden
      BED and stats byte for byte;
   5. the main path at real size: `run --filter` on the 16 Mbp RNase-R
      filter-stack library (~95k reads), with the kernels' launch counts,
-     precision and recall against the planted circles, and 500 of its
-     reads through `run_reads` against the CPU oracle read for read.
+     precision and recall against the planted circles, and a stage table
+     that shows §2b explore on the device and no host multi-hit stage;
+  6. §2b explore on the card, on the index the CLI built in phase 5:
+     `explore_batch_packed` on the first 1024 reads that phase 5 routed to
+     the explorer equals the port on the CPU row for row, with prefilter
+     on and off, and torch.profiler counts one chunk's device kernels;
+     `run_fastq` with device explore and with the host twin
+     (`explore=False`) give equal BEDs, timed in the same run, and a
+     profiled device-explore stream gives the device's busy share; 500
+     reads through `run_reads`, routed ones among them, equal the CPU
+     oracle read for read.
 
 Prints the kernel table as one JSON line, the card line, and as its last
 line {"ok": true, "device": {...}}. Exits non-zero, printing no result,
@@ -38,6 +48,8 @@ DATA = os.path.join(ROOT, "test_data")
 LIBRARY = dict(seed=7, chrom_lengths={"chrR": 16_000_000}, n_circ=6000,
                n_linear=800, depth_mean=12.0)
 ORACLE_READS = 500
+# Phase 6: routed reads held against the CPU port (one explore chunk).
+EXPLORE_READS = 1024
 # Precision and recall of the reference package's `--filter` calls on
 # this library, to 4 places (BENCH_r05.json pipeline_precision and
 # pipeline_recall). They are outputs of the frozen algorithm, which the
@@ -79,13 +91,15 @@ def cuda_ms(fn, iters: int) -> float:
 
 
 def check_gather_rows(device) -> dict:
-    """gather_rows vs gather_rows_ref, exactly, on an int32 [2^24, 8]
-    table (512 MiB, far beyond L2). Row counts: the main path's calls of
-    one batch (exact stats: 2 probes x 2B anchors, once per table; the
-    enumeration fallback: 2 probes x min(slots, 2B) anchors x V
-    variants), one batch's exact-stats rows of both tables together, and
-    a ragged 2^20 + 37. The returned times are one batch's three
-    main-path calls together."""
+    """gather_rows vs gather_rows_ref, exactly, at the main path's call
+    shapes. Detect: an int32 [2^24, 8] table (512 MiB, far beyond L2)
+    at one batch's calls (exact stats: 2 probes x 2B anchors, once per
+    table; the enumeration fallback: 2 probes x min(slots, 2B) anchors x
+    V variants), both tables' exact-stats rows together, and a ragged
+    2^20 + 37. Explore, per 1024-read chunk and anchor side: table rows
+    (W=8) and ext_id rows (W=2, an [2^24, 2] table) at 2 x 1024 x V, ext
+    rows (W=30, an [2^21, 30] table) at 1024 x V. Returns the times of
+    one detect batch's three calls and of one explore chunk's six."""
     import torch
     from find_circ2_tpu.config import Config
     from find_circ2_tpu_torch.ops import gather_rows as gr
@@ -93,36 +107,53 @@ def check_gather_rows(device) -> dict:
     B, V = cfg.batch_size, 1 + 3 * cfg.anchor_len
     exact_n = 2 * 2 * B
     fallback_n = 2 * min(cfg.exact_fallback_slots, 2 * B) * V
+    chunk = EXPLORE_READS * V
     g = torch.Generator(device=device).manual_seed(0)
-    table = torch.randint(-2 ** 31, 2 ** 31 - 1, (1 << 24, 8),
-                          dtype=torch.int32, device=device, generator=g)
+
+    def table(rows, width):
+        return torch.randint(-2 ** 31, 2 ** 31 - 1, (rows, width),
+                             dtype=torch.int32, device=device, generator=g)
+
     out = {"max_abs_err": 0}
     times = {}
-    for n in (exact_n, fallback_n, 2 * exact_n, (1 << 20) + 37):
-        idx = torch.randint(0, table.shape[0], (n,), device=device,
-                            generator=g)
-        got = gr.gather_rows(table, idx)
-        want = gr.gather_rows_ref(table, idx)
-        torch.cuda.synchronize()
-        err = int((got.to(torch.int64) - want.to(torch.int64)).abs().max())
-        if err or not torch.equal(got, want):
-            fail(f"gather_rows differs from index_select at n={n}")
-        out["max_abs_err"] = max(out["max_abs_err"], err)
-        # Plain, kernel, kernel, plain: both see the same card state.
-        iters = 200 if n < 1 << 20 else 20
-        p1 = cuda_ms(lambda: gr.gather_rows_ref(table, idx), iters)
-        k1 = cuda_ms(lambda: gr.gather_rows(table, idx), iters)
-        k2 = cuda_ms(lambda: gr.gather_rows(table, idx), iters)
-        p2 = cuda_ms(lambda: gr.gather_rows_ref(table, idx), iters)
-        times[n] = (min(k1, k2), min(p1, p2))
-        log(f"gather_rows n={n}: kernel {times[n][0]:.4f} ms, index_select "
-            f"{times[n][1]:.4f} ms (exact match)")
-    out["ms"], out["plain_ms"] = (2 * times[exact_n][i] + times[fallback_n][i]
-                                  for i in (0, 1))
-    log(f"gather_rows, one batch's main-path calls: kernel {out['ms']:.4f} "
-        f"ms, index_select {out['plain_ms']:.4f} ms")
-    del table
-    torch.cuda.empty_cache()
+    detect_ns = dict.fromkeys((exact_n, fallback_n, 2 * exact_n,
+                               2 * chunk, (1 << 20) + 37))
+    for width, rows, ns in ((8, 1 << 24, detect_ns),
+                            (2, 1 << 24, (2 * chunk,)),
+                            (30, 1 << 21, (chunk,))):
+        tab = table(rows, width)
+        for n in ns:
+            idx = torch.randint(0, rows, (n,), device=device, generator=g)
+            got = gr.gather_rows(tab, idx)
+            want = gr.gather_rows_ref(tab, idx)
+            torch.cuda.synchronize()
+            err = int((got.to(torch.int64) - want.to(torch.int64)).abs()
+                      .max())
+            if err or not torch.equal(got, want):
+                fail(f"gather_rows differs from index_select at W={width} "
+                     f"n={n}")
+            out["max_abs_err"] = max(out["max_abs_err"], err)
+            # Plain, kernel, kernel, plain: both see the same card state.
+            iters = 200 if n < 1 << 20 else 20
+            p1 = cuda_ms(lambda: gr.gather_rows_ref(tab, idx), iters)
+            k1 = cuda_ms(lambda: gr.gather_rows(tab, idx), iters)
+            k2 = cuda_ms(lambda: gr.gather_rows(tab, idx), iters)
+            p2 = cuda_ms(lambda: gr.gather_rows_ref(tab, idx), iters)
+            times[width, n] = (min(k1, k2), min(p1, p2))
+            log(f"gather_rows W={width} n={n}: kernel "
+                f"{times[width, n][0]:.4f} ms, index_select "
+                f"{times[width, n][1]:.4f} ms (exact match)")
+        del tab
+        torch.cuda.empty_cache()
+    for key, calls in (("", ((8, exact_n), (8, exact_n), (8, fallback_n))),
+                       ("explore_", ((8, 2 * chunk), (2, 2 * chunk),
+                                     (30, chunk)) * 2)):
+        out[key + "ms"], out[key + "plain_ms"] = (
+            sum(times[c][i] for c in calls) for i in (0, 1))
+    log(f"gather_rows, one detect batch's calls: kernel {out['ms']:.4f} ms,"
+        f" index_select {out['plain_ms']:.4f} ms; one explore chunk's "
+        f"calls: kernel {out['explore_ms']:.4f} ms, index_select "
+        f"{out['explore_plain_ms']:.4f} ms")
     return out
 
 
@@ -147,33 +178,232 @@ def check_golden(device: str) -> None:
     log("golden BED and stats reproduced byte for byte")
 
 
-def _profile_value(report: str, key: str) -> float:
+def _stage(report: str, key: str):
+    """(seconds, count) of one line of the --profile stage table, or
+    None when the stage never ran."""
     for line in report.splitlines():
         parts = line.split("\t")
         if parts[0] == key:
-            return float(parts[1].rstrip("s").replace(",", ""))
-    fail(f"no {key!r} line in the --profile report")
+            count = parts[2].rstrip("x") if len(parts) > 2 else "1"
+            return (float(parts[1].rstrip("s").replace(",", "")),
+                    int(count) if count.isdigit() else 1)
+    return None
+
+
+def _profile_value(report: str, key: str) -> float:
+    got = _stage(report, key)
+    if got is None:
+        fail(f"no {key!r} line in the --profile report")
+    return got[0]
+
+
+@contextlib.contextmanager
+def watch_explorer():
+    """While the block runs, count what DeviceExplorer.dispatch_arrays
+    (every §2b explore chunk of both streaming loops goes through it)
+    does: its calls, routed reads, the gather_rows launches made inside
+    it, and the first EXPLORE_READS routed rows (uint8 codes, int32
+    lengths). Also keep the DeviceIndex and slowpath=(genome, index) that
+    run_fastq was given. Yields the dict it fills."""
+    import numpy as np
+    from find_circ2_tpu_torch.models import pipeline as tpipe
+    from find_circ2_tpu_torch.models import stream as tstream
+    from find_circ2_tpu_torch.ops import gather_rows as gr
+    seen = dict(calls=0, reads=0, launches=0, arr=[], lens=[])
+    dispatch_arrays, run_fastq = (tpipe.DeviceExplorer.dispatch_arrays,
+                                  tstream.run_fastq)
+
+    def counted(self, arr, lens):
+        before = gr.launches
+        handle = dispatch_arrays(self, arr, lens)
+        seen["launches"] += gr.launches - before
+        seen["calls"] += 1
+        if seen["reads"] < EXPLORE_READS:
+            seen["arr"].append(np.array(arr))
+            seen["lens"].append(np.array(lens))
+        seen["reads"] += arr.shape[0]
+        return handle
+
+    def kept(dindex, *args, **kw):
+        seen.update(dindex=dindex, slowpath=kw.get("slowpath"))
+        return run_fastq(dindex, *args, **kw)
+
+    tpipe.DeviceExplorer.dispatch_arrays, tstream.run_fastq = counted, kept
+    try:
+        yield seen
+    finally:
+        tpipe.DeviceExplorer.dispatch_arrays = dispatch_arrays
+        tstream.run_fastq = run_fastq
+
+
+def device_profile(fn) -> dict:
+    """Run fn once under torch.profiler. Its device activities (kernels,
+    copies, fills): how many, the milliseconds the device was busy (the
+    union of their intervals) and the first-to-last span."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    spans = sorted((e.time_range.start, e.time_range.end)
+                   for e in prof.events()
+                   if e.device_type == torch.autograd.DeviceType.CUDA)
+    if not spans:
+        fail("torch.profiler recorded no device activity")
+    busy, (lo, hi) = 0, spans[0]
+    for a, b in spans[1:]:
+        if a > hi:
+            busy, lo = busy + hi - lo, a
+        hi = max(hi, b)
+    busy += hi - lo
+    span = hi - spans[0][0]
+    return dict(ops=len(spans), busy_ms=busy / 1e3, span_ms=span / 1e3,
+                busy_share=busy / max(span, 1))
+
+
+def check_explore(dindex, arr, lens, cfg) -> dict:
+    """explore_batch_packed on the card against the port on the CPU, row
+    for row, on the first EXPLORE_READS reads that the main path routed
+    to the explorer, with prefilter on (as the main path runs it) and off
+    (every row runs the pair grid to its end). Returns, for prefilter on:
+    the card's ms per chunk (CUDA events), its host enqueue ms, device
+    activities and device-busy ms per chunk (torch.profiler), the CPU
+    port's ms, and the chunk's peak memory above the index."""
+    import dataclasses
+    import numpy as np
+    import torch
+    from find_circ2_tpu_torch.ops.explore import explore_batch_packed
+    if arr.shape[0] < EXPLORE_READS:
+        fail(f"the main path routed only {arr.shape[0]} reads, need "
+             f"{EXPLORE_READS}")
+    reads = torch.from_numpy(arr[:EXPLORE_READS])
+    rlens = torch.from_numpy(lens[:EXPLORE_READS])
+    cpu = dataclasses.replace(dindex, **{
+        f.name: getattr(dindex, f.name).cpu()
+        for f in dataclasses.fields(dindex)
+        if isinstance(getattr(dindex, f.name), torch.Tensor)})
+
+    def run(d, prefilter):
+        return explore_batch_packed(
+            d.words, d.nbases, d.table, d.meta, d.ext, d.ext_id,
+            d.chrom_offsets, reads.to(d.device), rlens.to(d.device), cfg,
+            prefilter)
+
+    out = {}
+    for prefilter in (True, False):
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        got = run(dindex, prefilter).cpu().numpy()
+        peak = torch.cuda.max_memory_allocated() - base
+        t0 = time.perf_counter()
+        want = run(cpu, prefilter).numpy()
+        cpu_ms = 1e3 * (time.perf_counter() - t0)
+        bad = np.flatnonzero((got != want).any(axis=1))
+        if bad.size:
+            fail(f"explore on the card differs from the CPU port on "
+                 f"{bad.size} of {EXPLORE_READS} routed reads, prefilter "
+                 f"{prefilter} (rows {bad[:5].tolist()})")
+        status, count = np.unique(got[:, 0], return_counts=True)
+        log(f"explore_batch_packed on {EXPLORE_READS} routed reads, "
+            f"prefilter {prefilter}, equals the CPU port row for row; rows "
+            f"per status {dict(zip(status.tolist(), count.tolist()))}; CPU "
+            f"{cpu_ms:.1f} ms, chunk peak {peak:,} bytes above the index")
+        if prefilter:
+            out.update(cpu_ms=cpu_ms, peak_bytes=peak)
+    out["card_ms"] = cuda_ms(lambda: run(dindex, True), 5)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    run(dindex, True)
+    out["enqueue_ms"] = 1e3 * (time.perf_counter() - t0)
+    torch.cuda.synchronize()
+    prof = device_profile(lambda: run(dindex, True))
+    out.update(device_ops=prof["ops"], device_ms=prof["busy_ms"])
+    log(f"one explore chunk (prefilter on): {out['card_ms']:.3f} ms as "
+        f"called (CUDA events), host enqueue {out['enqueue_ms']:.3f} ms, "
+        f"{prof['ops']} device activities busy {prof['busy_ms']:.3f} ms "
+        f"(torch.profiler)")
+    return out
+
+
+def compare_streams(dindex, fq, genome, index, cfg, card) -> dict:
+    """run_fastq with device explore (None: the index has extras) and
+    with the host twin (explore=False) on the same FASTQ and index: equal
+    BEDs and stats, both stream times, and the row-gather launches of
+    each; then one device-explore stream under torch.profiler for the
+    device's busy share. Returns the launches and seconds per mode and
+    the profiled run's numbers."""
+    import io as _io
+    from find_circ2_tpu.io.bed import write_bed
+    from find_circ2_tpu.models.aggregate import Aggregator
+    from find_circ2_tpu.utils.profiling import StageTimes
+    from find_circ2_tpu_torch.models.stream import run_fastq
+    from find_circ2_tpu_torch.ops import gather_rows as gr
+    out, beds = {}, {}
+    for mode, explore in (("device", None), ("host", False)):
+        agg = Aggregator(genome, cfg)
+        times = StageTimes()
+        gr.launches = 0
+        t0 = time.perf_counter()
+        run_fastq(dindex, fq, agg, cfg, times=times, slowpath=(genome, index),
+                  explore=explore)
+        wall = time.perf_counter() - t0
+        buf = _io.StringIO()
+        write_bed(buf, agg.rows(sample_name="s"))
+        beds[mode] = (buf.getvalue(), sorted(agg.stats.counts.items()))
+        out[mode] = dict(launches=gr.launches, seconds=wall,
+                         reads=times.n_reads)
+        log(f"run_fastq explore={explore}: {wall:.3f} s, "
+            f"{times.n_reads / wall:,.1f} reads/s, {gr.launches} gather_rows "
+            f"launches on {card}; stages:\n"
+            + times.report(wall=wall))
+        ran = set(times.counts)
+        want = ({"explore_dispatch"}, {"slowpath_multihit"})
+        if explore is not None:
+            want = want[::-1]
+        if not want[0] <= ran or want[1] & ran:
+            fail(f"run_fastq explore={explore} ran stages {sorted(ran)}")
+    if beds["device"] != beds["host"]:
+        fail("run_fastq BED or stats differ between device explore and "
+             "the host twin")
+    log(f"device explore and host twin give equal BED and stats "
+        f"({beds['device'][0].count(chr(10))} junctions)")
+    t0 = time.perf_counter()
+    prof = device_profile(lambda: run_fastq(
+        dindex, fq, Aggregator(genome, cfg), cfg, slowpath=(genome, index)))
+    out["profiled"] = dict(prof, seconds=time.perf_counter() - t0)
+    log(f"run_fastq with device explore under torch.profiler: "
+        f"{out['profiled']['seconds']:.3f} s, {prof['ops']} device "
+        f"activities, device busy {prof['busy_ms']:.3f} ms of a "
+        f"{prof['span_ms']:.3f} ms first-to-last span "
+        f"({100 * prof['busy_share']:.1f}%) on {card}")
+    return out
 
 
 def main_path(device: str, library: dict, card: str) -> dict:
-    """`run --filter` on the simulated library, then run_reads vs the
-    oracle on its first ORACLE_READS reads. Returns the launch counts."""
+    """`run --filter` on the simulated library (phase 5), then §2b
+    explore on the card, the two explore modes of run_fastq, and
+    run_reads vs the oracle on its first ORACLE_READS reads (phase 6).
+    Returns the numbers of the kernel table."""
+    import numpy as np
     import torch
     from find_circ2_tpu.config import Config
-    from find_circ2_tpu.index.build import build_index
     from find_circ2_tpu.io.bed import read_bed
     from find_circ2_tpu.io.fasta import write_fasta
     from find_circ2_tpu.io.twobit import codes_to_seq
     from find_circ2_tpu.models.oracle import call_read
+    from find_circ2_tpu.utils.profiling import StageTimes
     from find_circ2_tpu.utils.simulate import rnase_r_library
     from find_circ2_tpu_torch.cli import main as cli
-    from find_circ2_tpu_torch.models.pipeline import DeviceIndex, run_reads
+    from find_circ2_tpu_torch.models.pipeline import run_reads
     from find_circ2_tpu_torch.ops import gather_rows as gr
 
     cfg = Config()
     on_card = torch.device(device).type == "cuda"
     sim = rnase_r_library(cfg=cfg, **library)
     g = sim.genome
+    out = {}
     with tempfile.TemporaryDirectory() as tmp:
         fa = os.path.join(tmp, "genome.fa")
         fq = os.path.join(tmp, "reads.fastq")
@@ -188,54 +418,83 @@ def main_path(device: str, library: dict, card: str) -> dict:
         if on_card:
             torch.cuda.synchronize()
             torch.cuda.reset_peak_memory_stats()
-        gr.launches = 0
         err = io.StringIO()
-        with contextlib.redirect_stderr(err):
+        with contextlib.redirect_stderr(err), watch_explorer() as seen:
+            gr.launches = 0
             rc = cli.main(["run", fq, "-G", fa, "-o", outdir, "--filter",
                            "--device", device, "--profile"])
-        launches = {"gather_rows": gr.launches}
+            out["launches"] = gr.launches
+        out["explore_launches"] = seen["launches"]
         report = err.getvalue()
         print(report, end="")
         if rc != 0:
             fail(f"run exited {rc}")
         filt = list(read_bed(os.path.join(outdir, "circ_candidates.bed")))
-    setup_s = _profile_value(report, "setup")
-    stream_s = _profile_value(report, "wall")
-    n_reads = len(sim.reads)
-    log(f"main path: {n_reads} reads, setup {setup_s:.3f} s, stream "
-        f"{stream_s:.3f} s -> {n_reads / stream_s:,.1f} reads/s on {card}")
-    if on_card:
-        log(f"peak device memory {torch.cuda.max_memory_allocated():,} "
-            "bytes")
-    log(f"kernel launches on the main path: {launches}")
-    for name, n in launches.items():
-        if n <= 0:
-            fail(f"kernel {name} was not launched on the main path")
-    # Precision and recall as bench.py's filter-stack measure them.
-    truth = {(t.chrom, t.start, t.end) for t in sim.truths
-             if t.kind == "circular" and len(t.reads) >= cfg.min_support}
-    called = {(r.chrom, r.start, r.end) for r in filt}
-    tp = len(truth & called)
-    prec = tp / max(1, len(called))
-    rec = tp / max(1, len(truth))
-    log(f"filtered calls: {len(called)}, precision {prec:.4f}, recall "
-        f"{rec:.4f} vs {len(truth)} planted circles")
-    if (round(prec, 4), round(rec, 4)) != (EXPECT_PRECISION, EXPECT_RECALL):
-        fail(f"precision {prec:.4f} / recall {rec:.4f}, the reference "
-             f"gives {EXPECT_PRECISION} / {EXPECT_RECALL}")
+        setup_s = _profile_value(report, "setup")
+        stream_s = _profile_value(report, "wall")
+        n_reads = len(sim.reads)
+        log(f"main path: {n_reads} reads, setup {setup_s:.3f} s, stream "
+            f"{stream_s:.3f} s -> {n_reads / stream_s:,.1f} reads/s on "
+            f"{card}")
+        if on_card:
+            log(f"peak device memory {torch.cuda.max_memory_allocated():,} "
+                "bytes (explore on)")
+        log(f"kernel launches on the main path: gather_rows "
+            f"{out['launches']}, {out['explore_launches']} of them inside "
+            f"§2b explore; {seen['reads']} routed reads in "
+            f"{seen['calls']} explore dispatches")
+        if out["launches"] <= 0:
+            fail("kernel gather_rows was not launched on the main path")
+        if seen["reads"] <= 0 or out["explore_launches"] <= 0:
+            fail("§2b explore routed no reads or launched no gather_rows "
+                 "on the main path")
+        dispatched = _stage(report, "explore_dispatch")
+        if (dispatched is None or dispatched[1] != seen["calls"]
+                or _stage(report, "slowpath_multihit")):
+            fail("the main path did not run §2b explore on the device "
+                 "(explore_dispatch missing or miscounted, or "
+                 "slowpath_multihit present)")
+        # Precision and recall as bench.py's filter-stack measure them.
+        truth = {(t.chrom, t.start, t.end) for t in sim.truths
+                 if t.kind == "circular" and len(t.reads) >= cfg.min_support}
+        called = {(r.chrom, r.start, r.end) for r in filt}
+        tp = len(truth & called)
+        prec = tp / max(1, len(called))
+        rec = tp / max(1, len(truth))
+        log(f"filtered calls: {len(called)}, precision {prec:.4f}, recall "
+            f"{rec:.4f} vs {len(truth)} planted circles")
+        if (round(prec, 4), round(rec, 4)) != (EXPECT_PRECISION,
+                                               EXPECT_RECALL):
+            fail(f"precision {prec:.4f} / recall {rec:.4f}, the reference "
+                 f"gives {EXPECT_PRECISION} / {EXPECT_RECALL}")
+
+        # Phase 6 on the main path's own index and routed reads.
+        dindex = seen["dindex"]
+        g, index = seen["slowpath"]
+        out["explore"] = check_explore(
+            dindex, np.concatenate(seen["arr"]), np.concatenate(seen["lens"]),
+            cfg)
+        out["streams"] = compare_streams(dindex, fq, g, index, cfg, card)
 
     # Read-for-read equality with the CPU oracle on a slice.
-    index = build_index(g, cfg)
-    dindex = DeviceIndex.build(g, index, cfg, device=device)
     reads = sim.reads[:ORACLE_READS]
-    calls = run_reads(dindex, reads, cfg, slowpath=(g, index))
+    times = StageTimes()
+    with watch_explorer() as seen:
+        calls = run_reads(dindex, reads, cfg, slowpath=(g, index),
+                          times=times)
+    n_routed = seen["reads"]
     bad = [name for (name, seq), c in zip(reads, calls)
            if c != call_read(g, index, name, seq, cfg)]
     if len(calls) != len(reads) or bad:
         fail(f"run_reads differs from the oracle on {len(bad)} of "
              f"{len(reads)} reads (first: {bad[:3]})")
-    log(f"run_reads equals the oracle on {len(reads)} reads")
-    return launches
+    if not n_routed or "explore_dispatch" not in times.counts \
+            or "slowpath_multihit" in times.counts:
+        fail(f"the oracle slice's {n_routed} routed reads did not take "
+             f"the device explorer (stages {sorted(times.counts)})")
+    log(f"run_reads equals the oracle on {len(reads)} reads, {n_routed} "
+        "of them routed to the device explorer")
+    return out
 
 
 def main() -> int:
@@ -258,14 +517,17 @@ def main() -> int:
 
     gather = check_gather_rows("cuda")
     check_golden("cuda")
-    launches = main_path("cuda", LIBRARY, card)
+    path = main_path("cuda", LIBRARY, card)
 
     kernels = [{"name": "gather_rows", "route": "cuda",
                 "source": "find_circ2_tpu_torch/csrc/gather_rows.cu",
                 "replaces": "find_circ2_tpu/ops/pallas_k1.py:64",
-                "launches": launches["gather_rows"],
+                "launches": path["launches"],
+                "explore_launches": path["explore_launches"],
                 "max_abs_err": gather["max_abs_err"], "ms": gather["ms"],
-                "plain_ms": gather["plain_ms"]}]
+                "plain_ms": gather["plain_ms"],
+                "explore_ms": gather["explore_ms"],
+                "explore_plain_ms": gather["explore_plain_ms"]}]
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -2,8 +2,11 @@
 (reference: find_circ2_tpu/cli/find_circ.py, its single-device branch).
 
 Same flags and output as the reference, plus `--device {cuda,cpu}`.
-The sharded (`--mesh`), multi-process (`--nproc`) and oracle
-(`--backend oracle`) runs are not ported yet and exit with an error.
+Routed §2b multi-hit reads run on the device explore program
+(pipeline.DeviceExplorer), as in the reference; only the 2-mm anchor
+rescue runs on the host. The sharded (`--mesh`), multi-process
+(`--nproc`) and oracle (`--backend oracle`) runs are not ported yet and
+exit with an error.
 """
 
 from __future__ import annotations

@@ -3,9 +3,11 @@
 One batch goes through K1 (ops/anchor_align: exact-first with the
 enumeration fallback), pair canonicalization, the pass-1 contiguous
 prefilter (SPEC.md §6) and K2 (ops/breakpoint), and comes back as one
-packed int32 row per read. Host code (`run_reads`) batches reads,
-streams them through the device step and yields the oracle's ReadCalls,
-so the CPU oracle and this path give byte-identical BED tables.
+packed int32 row per read. Reads whose anchors tie at the best hit go
+through the §2b explore program (ops/explore, `DeviceExplorer`) one
+stage later. Host code (`run_reads`) batches reads, streams them through
+the device steps and yields the oracle's ReadCalls, so the CPU oracle
+and this path give byte-identical BED tables.
 
 Global positions are int64 tensors holding the reference's uint32
 values; sums that wrap there are masked with `& 0xFFFFFFFF` here.
@@ -61,6 +63,10 @@ class DeviceIndex:
     # K1 v4 neighbour table (index/hashtable.build_neighbor_table); None
     # selects the classic enumeration. Results are identical either way.
     ntable: torch.Tensor | None = None
+    # SPEC §2b extras of the device explore program (ops/explore); None
+    # on tables built without extras (the host twin handles multi reads).
+    ext: torch.Tensor | None = None      # int32 [R, 2*(K-1)], uint32 bits
+    ext_id: torch.Tensor | None = None   # int32 [T, SLOTS]
 
     @classmethod
     def build(cls, genome: Genome, index: SeedIndex | None = None,
@@ -81,37 +87,58 @@ class DeviceIndex:
             qtable.ntable = build_neighbor_table(index, cfg)
         return cls._from_arrays(pack_words(genome.codes), len(genome),
                                 qtable.table, qtable.meta,
-                                genome.chrom_offsets, qtable.ntable, device)
+                                genome.chrom_offsets, qtable.ntable,
+                                qtable.ext, qtable.ext_id, device)
 
     @classmethod
     def from_reference(cls, ref, device="cpu") -> "DeviceIndex":
         """The same index from the reference package's DeviceIndex
         (read through np.asarray; jax is never imported here): its 2-D
         [n_rows, WPR] packed genome becomes the flat word array."""
+        def arr(x):
+            return None if x is None else np.asarray(x)
         gpacked = np.asarray(ref.gpacked)
-        ntable = None if ref.ntable is None else np.asarray(ref.ntable)
         return cls._from_arrays(gpacked.reshape(-1).view(np.int32),
                                 int(ref.nbases), np.asarray(ref.table),
                                 np.asarray(ref.meta),
-                                np.asarray(ref.chrom_offsets), ntable,
-                                device)
+                                np.asarray(ref.chrom_offsets),
+                                arr(ref.ntable), arr(ref.ext),
+                                arr(ref.ext_id), device)
 
     @classmethod
     def _from_arrays(cls, words, nbases, table, meta, chrom_offsets, ntable,
-                     device) -> "DeviceIndex":
+                     ext, ext_id, device) -> "DeviceIndex":
         def t(x, dtype):
-            a = np.ascontiguousarray(x, dtype)
+            if x is None:
+                return None
+            a = np.ascontiguousarray(x)
+            if a.dtype == np.uint32 and dtype == np.int32:
+                a = a.view(np.int32)       # uint32 rows keep their bits
+            a = np.ascontiguousarray(a, dtype)
             if not a.flags.writeable:      # e.g. a view of a jax array
                 a = a.copy()
             return torch.from_numpy(a).to(device)
         return cls(words=t(words, np.int32), nbases=nbases,
                    table=t(table, np.int32), meta=t(meta, np.int32),
                    chrom_offsets=t(chrom_offsets, np.int64),
-                   ntable=None if ntable is None else t(ntable, np.int32))
+                   ntable=t(ntable, np.int32), ext=t(ext, np.int32),
+                   ext_id=t(ext_id, np.int32))
 
     @property
     def device(self) -> torch.device:
         return self.table.device
+
+
+def encode_batch(seqs, rows: int, Lp: int):
+    """Reads (str) -> uint8 [rows, Lp] codes, RPAD-padded, and int32
+    [rows] lengths; rows past len(seqs) are padding (length 0)."""
+    arr = np.full((rows, Lp), RPAD_CODE, dtype=np.uint8)
+    lens = np.zeros(rows, np.int32)
+    for i, seq in enumerate(seqs):
+        codes = seq_to_codes(seq)
+        arr[i, :codes.size] = codes
+        lens[i] = codes.size
+    return arr, lens
 
 
 def revcomp_batch(arr: np.ndarray, lens: np.ndarray) -> np.ndarray:
@@ -349,20 +376,89 @@ class HostCopy:
         return self.host.numpy()
 
 
+class DeviceExplorer:
+    """Asynchronous dispatcher of the §2b explore program
+    (ops/explore.explore_batch_packed) for routed reads.
+
+    Reads go in chunks of at most BUCKETS[-1] rows, each padded to the
+    smallest bucket that holds it, which bounds the [B, K, K, Lp+1]
+    split grid's memory. Each chunk's packed rows come back through a
+    HostCopy, so a streaming loop can enqueue later detect batches
+    before it fetches the results. A failure raises: there is no host
+    fallback."""
+
+    BUCKETS = (32, 256, 1024)
+
+    def __init__(self, dindex: DeviceIndex, cfg: Config,
+                 prefilter: bool = True) -> None:
+        if dindex.ext is None or dindex.ext_id is None:
+            raise ValueError("DeviceIndex was built without §2b extras "
+                             "(extras=False); use the host twin "
+                             "(explore=False)")
+        self.dindex = dindex
+        self.cfg = cfg
+        self.prefilter = prefilter
+
+    def dispatch(self, items: list[tuple[str, str]]):
+        """Enqueue routed (name, seq) reads of valid length; returns a
+        handle for `fetch`."""
+        arr, lens = encode_batch([seq for _, seq in items], len(items),
+                                 self.cfg.max_read_len)
+        return items, self.dispatch_arrays(arr, lens)
+
+    def fetch(self, handle) -> list[ReadCall]:
+        """Wait for a `dispatch` handle; its ReadCalls in order."""
+        items, chunks = handle
+        res = self.fetch_arrays(chunks)
+        return [call_from_row(res, i, name, seq)
+                for i, (name, seq) in enumerate(items)]
+
+    def dispatch_arrays(self, arr: np.ndarray, lens: np.ndarray):
+        """Enqueue already-encoded routed reads (uint8 [n, Lp], int32
+        [n]), as the streaming loop's batch holds them; returns a handle
+        for `fetch_arrays`."""
+        from find_circ2_tpu_torch.ops.explore import explore_batch_packed
+        d, dev = self.dindex, self.dindex.device
+        chunks = []
+        for lo in range(0, arr.shape[0], self.BUCKETS[-1]):
+            n = min(self.BUCKETS[-1], arr.shape[0] - lo)
+            bs = next(b for b in self.BUCKETS if b >= n)
+            rows = np.full((bs, arr.shape[1]), RPAD_CODE, np.uint8)
+            rows[:n] = arr[lo:lo + n]
+            blens = np.zeros(bs, np.int32)
+            blens[:n] = lens[lo:lo + n]
+            packed = explore_batch_packed(
+                d.words, d.nbases, d.table, d.meta, d.ext, d.ext_id,
+                d.chrom_offsets, torch.from_numpy(rows).to(dev),
+                torch.from_numpy(blens).to(dev), self.cfg, self.prefilter)
+            chunks.append((n, HostCopy(packed)))
+        return chunks
+
+    def fetch_arrays(self, chunks) -> dict:
+        """Wait for a `dispatch_arrays` handle; the unpacked result
+        arrays over all chunks (row i = routed read i)."""
+        packed = np.concatenate([copy.numpy()[:n] for n, copy in chunks])
+        return unpack_results(packed)
+
+
 def run_reads(dindex: DeviceIndex, reads, cfg: Config = Config(),
               prefilter: bool = True, batch_size: int | None = None,
               journal=None, times=None, pipeline_depth: int = 2,
-              slowpath=None):
+              slowpath=None, explore: bool | None = None):
     """Host streaming loop: batch (name, seq) reads, run the device step
     `pipeline_depth` batches ahead of the readback, and return the
     ReadCalls in input order.
 
     `slowpath` = (genome, index) enables SPEC §2b multi-hit pairing and
-    the §2 2-mm anchor rescue on the host (models/multihit), which is
-    bit-identical to the reference's device explore program. Without it
-    multi reads keep their single-best device result. With a `journal`
-    (utils.journal.RunJournal) completed batches replay from disk;
-    `times` (utils.profiling.StageTimes) collects per-stage wall time.
+    the §2 2-mm anchor rescue. Without it multi reads keep their
+    single-best device result. `explore` picks where §2b runs: None uses
+    the device program (`DeviceExplorer`) when the index has §2b extras,
+    else the host twin (models/multihit); True forces the device program
+    (ValueError without extras); False forces the host twin. All three
+    give the same calls. The 2-mm rescue always runs on the host. With a
+    `journal` (utils.journal.RunJournal) completed batches replay from
+    disk; `times` (utils.profiling.StageTimes) collects per-stage wall
+    time.
     """
     import contextlib
     from collections import deque
@@ -374,12 +470,24 @@ def run_reads(dindex: DeviceIndex, reads, cfg: Config = Config(),
     done = journal.completed_batches() if journal is not None else {}
     batch_id = 0
     inflight: deque = deque()   # (batch_id, records, HostCopy, arr, lens)
+    if explore is None:
+        explore = slowpath is not None and dindex.ext is not None
+    explorer = DeviceExplorer(dindex, cfg, prefilter) if explore else None
+    # Batches whose routed reads await explore results, one stage behind
+    # detect: (batch_id, batch_calls with None slots, slots, handle).
+    finishing: deque = deque()
 
     def timed(name):
         return times.stage(name) if times is not None \
             else contextlib.nullcontext()
 
-    def finish(this_id, batch_calls) -> None:
+    def finalize() -> None:
+        this_id, batch_calls, route_slots, handle = finishing.popleft()
+        if handle is not None:
+            with timed("explore_multihit"):
+                calls = explorer.fetch(handle)
+            for slot, call in zip(route_slots, calls):
+                batch_calls[slot] = call
         if journal is not None and this_id is not None:
             journal.record(this_id, batch_calls)
         if times is not None and this_id is not None:
@@ -389,12 +497,24 @@ def run_reads(dindex: DeviceIndex, reads, cfg: Config = Config(),
     def consume() -> None:
         this_id, records, copy, arr, blens = inflight.popleft()
         if copy is None:            # journal replay / loose ReadCalls
-            finish(None, records)
-            return
+            finishing.append((None, records, (), None))
+        else:
+            finishing.append((this_id, *recall(records, copy, arr, blens)))
+        # One explore-pending batch stays in flight, so its program
+        # overlaps the next detect batch.
+        while len(finishing) > 1:
+            finalize()
+
+    def recall(records, copy, arr, blens):
+        """A detect batch's calls: rescued reads re-called on the host
+        now, routed reads dispatched to the explorer (their slots stay
+        None until finalize)."""
         with timed("device_detect"):
             res = redo_if_overflow(dindex, unpack_results(copy.numpy()),
                                    arr, blens, cfg, prefilter)
         batch_calls: list[ReadCall] = []
+        route_slots: list[int] = []
+        routed: list[tuple[str, str]] = []
         rescue_slots: list[int] = []
         rescued: list[tuple[str, str]] = []
         for i, (name, seq) in enumerate(records):
@@ -404,13 +524,20 @@ def run_reads(dindex: DeviceIndex, reads, cfg: Config = Config(),
                     and res["multi"][i] & 2):
                 # §2 2-mm anchor rescue [FROZEN v4], batched below; only
                 # reads whose mate anchor aligned can pass its mate gate.
+                # It precedes §2b: the explore program knows only the
+                # <=1-mm ball.
                 rescue_slots.append(len(batch_calls))
                 rescued.append((name, seq))
                 batch_calls.append(None)
                 continue
-            if (slowpath is not None and res["multi"][i] & 1
-                    and status != ST_PREFILTERED):
+            if ((slowpath is not None or explorer is not None)
+                    and res["multi"][i] & 1 and status != ST_PREFILTERED):
                 # SPEC §2b: anchor best-hit tie -> pair exploration.
+                if explorer is not None:
+                    route_slots.append(len(batch_calls))
+                    routed.append((name, seq))
+                    batch_calls.append(None)
+                    continue
                 from find_circ2_tpu.models.multihit import call_read_multi
                 with timed("slowpath_multihit"):
                     batch_calls.append(call_read_multi(
@@ -425,7 +552,11 @@ def run_reads(dindex: DeviceIndex, reads, cfg: Config = Config(),
                                                rescued, cfg, prefilter)
             for slot, call in zip(rescue_slots, calls):
                 batch_calls[slot] = call
-        finish(this_id, batch_calls)
+        handle = None
+        if routed:
+            with timed("explore_dispatch"):
+                handle = explorer.dispatch(routed)
+        return batch_calls, route_slots, handle
 
     def flush() -> None:
         nonlocal batch_id
@@ -441,13 +572,8 @@ def run_reads(dindex: DeviceIndex, reads, cfg: Config = Config(),
                     f"input has {len(buf)}: input changed since journal")
             inflight.append((this_id, replay, None, None, None))
         else:
-            arr = np.full((bs, Lp), RPAD_CODE, dtype=np.uint8)
-            lens = np.zeros(bs, np.int32)
             with timed("encode"):
-                for i, (_, seq) in enumerate(buf):
-                    codes = seq_to_codes(seq)
-                    arr[i, :codes.size] = codes
-                    lens[i] = codes.size
+                arr, lens = encode_batch([seq for _, seq in buf], bs, Lp)
             with timed("device_dispatch"):
                 copy = HostCopy(dispatch_packed(dindex, arr, lens, cfg,
                                                 prefilter))
@@ -477,4 +603,6 @@ def run_reads(dindex: DeviceIndex, reads, cfg: Config = Config(),
     flush()
     while inflight:
         consume()
+    while finishing:
+        finalize()
     return out

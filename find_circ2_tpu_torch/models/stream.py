@@ -1,11 +1,14 @@
 """Production streaming path (reference: find_circ2_tpu/models/stream.py):
 FASTQ file -> device batches with the native C loader, no per-read
-Python objects except for junction-supporting and host-routed reads.
+Python objects except for junction-supporting and host-rescued reads.
 
 `run_fastq` gives results identical to pipeline.run_reads (the tests
 compare BED bytes). Each batch's packed rows come back through a
 non-blocking copy into pinned memory with a CUDA event, waited on only
-when the batch is consumed `pipeline_depth` batches later.
+when the batch is consumed `pipeline_depth` batches later. Routed §2b
+reads go to the device explore program (pipeline.DeviceExplorer) from
+the batch's encoded rows, and their results are aggregated as arrays
+`pipeline_depth` batches later again.
 """
 
 from __future__ import annotations
@@ -23,16 +26,17 @@ from find_circ2_tpu.config import (RPAD_CODE, Config, ST_JUNCTION,
 from find_circ2_tpu.io.twobit import _CODE_LUT, codes_to_seq
 from find_circ2_tpu.models.aggregate import Aggregator, seq_hash_batch
 from find_circ2_tpu.models.oracle import ReadCall
-from find_circ2_tpu_torch.models.pipeline import (DeviceIndex, HostCopy,
-    dispatch_packed, redo_if_overflow, revcomp_batch, unpack_results)
+from find_circ2_tpu_torch.models.pipeline import (DeviceExplorer,
+    DeviceIndex, HostCopy, dispatch_packed, redo_if_overflow, revcomp_batch,
+    unpack_results)
 
 CHUNK = 16 << 20  # bytes per read(2) chunk
 
 
 class _RescuePool:
-    """One forked worker that runs the batched host re-calls (2-mm
-    rescue and §2b multi-hit, models/multihit.call_reads_multi_batch)
-    off the critical path. Fork shares genome and index copy-on-write;
+    """One forked worker that runs the batched host re-calls (the 2-mm
+    rescue, and §2b multi-hit when explore is off;
+    models/multihit.call_reads_multi_batch) off the critical path. Fork shares genome and index copy-on-write;
     the child runs numpy only and never touches CUDA or torch. Any
     failure (no fork, crash, timeout) permanently falls back to
     in-process calls — results are identical either way."""
@@ -125,14 +129,21 @@ def run_fastq(dindex: DeviceIndex, path, agg: Aggregator,
               cfg: Config = Config(), prefilter: bool = True,
               batch_size: int | None = None, times=None,
               pipeline_depth: int = 4, slowpath=None,
-              journal=None, revcomp: bool = False) -> None:
+              journal=None, revcomp: bool = False,
+              explore: bool | None = None) -> None:
     """Stream a FASTQ(.gz) file through the device pipeline into `agg`.
 
     Dispatch runs `pipeline_depth` batches ahead of the readback.
     Aggregation is order-insensitive, so consumption order does not
-    affect output. `slowpath` = (genome, index) enables the host §2b
-    multi-hit pairing and §2 2-mm rescue (models/multihit), run in a
-    forked worker when one can start. `journal` (utils.journal
+    affect output. `slowpath` = (genome, index) enables §2b multi-hit
+    pairing and the §2 2-mm rescue; the rescue runs on the host
+    (models/multihit), in a forked worker when one can start. `explore`
+    picks where §2b runs, as in pipeline.run_reads: None uses the device
+    program when the index has §2b extras, True forces it (ValueError
+    without extras), False sends routed reads to the host twin. Without a
+    journal the device program takes the batch's encoded rows and its
+    results are aggregated as arrays; with one it re-calls per read, so
+    the replay records stay complete. `journal` (utils.journal
     .RunJournal): completed batches replay from compact FastBatch
     records on rerun. `revcomp=True` reverse-complements every read
     after encoding (the --pe mate-2 transform, SPEC.md §7)."""
@@ -147,15 +158,18 @@ def run_fastq(dindex: DeviceIndex, path, agg: Aggregator,
     inflight: deque = deque()   # (batch_id, buf, spans, sel, copy, arr, lens)
     done = journal.completed_batches() if journal is not None else {}
     next_batch_id = 0
+    if explore is None:
+        explore = slowpath is not None and dindex.ext is not None
+    explorer = DeviceExplorer(dindex, cfg, prefilter) if explore else None
     rpool = None
     if (slowpath is not None and cfg.rescue_anchor_mm >= 2
             and journal is None):
         rpool = _RescuePool(slowpath[0], slowpath[1], cfg, prefilter)
         if rpool.pool is None:
             rpool = None
-    # Batches whose host re-calls are still running:
+    # Batches whose host re-calls or explore programs are still running:
     # (batch_id, n_reads, counts, batch_calls, rescue_handle,
-    #  multihit_handle)
+    #  multihit_handle, explore_handle, routed_hashes)
     finishing: deque = deque()
 
     def timed(name):
@@ -163,14 +177,32 @@ def run_fastq(dindex: DeviceIndex, path, agg: Aggregator,
             else contextlib.nullcontext()
 
     def finalize() -> None:
-        batch_id, n_reads, counts, batch_calls, rhandle, mhandle = \
-            finishing.popleft()
+        batch_id, n_reads, counts, batch_calls, rhandle, mhandle, \
+            xhandle, rhashes = finishing.popleft()
         if rhandle is not None:
             with timed("slowpath_rescue"):
                 batch_calls = batch_calls + rpool.fetch(rhandle)
         if mhandle is not None:
             with timed("slowpath_multihit"):
                 batch_calls = batch_calls + rpool.fetch(mhandle)
+        if xhandle is not None and rhashes is not None:
+            # Array-mode explore: the rows aggregate through add_batch
+            # with the hashes of the batch's encoded rows; the other
+            # statuses are counted in bulk.
+            with timed("explore_multihit"):
+                resx = explorer.fetch_arrays(xhandle)
+            with timed("aggregate"):
+                st_x = resx["status"]
+                jm = st_x == ST_JUNCTION
+                agg.add_batch(resx, np.flatnonzero(jm), rhashes[jm])
+                rest = st_x[~jm]
+                if rest.size:
+                    agg.stats.add("reads_total", int(rest.size))
+                for st in np.unique(rest):
+                    agg.stats.add_status(int(st), int((rest == st).sum()))
+        elif xhandle is not None:
+            with timed("explore_multihit"):
+                batch_calls = batch_calls + explorer.fetch(xhandle)
         with timed("aggregate"):
             for call in batch_calls:
                 agg.add(call)
@@ -225,7 +257,7 @@ def run_fastq(dindex: DeviceIndex, path, agg: Aggregator,
                           & ((multi & 2) != 0))
             else:
                 rescue = np.zeros(sel.size, bool)
-            if slowpath is not None:
+            if slowpath is not None or explorer is not None:
                 route = ((multi & 1) != 0) & (status != ST_PREFILTERED) \
                     & ~rescue
             else:
@@ -252,14 +284,23 @@ def run_fastq(dindex: DeviceIndex, path, agg: Aggregator,
                 return buf[spans[k, 0]:spans[k, 1]].decode("ascii")
 
             batch_calls: list[ReadCall] = []
+            ridx_route = np.nonzero(route)[0]
             jidx = np.nonzero((status == ST_JUNCTION) & ~route)[0]
+            array_explore = (explorer is not None and journal is None
+                             and ridx_route.size > 0)
+            rhashes = None
             if journal is None:
                 # Vectorized junction aggregation: one update per
                 # distinct junction; journal runs keep per-read calls
-                # so replay records stay complete.
-                hh = (seq_hash_batch(arr[jidx]) if jidx.size
+                # so replay records stay complete. Routed rows are
+                # hashed here too, for array-mode explore.
+                need = (np.concatenate([jidx, ridx_route]) if array_explore
+                        else jidx)
+                hh = (seq_hash_batch(arr[need]) if need.size
                       else np.empty(0, np.uint64))
-                agg.add_batch(res, jidx, hh)
+                agg.add_batch(res, jidx, hh[:jidx.size])
+                if array_explore:
+                    rhashes = hh[jidx.size:]
                 jidx = jidx[:0]
             for i in jidx:
                 batch_calls.append(ReadCall(
@@ -278,25 +319,34 @@ def run_fastq(dindex: DeviceIndex, path, agg: Aggregator,
                     qual_right=int(res["qual_right"][i]),
                     signal=codes_to_seq(res["signal"][i]),
                 ))
-        # §2b multi-hit pair exploration and the 2-mm rescue run on the
-        # host twin (models/multihit), one batched call each.
-        mhandle = rhandle = None
-        ridx_route = np.nonzero(route)[0]
-        if ridx_route.size:
-            mhandle, calls = host_recall(
-                [(read_name(i), read_seq(i)) for i in ridx_route],
-                "slowpath_multihit")
-            batch_calls.extend(calls)
+        # The 2-mm rescue runs on the host (models/multihit), one batched
+        # call per batch; it is submitted first, so the worker starts on
+        # it while the device explores.
+        mhandle = rhandle = xhandle = None
         ridx = np.nonzero(rescue)[0]
         if ridx.size:
             rhandle, calls = host_recall(
                 [(read_name(i), read_seq(i)) for i in ridx],
                 "slowpath_rescue")
             batch_calls.extend(calls)
+        if array_explore:
+            with timed("explore_dispatch"):
+                xhandle = explorer.dispatch_arrays(arr[ridx_route],
+                                                   blens[ridx_route])
+        elif explorer is not None and ridx_route.size:
+            with timed("explore_dispatch"):
+                xhandle = explorer.dispatch(
+                    [(read_name(i), read_seq(i)) for i in ridx_route])
+        elif ridx_route.size:
+            # explore=False: §2b on the host twin.
+            mhandle, calls = host_recall(
+                [(read_name(i), read_seq(i)) for i in ridx_route],
+                "slowpath_multihit")
+            batch_calls.extend(calls)
         finishing.append((batch_id, int(sel.size), counts, batch_calls,
-                          rhandle, mhandle))
-        # Keep host re-calls in flight so the worker overlaps later
-        # batches — the same depth as the detect pipeline.
+                          rhandle, mhandle, xhandle, rhashes))
+        # Keep host re-calls and explore programs in flight so they
+        # overlap later batches — the same depth as the detect pipeline.
         while len(finishing) > pipeline_depth:
             finalize()
 

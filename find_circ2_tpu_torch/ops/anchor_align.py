@@ -128,31 +128,44 @@ def variant_metadata(cfg: Config, device=None):
     return mm_one.repeat(2), strand_v
 
 
-def candidate_stats(table, meta, anchors, cfg: Config):
+def candidate_stats(table, meta, anchors, cfg: Config, ext=None,
+                    ext_id=None):
     """Per-variant (count, first_pos) [B, 2V] — first V slots the '+'
     strand variants, last V their reverse complements — plus the static
     (mm_v, strand_v) [2V]. Two 32-byte bucket rows per canonical
-    variant, each serving both strand slots."""
+    variant, each serving both strand slots.
+
+    With the §2b extras (`ext` int32 [R, 2*(K-1)] holding uint32 bit
+    patterns, `ext_id` int32 [T, SLOTS]; ops/explore), a fifth value
+    `extras` int64 [B, 2V, K-1] holds each strand slot's positions 2..K
+    of its hit list (LARGE_POS padded): the matching slot's ext row id,
+    then that row, swapped into '+'/'-' slots like count/first_pos."""
     p12, s8, p12r, s8r, valid = enumerate_variants(anchors, cfg)
     swap, cp, cs = _canonical((p12, s8), (p12r, s8r))
-    ((g1, g2),) = _bucket_rows((table,), cp, cs, meta)
+    want_ext = ext is not None
+    rows = _bucket_rows((table, ext_id) if want_ext else (table,), cp, cs,
+                        meta)
 
-    def probe(g):
+    def probe(g, e):
         g = g.reshape(*cp.shape, SLOTS, LANES)
         packed = g[..., 1]
         m = (g[..., 0] == cp[..., None]) & ((packed & S8_MASK)
                                             == cs[..., None])
         cf = (packed >> 16) & CNT_MASK
         cr = (packed >> (16 + CNT_BITS)) & CNT_MASK
+        # ext row id of the matching slot (0 = none): a key lives in at
+        # most one slot, so the masked sum is exact.
+        rid = None if e is None else torch.where(m, e, 0).sum(-1)
         return (torch.where(m, cf, 0).sum(-1),
                 torch.where(m, _u32(g[..., 2]), LARGE_POS).amin(-1),
                 torch.where(m, cr, 0).sum(-1),
-                torch.where(m, _u32(g[..., 3]), LARGE_POS).amin(-1))
+                torch.where(m, _u32(g[..., 3]), LARGE_POS).amin(-1), rid)
 
     # A key lives in at most one of its two buckets, so adding counts
-    # and taking position minima over the probes is exact.
-    cf1, pf1, cr1, pr1 = probe(g1)
-    cf2, pf2, cr2, pr2 = probe(g2)
+    # and ext row ids and taking position minima over the probes is exact.
+    e1, e2 = rows[1] if want_ext else (None, None)
+    cf1, pf1, cr1, pr1, rid1 = probe(rows[0][0], e1)
+    cf2, pf2, cr2, pr2, rid2 = probe(rows[0][1], e2)
     cnt_f, cnt_r = cf1 + cf2, cr1 + cr2
     pos_f, pos_r = torch.minimum(pf1, pf2), torch.minimum(pr1, pr2)
     count = torch.cat([torch.where(swap, cnt_r, cnt_f),
@@ -163,7 +176,15 @@ def candidate_stats(table, meta, anchors, cfg: Config):
     # Repetitive-20-mer guard [FROZEN].
     count = torch.where(count > cfg.max_bucket, 0, count).to(torch.int32)
     mm_v, strand_v = variant_metadata(cfg, anchors.device)
-    return count, first_pos, mm_v, strand_v
+    if not want_ext:
+        return count, first_pos, mm_v, strand_v
+    K1 = cfg.max_pair_hits - 1
+    x = _u32(gather_rows(ext, (rid1 + rid2).reshape(-1))
+             ).reshape(*cp.shape, 2 * K1)
+    sw = swap[..., None]
+    extras = torch.cat([torch.where(sw, x[..., K1:], x[..., :K1]),
+                        torch.where(sw, x[..., :K1], x[..., K1:])], dim=1)
+    return count, first_pos, mm_v, strand_v, extras
 
 
 def finalize_hits(count, first_pos, mm_v, strand_v, cfg: Config

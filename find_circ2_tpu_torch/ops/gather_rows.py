@@ -1,13 +1,15 @@
-"""K1's bucket-row gather, `table[idx]`, as a hand-written CUDA kernel.
+"""The row gather `table[idx]` as a hand-written CUDA kernel.
 
 Replaces `find_circ2_tpu/ops/pallas_k1.py:gather_rows_pallas` (there a
 DEPTH-8 chain of per-row DMAs, kept off the TPU's main path); here it is
 on the main path, as every table and neighbour-table row fetch of
-`ops/anchor_align`. K1 rows are 32 bytes (`hashtable.SLOTS * LANES` and
-`SLOTS * NBR_LANES` int32 lanes) fetched at hashed, random indices, so
-each row costs one random DRAM sector: the kernel is bound by sector
-reads in flight, not by bandwidth, and keeps many independent 16-byte
-loads in flight (csrc/gather_rows.cu).
+`ops/anchor_align` and the §2b extras fetches of `ops/explore`. Rows are
+fetched at hashed or random indices, so each row costs one random DRAM
+sector: the kernel is bound by sector reads in flight, not by bandwidth,
+and keeps many independent loads in flight (csrc/gather_rows.cu). Rows
+of a multiple of 16 bytes (K1's 32-byte rows) move as 16-byte vectors,
+any other width (explore's 8-byte `ext_id` and 120-byte `ext` rows) as
+4-byte words.
 
 A CPU tensor takes the plain version, `gather_rows_ref`; a CUDA tensor
 launches the kernel or raises.
@@ -29,8 +31,8 @@ def gather_rows_ref(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
 
 
 def gather_rows(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
-    """table[idx] for int32 `table` [T, W] (W*4 a multiple of 16,
-    contiguous) and int32/int64 `idx` [n]; returns int32 [n, W]."""
+    """table[idx] for a contiguous int32 `table` [T, W] (any W >= 1) and
+    int32/int64 `idx` [n]; returns int32 [n, W]."""
     if table.device.type == "cpu" and idx.device.type == "cpu":
         return gather_rows_ref(table, idx)
     if table.device.type != "cuda" or idx.device != table.device:
@@ -38,9 +40,8 @@ def gather_rows(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
                          f"{idx.device}; both must be on one CUDA device")
     if table.dtype != torch.int32 or table.dim() != 2:
         raise ValueError("gather_rows: table must be int32 [T, W]")
-    if (table.shape[1] * 4) % 16 or not table.is_contiguous():
-        raise ValueError("gather_rows: rows must be contiguous multiples "
-                         "of 16 bytes")
+    if table.shape[1] < 1 or not table.is_contiguous():
+        raise ValueError("gather_rows: rows must be contiguous, W >= 1")
     if idx.dim() != 1 or idx.dtype not in (torch.int32, torch.int64):
         raise ValueError("gather_rows: idx must be int32/int64 [n]")
     lib = _build.load()

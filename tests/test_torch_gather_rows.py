@@ -43,6 +43,20 @@ def test_gather_rows_ragged_matches_take(n):
     assert np.array_equal(got.numpy(), np.take(table, idx, axis=0))
 
 
+@pytest.mark.parametrize("width,n", [(2, 1), (2, 1037), (30, 37),
+                                     (30, 1037)])
+def test_gather_rows_any_width_matches_take(width, n):
+    """Rows of any width (§2b explore's 8-byte ext_id and 120-byte ext
+    rows) against jnp.take, ragged n."""
+    rng = np.random.default_rng(width * n)
+    table = _table(rng, rows=777, width=width)
+    idx = rng.integers(0, table.shape[0], size=n).astype(np.int32)
+    want = np.asarray(jnp.take(jnp.asarray(table), jnp.asarray(idx), axis=0))
+    got = gr.gather_rows(torch.from_numpy(table), torch.from_numpy(idx))
+    assert got.shape == (n, width)
+    assert np.array_equal(got.numpy(), want)
+
+
 def test_gather_rows_off_cpu_never_falls_back():
     """A tensor that is not on the CPU launches the kernel or raises;
     it never takes the plain version."""
@@ -66,3 +80,32 @@ def test_gather_rows_kernel_matches_plain_on_card(cuda_device):
         torch.cuda.synchronize()
         assert torch.equal(got, gr.gather_rows_ref(table, idx))
     assert gr.launches == before + 3
+
+
+@pytest.mark.cuda
+def test_gather_rows_kernel_at_explore_shapes_on_card(cuda_device):
+    """The kernel's word path at §2b explore's shapes (one 1024-read
+    chunk, one anchor side): ext_id rows (W=2, n=124,928) and ext rows
+    (W=30, n=62,464), exact against index_select, timed with CUDA
+    events."""
+    g = torch.Generator(device=cuda_device).manual_seed(1)
+    for width, rows, n in ((2, 1 << 23, 124_928), (30, 1 << 20, 62_464)):
+        table = torch.randint(-2 ** 31, 2 ** 31 - 1, (rows, width),
+                              dtype=torch.int32, device=cuda_device,
+                              generator=g)
+        idx = torch.randint(0, rows, (n,), device=cuda_device, generator=g)
+        got = gr.gather_rows(table, idx)
+        torch.cuda.synchronize()
+        assert torch.equal(got, gr.gather_rows_ref(table, idx))
+        ms = {}
+        for name, fn in (("kernel", gr.gather_rows),
+                         ("index_select", gr.gather_rows_ref)):
+            start = torch.cuda.Event(enable_timing=True)
+            stop = torch.cuda.Event(enable_timing=True)
+            start.record()
+            for _ in range(50):
+                fn(table, idx)
+            stop.record()
+            torch.cuda.synchronize()
+            ms[name] = start.elapsed_time(stop) / 50
+        print(f"gather_rows W={width} n={n}: {ms}")

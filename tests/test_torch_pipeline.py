@@ -63,8 +63,11 @@ def test_build_matches_from_reference(lib):
     assert built.nbases == td.nbases
     n = built.words.shape[0]
     assert torch.equal(built.words, td.words[:n])
-    for f in ("table", "meta", "chrom_offsets", "ntable"):
+    assert built.ext is not None and built.ext_id is not None
+    for f in ("table", "meta", "chrom_offsets", "ntable", "ext", "ext_id"):
         assert torch.equal(getattr(built, f), getattr(td, f)), f
+    # ext rows keep the reference's uint32 bit patterns.
+    assert np.array_equal(td.ext.numpy().view(np.uint32), np.asarray(jd.ext))
 
 
 @pytest.mark.parametrize("prefilter", [True, False])
@@ -115,26 +118,63 @@ def _render(agg):
     return buf.getvalue(), sorted(agg.stats.counts.items())
 
 
-@pytest.mark.parametrize("slowpath", [False, True])
-def test_run_fastq_matches_jax(lib, tmp_path, slowpath):
-    """The port's streaming loop against the reference's on one FASTQ
-    (as tests/test_native.py): same BED and stats. With the slow path,
-    the reference explores §2b on its device program, the port on the
-    host twin."""
-    sim, index, jd, td = lib
+def _fastq(sim, tmp_path):
     reads = list(sim.reads) + [("tiny", "ACGT" * 8), ("huge", "ACGT" * 50)]
     fq = tmp_path / "r.fastq"
     with open(fq, "wt") as fh:
         for name, seq in reads:
             write_fastq(fh, FastqRecord(name, seq, "I" * len(seq)))
+    return fq
+
+
+@pytest.mark.parametrize("slowpath,explore", [
+    pytest.param(False, None, id="False"),
+    pytest.param(True, None, id="True"),
+    pytest.param(True, False, id="True-explore_off")])
+def test_run_fastq_matches_jax(lib, tmp_path, slowpath, explore):
+    """The port's streaming loop against the reference's on one FASTQ
+    (as tests/test_native.py): same BED and stats. With the slow path,
+    the reference explores §2b on its device program; the port does too
+    (explore None: array-mode DeviceExplorer), or on the host twin
+    (explore False)."""
+    from find_circ2_tpu.utils.profiling import StageTimes
+    sim, index, jd, td = lib
+    fq = _fastq(sim, tmp_path)
     sp = (sim.genome, index) if slowpath else None
     agg_j = Aggregator(sim.genome, CFG)
     jrun_fastq(jd, fq, agg_j, CFG, slowpath=sp)
     agg_t = Aggregator(sim.genome, CFG)
-    run_fastq(td, fq, agg_t, CFG, slowpath=sp)
+    times = StageTimes()
+    run_fastq(td, fq, agg_t, CFG, slowpath=sp, explore=explore, times=times)
     bed, stats = _render(agg_t)
     assert (bed, stats) == _render(agg_j)
     assert bed.count("\n") > 5
+    device = {"explore_dispatch", "explore_multihit"} <= set(times.counts)
+    host = "slowpath_multihit" in times.counts
+    assert (device, host) == (slowpath and explore is None,
+                              slowpath and explore is False)
+
+
+def test_run_fastq_journal_explores_per_read(lib, tmp_path):
+    """With a journal, routed reads take the per-read explore mode
+    (ReadCalls for the replay records); BED and stats equal the
+    reference's, on the first run and on the replay."""
+    from find_circ2_tpu.utils.journal import RunJournal
+    from find_circ2_tpu.utils.profiling import StageTimes
+    sim, index, jd, td = lib
+    fq = _fastq(sim, tmp_path)
+    sp = (sim.genome, index)
+    agg_j = Aggregator(sim.genome, CFG)
+    jrun_fastq(jd, fq, agg_j, CFG, slowpath=sp)
+    want = _render(agg_j)
+    for run in range(2):
+        agg_t = Aggregator(sim.genome, CFG)
+        times = StageTimes()
+        run_fastq(td, fq, agg_t, CFG, slowpath=sp, times=times,
+                  journal=RunJournal(str(tmp_path / "j.jsonl")))
+        assert _render(agg_t) == want
+        assert ("explore_dispatch" in times.counts) == (run == 0)
+        assert "slowpath_multihit" not in times.counts
 
 
 def test_run_reads_matches_oracle_on_simulated_reads():
