@@ -7,8 +7,10 @@ Phases, each fatal on failure:
   1. the card (name and power limit from nvidia-smi), torch and CUDA;
   2. build the CUDA kernels from find_circ2_tpu_torch/csrc/;
   3. every kernel against its plain PyTorch version on the card, exactly,
-     at the main path's shapes (detect's 32-byte rows, §2b explore's 8-
-     and 120-byte rows), with CUDA-event times of both;
+     at every vector path and at the main path's shapes (detect's 32-byte
+     rows, §2b explore's 8- and 120-byte rows, on tables larger than the
+     L2), each timed as called (CUDA events) and on the device alone
+     (CUDA-graph replay) beside its bytes bound;
   4. the port's `find_circ` CLI on test_data/ must reproduce the golden
      BED and stats byte for byte;
   5. the main path at real size: `run --filter` on the 16 Mbp RNase-R
@@ -55,6 +57,11 @@ EXPLORE_READS = 1024
 # pipeline_recall). They are outputs of the frozen algorithm, which the
 # port reproduces bit for bit, so any difference is a fault.
 EXPECT_PRECISION, EXPECT_RECALL = 0.9998, 0.9152
+# Phase 3: the H100 SXM's HBM rate (NVIDIA's data sheet), its L2 size,
+# and the replays of each timed CUDA graph.
+HBM_BYTES_PER_S = 3.35e12
+L2_BYTES = 50 << 20
+GRAPH_REPLAYS = 5
 
 
 def fail(msg: str) -> None:
@@ -90,70 +97,175 @@ def cuda_ms(fn, iters: int) -> float:
     return start.elapsed_time(stop) / iters
 
 
-def check_gather_rows(device) -> dict:
-    """gather_rows vs gather_rows_ref, exactly, at the main path's call
-    shapes. Detect: an int32 [2^24, 8] table (512 MiB, far beyond L2)
-    at one batch's calls (exact stats: 2 probes x 2B anchors, once per
-    table; the enumeration fallback: 2 probes x min(slots, 2B) anchors x
-    V variants), both tables' exact-stats rows together, and a ragged
-    2^20 + 37. Explore, per 1024-read chunk and anchor side: table rows
-    (W=8) and ext_id rows (W=2, an [2^24, 2] table) at 2 x 1024 x V, ext
-    rows (W=30, an [2^21, 30] table) at 1024 x V. Returns the times of
-    one detect batch's three calls and of one explore chunk's six."""
+def graph_ms(fn, idxs) -> float:
+    """Device milliseconds per call with the host out of the way: one
+    call of fn per index set, all captured in one CUDA graph (outputs kept
+    alive, so each call writes its own memory) and the graph replayed."""
     import torch
-    from find_circ2_tpu.config import Config
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn(idxs[0])
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    keep = []
+    with torch.cuda.graph(graph):
+        for idx in idxs:
+            keep.append(fn(idx))
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    stop = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(GRAPH_REPLAYS):
+        graph.replay()
+    stop.record()
+    torch.cuda.synchronize()
+    ms = start.elapsed_time(stop) / (GRAPH_REPLAYS * len(idxs))
+    del graph, keep
+    torch.cuda.empty_cache()
+    return ms
+
+
+def called_ms(fn, idxs) -> float:
+    """Milliseconds per call as a caller sees them: CUDA events around
+    back-to-back calls from Python over the index sets, host cost
+    included; the least of three runs, since the host clock is noisy."""
+    return min(cuda_ms(lambda: [fn(i) for i in idxs], 2)
+               for _ in range(3)) / len(idxs)
+
+
+def check_vector_paths(device) -> None:
+    """Every vector path of the kernel, exactly against index_select:
+    16-, 8- and 4-byte rows with the vectors per row fixed and at run
+    time, views whose base is not aligned for the wider vector, int32 and
+    int64 indices, n = 1 and ragged n."""
+    import torch
     from find_circ2_tpu_torch.ops import gather_rows as gr
+    g = torch.Generator(device=device).manual_seed(1)
+    for width in (1, 2, 3, 6, 8, 12, 30):
+        for offset in (0, 1, 2):
+            flat = torch.randint(-2 ** 31, 2 ** 31 - 1,
+                                 ((1 << 16) * width + offset,),
+                                 dtype=torch.int32, device=device,
+                                 generator=g)
+            tab = flat[offset:].view(1 << 16, width)
+            for n, dtype in ((1, torch.int32), (4097, torch.int64),
+                             ((1 << 20) + 37, torch.int32)):
+                idx = torch.randint(0, 1 << 16, (n,), device=device,
+                                    generator=g).to(dtype)
+                got = gr.gather_rows(tab, idx)
+                torch.cuda.synchronize()
+                if not torch.equal(got, gr.gather_rows_ref(tab, idx)):
+                    fail(f"gather_rows differs from index_select at "
+                         f"W={width}, base +{4 * offset} bytes, n={n}, "
+                         f"{dtype}")
+    log("gather_rows equals index_select at W = 1, 2, 3, 6, 8, 12, 30, "
+        "aligned and misaligned views, int32 and int64 idx, n = 1, 4097 "
+        "and 2^20 + 37")
+
+
+def check_gather_rows(device, card: str) -> dict:
+    """gather_rows and gather_rows_multi against their plain versions,
+    exactly, at every call shape of the main path, on tables larger than
+    the 50 MB L2: [2^24, 8] (two of them: table and neighbour table),
+    [2^24, 2] (ext_id) and [2^21, 30] (ext). Per detect batch: the exact
+    statistics gather both tables' rows at 2 probes x 2B anchors
+    (multi, W = 8 and 8) and the enumeration fallback the table's (multi
+    with one table) at 2 probes x min(slots, 2B) anchors x V variants.
+    Per 1024-read explore chunk and anchor side: table and ext_id rows at
+    2 x 1024 x V (multi, W = 8 and 2), ext rows at 1024 x V. The
+    single-table W = 8 and W = 2 calls at the old design's shapes, and
+    W = 8 at 2^20 rows (where the launch floor no longer counts), are
+    timed too, outside the sums. Each shape is timed as called and
+    on the device alone (graph_ms), the kernel and its plain version in
+    turn, over enough distinct index sets that their rows exceed the L2
+    four times; the bound is its bytes (each index read once, each row
+    read once and written once) over HBM_BYTES_PER_S."""
+    import torch
+    from find_circ2_tpu_torch.config import Config
+    from find_circ2_tpu_torch.ops import gather_rows as gr
+    check_vector_paths(device)
     cfg = Config()
     B, V = cfg.batch_size, 1 + 3 * cfg.anchor_len
     exact_n = 2 * 2 * B
     fallback_n = 2 * min(cfg.exact_fallback_slots, 2 * B) * V
-    chunk = EXPLORE_READS * V
+    side_n = 2 * EXPLORE_READS * V
+    ext_n = EXPLORE_READS * V
     g = torch.Generator(device=device).manual_seed(0)
 
     def table(rows, width):
         return torch.randint(-2 ** 31, 2 ** 31 - 1, (rows, width),
                              dtype=torch.int32, device=device, generator=g)
 
-    out = {"max_abs_err": 0}
-    times = {}
-    detect_ns = dict.fromkeys((exact_n, fallback_n, 2 * exact_n,
-                               2 * chunk, (1 << 20) + 37))
-    for width, rows, ns in ((8, 1 << 24, detect_ns),
-                            (2, 1 << 24, (2 * chunk,)),
-                            (30, 1 << 21, (chunk,))):
-        tab = table(rows, width)
-        for n in ns:
-            idx = torch.randint(0, rows, (n,), device=device, generator=g)
-            got = gr.gather_rows(tab, idx)
-            want = gr.gather_rows_ref(tab, idx)
-            torch.cuda.synchronize()
-            err = int((got.to(torch.int64) - want.to(torch.int64)).abs()
-                      .max())
-            if err or not torch.equal(got, want):
-                fail(f"gather_rows differs from index_select at W={width} "
-                     f"n={n}")
+    tables = {"table": table(1 << 24, 8), "ntable": table(1 << 24, 8),
+              "ext_id": table(1 << 24, 2), "ext": table(1 << 21, 30)}
+    # (wrapper, tables, n, calls per detect batch + one explore chunk)
+    shapes = [("gather_rows_multi", ("table", "ntable"), exact_n, 1),
+              ("gather_rows_multi", ("table",), fallback_n, 1),
+              ("gather_rows_multi", ("table", "ext_id"), side_n, 2),
+              ("gather_rows", ("ext",), ext_n, 2),
+              ("gather_rows", ("table",), exact_n, 0),
+              ("gather_rows", ("ext_id",), side_n, 0),
+              ("gather_rows", ("table",), 1 << 20, 0)]
+    out = {"max_abs_err": 0, "shapes": []}
+    for name, names, n, calls in shapes:
+        tabs = [tables[t] for t in names]
+        rows = tabs[0].shape[0] if len(tabs) == 1 else min(
+            t.shape[0] for t in tabs)
+        sectors = sum(32 * -(-t.shape[1] * 4 // 32) for t in tabs)
+        n_sets = max(50, -(-4 * L2_BYTES // (n * sectors)))
+        idxs = [torch.randint(0, rows, (n,), device=device, generator=g)
+                for _ in range(n_sets)]
+        if name == "gather_rows":
+            kernel = lambda i, t=tabs[0]: gr.gather_rows(t, i)
+            plain = lambda i, t=tabs[0]: gr.gather_rows_ref(t, i)
+        else:
+            kernel = lambda i: gr.gather_rows_multi(tabs, i)
+            plain = lambda i: gr.gather_rows_multi_ref(tabs, i)
+        got, want = kernel(idxs[0]), plain(idxs[0])
+        got = got if isinstance(got, list) else [got]
+        want = want if isinstance(want, list) else [want]
+        torch.cuda.synchronize()
+        for a, b in zip(got, want):
+            err = int((a.to(torch.int64) - b.to(torch.int64)).abs().max())
+            if err or not torch.equal(a, b):
+                fail(f"{name} differs from index_select at {names} n={n}")
             out["max_abs_err"] = max(out["max_abs_err"], err)
-            # Plain, kernel, kernel, plain: both see the same card state.
-            iters = 200 if n < 1 << 20 else 20
-            p1 = cuda_ms(lambda: gr.gather_rows_ref(tab, idx), iters)
-            k1 = cuda_ms(lambda: gr.gather_rows(tab, idx), iters)
-            k2 = cuda_ms(lambda: gr.gather_rows(tab, idx), iters)
-            p2 = cuda_ms(lambda: gr.gather_rows_ref(tab, idx), iters)
-            times[width, n] = (min(k1, k2), min(p1, p2))
-            log(f"gather_rows W={width} n={n}: kernel "
-                f"{times[width, n][0]:.4f} ms, index_select "
-                f"{times[width, n][1]:.4f} ms (exact match)")
-        del tab
-        torch.cuda.empty_cache()
-    for key, calls in (("", ((8, exact_n), (8, exact_n), (8, fallback_n))),
-                       ("explore_", ((8, 2 * chunk), (2, 2 * chunk),
-                                     (30, chunk)) * 2)):
-        out[key + "ms"], out[key + "plain_ms"] = (
-            sum(times[c][i] for c in calls) for i in (0, 1))
-    log(f"gather_rows, one detect batch's calls: kernel {out['ms']:.4f} ms,"
-        f" index_select {out['plain_ms']:.4f} ms; one explore chunk's "
-        f"calls: kernel {out['explore_ms']:.4f} ms, index_select "
-        f"{out['explore_plain_ms']:.4f} ms")
+        # Plain, kernel, kernel, plain: both see the same card state.
+        p1, k1 = called_ms(plain, idxs), called_ms(kernel, idxs)
+        k2, p2 = called_ms(kernel, idxs), called_ms(plain, idxs)
+        gp1, gk1 = graph_ms(plain, idxs), graph_ms(kernel, idxs)
+        gk2, gp2 = graph_ms(kernel, idxs), graph_ms(plain, idxs)
+        nbytes = n * (idxs[0].element_size()
+                      + sum(2 * 4 * t.shape[1] for t in tabs))
+        rec = dict(name=name, tables=list(names),
+                   widths=[t.shape[1] for t in tabs], n=n, calls=calls,
+                   index_sets=n_sets, bytes=nbytes,
+                   bound_ms=1e3 * nbytes / HBM_BYTES_PER_S,
+                   called_ms=min(k1, k2), plain_called_ms=min(p1, p2),
+                   device_ms=min(gk1, gk2), plain_device_ms=min(gp1, gp2))
+        rec["share"] = rec["bound_ms"] / rec["device_ms"]
+        out["shapes"].append(rec)
+        log(f"{name} {'+'.join(names)} W={rec['widths']} n={n}: as called "
+            f"{rec['called_ms']:.5f} ms vs plain {rec['plain_called_ms']:.5f}"
+            f" ms; device alone {rec['device_ms']:.5f} ms vs plain "
+            f"{rec['plain_device_ms']:.5f} ms; bound {rec['bound_ms']:.5f} "
+            f"ms ({nbytes:,} bytes), {100 * rec['share']:.1f}% of it "
+            f"({n_sets} index sets; exact match) on {card}")
+    del tables
+    torch.cuda.empty_cache()
+    for name in ("gather_rows", "gather_rows_multi"):
+        mine = [r for r in out["shapes"] if r["name"] == name]
+        out[name] = {k: sum(r["calls"] * r[k] for r in mine)
+                     for k in ("called_ms", "plain_called_ms", "device_ms",
+                               "plain_device_ms", "bound_ms")}
+        s = out[name]
+        log(f"{name}, one detect batch's and one explore chunk's calls: "
+            f"device alone {s['device_ms']:.5f} ms vs plain "
+            f"{s['plain_device_ms']:.5f} ms, bound {s['bound_ms']:.5f} ms; "
+            f"as called {s['called_ms']:.5f} ms vs plain "
+            f"{s['plain_called_ms']:.5f} ms on {card}")
     return out
 
 
@@ -201,9 +313,9 @@ def _profile_value(report: str, key: str) -> float:
 def watch_explorer():
     """While the block runs, count what DeviceExplorer.dispatch_arrays
     (every §2b explore chunk of both streaming loops goes through it)
-    does: its calls, routed reads, the gather_rows launches made inside
-    it, and the first EXPLORE_READS routed rows (uint8 codes, int32
-    lengths). Also keep the DeviceIndex and slowpath=(genome, index) that
+    does: its calls, routed reads, the row-gather launches (both
+    wrappers) made inside it, and the first EXPLORE_READS routed rows
+    (uint8 codes, int32 lengths). Also keep the DeviceIndex and slowpath=(genome, index) that
     run_fastq was given. Yields the dict it fills."""
     import numpy as np
     from find_circ2_tpu_torch.models import pipeline as tpipe
@@ -214,9 +326,9 @@ def watch_explorer():
                                   tstream.run_fastq)
 
     def counted(self, arr, lens):
-        before = gr.launches
+        before = gr.launches + gr.multi_launches
         handle = dispatch_arrays(self, arr, lens)
-        seen["launches"] += gr.launches - before
+        seen["launches"] += gr.launches + gr.multi_launches - before
         seen["calls"] += 1
         if seen["reads"] < EXPLORE_READS:
             seen["arr"].append(np.array(arr))
@@ -335,27 +447,28 @@ def compare_streams(dindex, fq, genome, index, cfg, card) -> dict:
     device's busy share. Returns the launches and seconds per mode and
     the profiled run's numbers."""
     import io as _io
-    from find_circ2_tpu.io.bed import write_bed
-    from find_circ2_tpu.models.aggregate import Aggregator
-    from find_circ2_tpu.utils.profiling import StageTimes
+    from find_circ2_tpu_torch.io.bed import write_bed
+    from find_circ2_tpu_torch.models.aggregate import Aggregator
+    from find_circ2_tpu_torch.utils.profiling import StageTimes
     from find_circ2_tpu_torch.models.stream import run_fastq
     from find_circ2_tpu_torch.ops import gather_rows as gr
     out, beds = {}, {}
     for mode, explore in (("device", None), ("host", False)):
         agg = Aggregator(genome, cfg)
         times = StageTimes()
-        gr.launches = 0
+        gr.launches = gr.multi_launches = 0
         t0 = time.perf_counter()
         run_fastq(dindex, fq, agg, cfg, times=times, slowpath=(genome, index),
                   explore=explore)
         wall = time.perf_counter() - t0
+        launches = gr.launches + gr.multi_launches
         buf = _io.StringIO()
         write_bed(buf, agg.rows(sample_name="s"))
         beds[mode] = (buf.getvalue(), sorted(agg.stats.counts.items()))
-        out[mode] = dict(launches=gr.launches, seconds=wall,
+        out[mode] = dict(launches=launches, seconds=wall,
                          reads=times.n_reads)
         log(f"run_fastq explore={explore}: {wall:.3f} s, "
-            f"{times.n_reads / wall:,.1f} reads/s, {gr.launches} gather_rows "
+            f"{times.n_reads / wall:,.1f} reads/s, {launches} row-gather "
             f"launches on {card}; stages:\n"
             + times.report(wall=wall))
         ran = set(times.counts)
@@ -388,13 +501,13 @@ def main_path(device: str, library: dict, card: str) -> dict:
     Returns the numbers of the kernel table."""
     import numpy as np
     import torch
-    from find_circ2_tpu.config import Config
-    from find_circ2_tpu.io.bed import read_bed
-    from find_circ2_tpu.io.fasta import write_fasta
-    from find_circ2_tpu.io.twobit import codes_to_seq
-    from find_circ2_tpu.models.oracle import call_read
-    from find_circ2_tpu.utils.profiling import StageTimes
-    from find_circ2_tpu.utils.simulate import rnase_r_library
+    from find_circ2_tpu_torch.config import Config
+    from find_circ2_tpu_torch.io.bed import read_bed
+    from find_circ2_tpu_torch.io.fasta import write_fasta
+    from find_circ2_tpu_torch.io.twobit import codes_to_seq
+    from find_circ2_tpu_torch.models.oracle import call_read
+    from find_circ2_tpu_torch.utils.profiling import StageTimes
+    from find_circ2_tpu_torch.utils.simulate import rnase_r_library
     from find_circ2_tpu_torch.cli import main as cli
     from find_circ2_tpu_torch.models.pipeline import run_reads
     from find_circ2_tpu_torch.ops import gather_rows as gr
@@ -420,10 +533,11 @@ def main_path(device: str, library: dict, card: str) -> dict:
             torch.cuda.reset_peak_memory_stats()
         err = io.StringIO()
         with contextlib.redirect_stderr(err), watch_explorer() as seen:
-            gr.launches = 0
+            gr.launches = gr.multi_launches = 0
             rc = cli.main(["run", fq, "-G", fa, "-o", outdir, "--filter",
                            "--device", device, "--profile"])
-            out["launches"] = gr.launches
+            out["launches"] = {"gather_rows": gr.launches,
+                               "gather_rows_multi": gr.multi_launches}
         out["explore_launches"] = seen["launches"]
         report = err.getvalue()
         print(report, end="")
@@ -440,13 +554,16 @@ def main_path(device: str, library: dict, card: str) -> dict:
             log(f"peak device memory {torch.cuda.max_memory_allocated():,} "
                 "bytes (explore on)")
         log(f"kernel launches on the main path: gather_rows "
-            f"{out['launches']}, {out['explore_launches']} of them inside "
-            f"§2b explore; {seen['reads']} routed reads in "
-            f"{seen['calls']} explore dispatches")
-        if out["launches"] <= 0:
-            fail("kernel gather_rows was not launched on the main path")
+            f"{out['launches']['gather_rows']}, gather_rows_multi "
+            f"{out['launches']['gather_rows_multi']}; "
+            f"{out['explore_launches']} of them inside §2b explore; "
+            f"{seen['reads']} routed reads in {seen['calls']} explore "
+            f"dispatches")
+        for name, count in out["launches"].items():
+            if count <= 0:
+                fail(f"kernel {name} was not launched on the main path")
         if seen["reads"] <= 0 or out["explore_launches"] <= 0:
-            fail("§2b explore routed no reads or launched no gather_rows "
+            fail("§2b explore routed no reads or launched no row gather "
                  "on the main path")
         dispatched = _stage(report, "explore_dispatch")
         if (dispatched is None or dispatched[1] != seen["calls"]
@@ -515,19 +632,31 @@ def main() -> int:
     log(f"kernels built and loaded in {time.perf_counter() - t0:.3f} s "
         f"({_build.library_path()})")
 
-    gather = check_gather_rows("cuda")
+    gather = check_gather_rows("cuda", card)
     check_golden("cuda")
     path = main_path("cuda", LIBRARY, card)
 
-    kernels = [{"name": "gather_rows", "route": "cuda",
-                "source": "find_circ2_tpu_torch/csrc/gather_rows.cu",
-                "replaces": "find_circ2_tpu/ops/pallas_k1.py:64",
-                "launches": path["launches"],
-                "explore_launches": path["explore_launches"],
-                "max_abs_err": gather["max_abs_err"], "ms": gather["ms"],
-                "plain_ms": gather["plain_ms"],
-                "explore_ms": gather["explore_ms"],
-                "explore_plain_ms": gather["explore_plain_ms"]}]
+    # Per wrapper, summed over one detect batch's and one explore chunk's
+    # calls: "ms" and "plain_ms" on the device alone (CUDA graphs),
+    # "called_ms" and "plain_called_ms" as called; "bound_ms" the bytes
+    # over the HBM rate. index_select is gather_rows' library call;
+    # no one PyTorch call gathers two tables.
+    kernels = []
+    for name in ("gather_rows", "gather_rows_multi"):
+        s = gather[name]
+        kernels.append({
+            "name": name, "route": "cuda",
+            "source": "find_circ2_tpu_torch/csrc/gather_rows.cu",
+            "replaces": "find_circ2_tpu/ops/pallas_k1.py:64",
+            "launches": path["launches"][name],
+            "max_abs_err": gather["max_abs_err"], "ms": s["device_ms"],
+            "plain_ms": s["plain_device_ms"], "bound_ms": s["bound_ms"],
+            "bound_by": "bytes",
+            "library_ms": (s["plain_device_ms"] if name == "gather_rows"
+                           else None),
+            "called_ms": s["called_ms"],
+            "plain_called_ms": s["plain_called_ms"],
+            "explore_launches": path["explore_launches"]})
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -14,6 +14,7 @@ import glob
 import hashlib
 import os
 import shutil
+import struct
 import subprocess
 
 _HERE = os.path.dirname(os.path.abspath(__file__))
@@ -67,11 +68,17 @@ def load() -> ctypes.CDLL:
     global _lib
     if _lib is None:
         lib = ctypes.CDLL(build())
-        p, i64, i32 = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
-        lib.fc2t_gather_rows.argtypes = [p, p, p, i64, i64, i32, i32, p]
+        # One GATHER_ARGS buffer in; the kernels launched, or minus a
+        # CUDA error, out.
+        lib.fc2t_gather_rows.argtypes = [ctypes.c_char_p]
         lib.fc2t_gather_rows.restype = ctypes.c_int
         _lib = lib
     return _lib
+
+
+# csrc/gather_rows.cu's GatherArgs: table_a, out_a, table_b, out_b, idx,
+# n, n_rows, stream, then width_a, width_b, idx_is_64, device.
+GATHER_ARGS = struct.Struct("<5Q2qQ4i")
 
 
 def check(err: int, what: str) -> None:

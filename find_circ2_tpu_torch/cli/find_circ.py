@@ -17,12 +17,12 @@ import os
 import sys
 import time
 
-from find_circ2_tpu.config import Config
-from find_circ2_tpu.index.build import build_index, load_index
-from find_circ2_tpu.io.bed import write_bed
-from find_circ2_tpu.io.fastq import decode_anchor_name, read_fastq
-from find_circ2_tpu.io.genome import Genome
-from find_circ2_tpu.models.aggregate import Aggregator
+from find_circ2_tpu_torch.config import Config
+from find_circ2_tpu_torch.index.build import build_index, load_index
+from find_circ2_tpu_torch.io.bed import write_bed
+from find_circ2_tpu_torch.io.fastq import decode_anchor_name, read_fastq
+from find_circ2_tpu_torch.io.genome import Genome
+from find_circ2_tpu_torch.models.aggregate import Aggregator
 
 
 def reads_from_anchor_fastq(path):
@@ -44,18 +44,18 @@ def reads_from_fastq(path):
 def reads_from_sam_file(path, pe: bool, fmt: str = "sam"):
     """Unmapped primary records from SAM text or BAM; with --pe, mate-2
     reads are reverse-complemented to mate-1 orientation (SPEC.md §7)."""
-    from find_circ2_tpu.io.twobit import revcomp_seq
+    from find_circ2_tpu_torch.io.twobit import revcomp_seq
     if fmt == "bam":
-        from find_circ2_tpu.io.bam import reads_from_bam as reader
+        from find_circ2_tpu_torch.io.bam import reads_from_bam as reader
     else:
-        from find_circ2_tpu.io.sam import reads_from_sam as reader
+        from find_circ2_tpu_torch.io.sam import reads_from_sam as reader
     for name, seq, _qual, mate2 in reader(path):
         yield name, revcomp_seq(seq) if pe and mate2 else seq
 
 
 def rc_stream(it):
     """Reverse-complement every read of a (name, seq) stream."""
-    from find_circ2_tpu.io.twobit import revcomp_seq
+    from find_circ2_tpu_torch.io.twobit import revcomp_seq
     for name, seq in it:
         yield name, revcomp_seq(seq)
 
@@ -148,7 +148,7 @@ def run(args) -> int:
                  stranded=args.stranded, batch_size=args.batch_size)
     if args.index:
         if os.path.isdir(args.index):
-            from find_circ2_tpu.index.build import load_index_dir
+            from find_circ2_tpu_torch.index.build import load_index_dir
             genome, index = load_index_dir(args.index)
         else:
             genome, index = load_index(args.index)
@@ -179,14 +179,14 @@ def run(args) -> int:
     agg = Aggregator(genome, cfg)
     journal = times = None
     if args.journal:
-        from find_circ2_tpu.utils.journal import RunJournal
+        from find_circ2_tpu_torch.utils.journal import RunJournal
         journal = RunJournal(args.journal)
-    from find_circ2_tpu import native
+    from find_circ2_tpu_torch import native
     from find_circ2_tpu_torch.models.pipeline import DeviceIndex, run_reads
     dindex = DeviceIndex.build(genome, index, cfg, device=device)
     slowpath = (genome, index)
     if args.profile:
-        from find_circ2_tpu.utils.profiling import StageTimes
+        from find_circ2_tpu_torch.utils.profiling import StageTimes
         times = StageTimes()
         t_stream = time.perf_counter()
         print(f"setup\t{t_stream - t_setup:.3f}s\tgenome, index and "
@@ -198,7 +198,7 @@ def run(args) -> int:
         for fi, f in enumerate(args.input):
             jr = journal
             if journal is not None and len(args.input) > 1:
-                from find_circ2_tpu.utils.journal import RunJournal
+                from find_circ2_tpu_torch.utils.journal import RunJournal
                 jr = RunJournal(f"{journal.path}.{fi}", meta=journal.meta)
             run_fastq(dindex, f, agg, cfg, prefilter, times=times,
                       slowpath=slowpath, journal=jr,
@@ -218,7 +218,7 @@ def run(args) -> int:
               file=sys.stderr)
     rows = agg.rows(sample_name=args.name, prefix=args.prefix)
     if args.filter:
-        from find_circ2_tpu.io.bed import passes_filter
+        from find_circ2_tpu_torch.io.bed import passes_filter
         rows = [r for r in rows
                 if passes_filter(r, args.max_span, args.min_support,
                                  args.max_edits)]

@@ -16,8 +16,8 @@ import argparse
 import os
 import sys
 
-from find_circ2_tpu.cli import cmp_bed, maxlength, merge_bed, unmapped2anchors
-from find_circ2_tpu_torch.cli import find_circ
+from find_circ2_tpu_torch.cli import (cmp_bed, find_circ, maxlength,
+                                     merge_bed, unmapped2anchors)
 
 
 def run_cmd(argv) -> int:
@@ -65,8 +65,8 @@ def run_cmd(argv) -> int:
 
 
 def _filter_existing(bed_path: str, out_path: str) -> int:
-    from find_circ2_tpu.config import Config
-    from find_circ2_tpu.io.bed import passes_filter, read_bed, write_bed
+    from find_circ2_tpu_torch.config import Config
+    from find_circ2_tpu_torch.io.bed import passes_filter, read_bed, write_bed
     cfg = Config()
     rows = [r for r in read_bed(bed_path)
             if passes_filter(r, cfg.max_span, cfg.min_support,
@@ -83,10 +83,10 @@ def index_cmd(argv) -> int:
     p.add_argument("-o", "--output", required=True,
                    help="output .npz index path")
     args = p.parse_args(argv)
-    from find_circ2_tpu.config import Config
-    from find_circ2_tpu.index.build import build_index, save_index
-    from find_circ2_tpu.index.hashtable import build_query_table
-    from find_circ2_tpu.io.genome import Genome
+    from find_circ2_tpu_torch.config import Config
+    from find_circ2_tpu_torch.index.build import build_index, save_index
+    from find_circ2_tpu_torch.index.hashtable import build_query_table
+    from find_circ2_tpu_torch.io.genome import Genome
     cfg = Config()
     genome = Genome.from_fasta(args.genome, cfg)
     index = build_index(genome, cfg)

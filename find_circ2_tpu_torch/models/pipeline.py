@@ -20,7 +20,7 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
-from find_circ2_tpu.config import (
+from find_circ2_tpu_torch.config import (
     RPAD_CODE,
     Config,
     KIND_CIRCULAR,
@@ -36,13 +36,16 @@ from find_circ2_tpu.config import (
     ST_UNALIGNED_A,
     ST_UNALIGNED_B,
 )
-from find_circ2_tpu.index.build import SeedIndex, build_index
-from find_circ2_tpu.io.genome import Genome
-from find_circ2_tpu.io.twobit import codes_to_seq, seq_to_codes
-from find_circ2_tpu.models.oracle import ReadCall
-from find_circ2_tpu_torch.index.hashtable import M32
-from find_circ2_tpu_torch.ops.anchor_align import (align_anchor_pair,
-    align_anchor_pair_fast, read_anchors)
+from find_circ2_tpu_torch.index.build import SeedIndex, build_index
+from find_circ2_tpu_torch.index.hashtable import (M32, build_neighbor_table,
+                                                  build_query_table)
+from find_circ2_tpu_torch.io.genome import Genome
+from find_circ2_tpu_torch.io.twobit import codes_to_seq, seq_to_codes
+from find_circ2_tpu_torch.models.multihit import (call_read_multi,
+                                                  call_reads_multi_batch)
+from find_circ2_tpu_torch.models.oracle import ReadCall
+from find_circ2_tpu_torch.ops.anchor_align import (
+    align_anchor_pair, align_anchor_pair_fast, read_anchors)
 from find_circ2_tpu_torch.ops.breakpoint import as_int32, breakpoint_search
 from find_circ2_tpu_torch.ops.packed import gather_window, pack_words
 
@@ -70,11 +73,10 @@ class DeviceIndex:
 
     @classmethod
     def build(cls, genome: Genome, index: SeedIndex | None = None,
-              cfg: Config = Config(), device="cpu") -> "DeviceIndex":
-        """Tables from the reference's numpy builders (built and cached
-        on `index.qtable` if missing), moved to `device`."""
-        from find_circ2_tpu.index.hashtable import (build_neighbor_table,
-                                                    build_query_table)
+              cfg: Config = Config(), device="cuda") -> "DeviceIndex":
+        """Tables from the numpy builders (index/hashtable; built and
+        cached on `index.qtable` if missing), moved to `device`: the card
+        unless the caller asks for the CPU (RuntimeError without one)."""
         if index is None:
             index = build_index(genome, cfg)
         if len(genome) >= 2 ** 32 - 2 * cfg.chrom_gap:
@@ -91,10 +93,11 @@ class DeviceIndex:
                                 qtable.ext, qtable.ext_id, device)
 
     @classmethod
-    def from_reference(cls, ref, device="cpu") -> "DeviceIndex":
-        """The same index from the reference package's DeviceIndex
-        (read through np.asarray; jax is never imported here): its 2-D
-        [n_rows, WPR] packed genome becomes the flat word array."""
+    def from_reference(cls, ref, device="cuda") -> "DeviceIndex":
+        """The same index from the JAX package's DeviceIndex, read
+        through np.asarray (nothing of that package is imported here):
+        its 2-D [n_rows, WPR] packed genome becomes the flat word array.
+        On the card unless the caller asks for the CPU."""
         def arr(x):
             return None if x is None else np.asarray(x)
         gpacked = np.asarray(ref.gpacked)
@@ -108,6 +111,12 @@ class DeviceIndex:
     @classmethod
     def _from_arrays(cls, words, nbases, table, meta, chrom_offsets, ntable,
                      ext, ext_id, device) -> "DeviceIndex":
+        device = torch.device(device)
+        if device.type == "cuda" and not torch.cuda.is_available():
+            raise RuntimeError("DeviceIndex: device 'cuda' but no CUDA "
+                               "device is available (pass device='cpu' to "
+                               "run on the CPU)")
+
         def t(x, dtype):
             if x is None:
                 return None
@@ -538,7 +547,6 @@ def run_reads(dindex: DeviceIndex, reads, cfg: Config = Config(),
                     routed.append((name, seq))
                     batch_calls.append(None)
                     continue
-                from find_circ2_tpu.models.multihit import call_read_multi
                 with timed("slowpath_multihit"):
                     batch_calls.append(call_read_multi(
                         slowpath[0], slowpath[1], name, seq, cfg,
@@ -546,7 +554,6 @@ def run_reads(dindex: DeviceIndex, reads, cfg: Config = Config(),
                 continue
             batch_calls.append(call_from_row(res, i, name, seq))
         if rescued:
-            from find_circ2_tpu.models.multihit import call_reads_multi_batch
             with timed("slowpath_rescue"):
                 calls = call_reads_multi_batch(slowpath[0], slowpath[1],
                                                rescued, cfg, prefilter)

@@ -18,26 +18,30 @@ import os
 
 import numpy as np
 
-from find_circ2_tpu import native
-from find_circ2_tpu.config import (RPAD_CODE, Config, ST_JUNCTION,
-                                   ST_PREFILTERED, ST_TOO_LONG,
-                                   ST_TOO_SHORT, ST_UNALIGNED_A,
-                                   ST_UNALIGNED_B)
-from find_circ2_tpu.io.twobit import _CODE_LUT, codes_to_seq
-from find_circ2_tpu.models.aggregate import Aggregator, seq_hash_batch
-from find_circ2_tpu.models.oracle import ReadCall
-from find_circ2_tpu_torch.models.pipeline import (DeviceExplorer,
-    DeviceIndex, HostCopy, dispatch_packed, redo_if_overflow, revcomp_batch,
-    unpack_results)
+from find_circ2_tpu_torch import native
+from find_circ2_tpu_torch.config import (RPAD_CODE, Config, ST_JUNCTION,
+                                         ST_PREFILTERED, ST_TOO_LONG,
+                                         ST_TOO_SHORT, ST_UNALIGNED_A,
+                                         ST_UNALIGNED_B)
+from find_circ2_tpu_torch.io.twobit import (_CODE_LUT, codes_to_seq,
+                                           revcomp_seq)
+from find_circ2_tpu_torch.models.aggregate import Aggregator, seq_hash_batch
+from find_circ2_tpu_torch.models.multihit import call_reads_multi_batch
+from find_circ2_tpu_torch.models.oracle import ReadCall
+from find_circ2_tpu_torch.models.pipeline import (
+    DeviceExplorer, DeviceIndex, HostCopy, dispatch_packed, redo_if_overflow,
+    revcomp_batch, unpack_results)
+from find_circ2_tpu_torch.utils.journal import FastBatch
 
 CHUNK = 16 << 20  # bytes per read(2) chunk
 
 
 class _RescuePool:
     """One forked worker that runs the batched host re-calls (the 2-mm
-    rescue, and §2b multi-hit when explore is off;
-    models/multihit.call_reads_multi_batch) off the critical path. Fork shares genome and index copy-on-write;
-    the child runs numpy only and never touches CUDA or torch. Any
+    rescue, and §2b multi-hit when explore is off; the port's
+    models/multihit.call_reads_multi_batch) off the critical path. Fork
+    shares genome and index copy-on-write; the child runs numpy only and
+    never touches CUDA or torch. Any
     failure (no fork, crash, timeout) permanently falls back to
     in-process calls — results are identical either way."""
 
@@ -68,8 +72,6 @@ class _RescuePool:
 
     def fetch(self, handle):
         if isinstance(handle, list):  # sync marker
-            from find_circ2_tpu.models.multihit import \
-                call_reads_multi_batch
             genome, index, cfg, prefilter = self.args
             return call_reads_multi_batch(genome, index, handle, cfg,
                                           prefilter)
@@ -98,7 +100,6 @@ _RESCUE_STATE = None
 
 def _rescue_entry(items):
     genome, index, cfg, prefilter = _RESCUE_STATE
-    from find_circ2_tpu.models.multihit import call_reads_multi_batch
     return call_reads_multi_batch(genome, index, items, cfg, prefilter)
 
 
@@ -207,14 +208,12 @@ def run_fastq(dindex: DeviceIndex, path, agg: Aggregator,
             for call in batch_calls:
                 agg.add(call)
         if journal is not None:
-            from find_circ2_tpu.utils.journal import FastBatch
             journal.record_fast(batch_id, FastBatch(
                 n_reads=n_reads, counts=counts, calls=batch_calls))
         if times is not None:
             times.add_reads(n_reads)
 
     def replay(fast, expect_reads: int) -> None:
-        from find_circ2_tpu.utils.journal import FastBatch
         if not isinstance(fast, FastBatch):
             raise ValueError("journal was written by the per-read path; "
                              "use run_reads")
@@ -234,7 +233,6 @@ def run_fastq(dindex: DeviceIndex, path, agg: Aggregator,
         if rpool is not None:
             with timed("rescue_dispatch"):
                 return rpool.submit(items), []
-        from find_circ2_tpu.models.multihit import call_reads_multi_batch
         with timed(stage):
             return None, call_reads_multi_batch(
                 slowpath[0], slowpath[1], items, cfg, prefilter)
@@ -275,7 +273,6 @@ def run_fastq(dindex: DeviceIndex, path, agg: Aggregator,
                 k = sel[i]
                 seq = buf[spans[k, 2]:spans[k, 3]].decode("ascii")
                 if revcomp:
-                    from find_circ2_tpu.io.twobit import revcomp_seq
                     seq = revcomp_seq(seq)
                 return seq
 

@@ -20,11 +20,12 @@ from typing import NamedTuple
 
 import torch
 
-from find_circ2_tpu.config import Config
-from find_circ2_tpu.index.hashtable import (CNT_BITS, CNT_MASK, LANES,
-                                            NBR_LANES, S8_MASK, SLOTS)
-from find_circ2_tpu_torch.index.hashtable import M32, mix_hash
-from find_circ2_tpu_torch.ops.gather_rows import gather_rows
+from find_circ2_tpu_torch.config import Config
+from find_circ2_tpu_torch.index.hashtable import (CNT_BITS, CNT_MASK, LANES,
+                                                  M32, NBR_LANES, S8_MASK,
+                                                  SLOTS, mix_hash)
+from find_circ2_tpu_torch.ops.gather_rows import (gather_rows,
+                                                  gather_rows_multi)
 
 LARGE_MM = 255
 LARGE_POS = M32
@@ -80,14 +81,15 @@ def _canonical(fw, rc):
 
 def _bucket_rows(tables, cp, cs, meta):
     """Rows of each table at the two cuckoo probes of keys (cp, cs):
-    one gather per table for both probes. Returns, per table, the pair
-    (probe-0 rows, probe-1 rows), each [*cp.shape, W]."""
+    one gather launch for both probes and every table, so each bucket
+    index is loaded once. Returns, per table, the pair (probe-0 rows,
+    probe-1 rows), each [*cp.shape, W]."""
     n_buckets = meta[2].to(torch.int64) & M32
     h = torch.cat([mix_hash(cp, cs, meta[s].to(torch.int64) & M32)
                    % n_buckets for s in (0, 1)]).reshape(-1)
     out = []
-    for t in tables:
-        g = gather_rows(t, h).reshape(2, *cp.shape, t.shape[1])
+    for t, g in zip(tables, gather_rows_multi(tables, h)):
+        g = g.reshape(2, *cp.shape, t.shape[1])
         out.append((g[0], g[1]))
     return out
 

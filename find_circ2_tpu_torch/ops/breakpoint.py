@@ -15,8 +15,8 @@ from __future__ import annotations
 
 import torch
 
-from find_circ2_tpu.config import (Config, KIND_CIRCULAR, KIND_LINEAR,
-                                   SENSE_MINUS, SENSE_PLUS)
+from find_circ2_tpu_torch.config import (Config, KIND_CIRCULAR, KIND_LINEAR,
+                                         SENSE_MINUS, SENSE_PLUS)
 from find_circ2_tpu_torch.index.hashtable import M32
 from find_circ2_tpu_torch.ops.packed import gather_window
 

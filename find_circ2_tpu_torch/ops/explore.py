@@ -23,7 +23,7 @@ from __future__ import annotations
 
 import torch
 
-from find_circ2_tpu.config import (
+from find_circ2_tpu_torch.config import (
     RPAD_CODE,
     Config,
     KIND_CIRCULAR,

@@ -27,9 +27,11 @@ from find_circ2_tpu_torch.models.stream import run_fastq
 from find_circ2_tpu_torch.ops import anchor_align as ta
 from find_circ2_tpu_torch.ops import explore as tx
 from find_circ2_tpu_torch.ops.packed import pack_words
+from find_circ2_tpu_torch.utils.profiling import StageTimes
 
 CFG = Config()
 CFG_1MM = dataclasses.replace(CFG, rescue_anchor_mm=1)
+astuple = dataclasses.astuple
 # The reference's functions, compiled once (eager op-by-op dispatch of
 # the enumeration costs seconds on the CPU).
 j_candidate_stats = jax.jit(ja.candidate_stats, static_argnames=("cfg",))
@@ -59,7 +61,8 @@ def lib():
     jd = jp.DeviceIndex.build(sim.genome, index, CFG)
     reads = [r for r in sim.reads
              if 2 * CFG.anchor_len <= len(r[1]) <= CFG.max_read_len]
-    return sim, index, jd, tp.DeviceIndex.from_reference(jd), reads
+    return (sim, index, jd, tp.DeviceIndex.from_reference(jd, device="cpu"),
+            reads)
 
 
 @pytest.fixture(scope="module")
@@ -157,7 +160,8 @@ def test_explore_equals_oracle_without_rescue(lib, jax_rows):
     sim, index, _, td, reads = lib
     got = _calls(_port_rows(td, reads, True, CFG_1MM), reads)
     for (name, seq), g in zip(reads, got):
-        assert g == call_read(sim.genome, index, name, seq, CFG_1MM), name
+        assert astuple(g) == astuple(call_read(sim.genome, index, name, seq,
+                                               CFG_1MM)), name
     # Multi reads: an anchor's best hit ties (detect's multi bit 0).
     multi = tp.unpack_results(tp.dispatch_packed(
         td, *_encode(reads), CFG).numpy())["multi"] & 1
@@ -169,9 +173,10 @@ def test_explore_on_decoy_case():
     true junction, as the reference and the oracle resolve it."""
     from tests.test_multihit import TRUE_E, TRUE_S, _setup
     genome, index, read_seq = _setup()
-    td = tp.DeviceIndex.build(genome, index, CFG)
+    td = tp.DeviceIndex.build(genome, index, CFG, device="cpu")
     [got] = _calls(_port_rows(td, [("r", read_seq)], True), [("r", read_seq)])
-    assert got == call_read(genome, index, "r", read_seq, CFG)
+    assert astuple(got) == astuple(call_read(genome, index, "r", read_seq,
+                                             CFG))
     gap = CFG.chrom_gap
     assert (got.start - gap, got.end - gap) == (TRUE_S, TRUE_E)
 
@@ -281,13 +286,12 @@ def test_run_reads_explore_modes_match_oracle(lib, oracle_calls, explore):
     """run_reads with the device explorer (None: the index has extras)
     and with the host twin (False) equals the oracle read for read, the
     2-mm rescue on."""
-    from find_circ2_tpu.utils.profiling import StageTimes
     sim, index, _, td, _ = lib
     times = StageTimes()
     calls = tp.run_reads(td, sim.reads[:200], CFG, batch_size=64,
                          times=times, slowpath=(sim.genome, index),
                          explore=explore)
-    assert calls == oracle_calls
+    assert [astuple(c) for c in calls] == [astuple(c) for c in oracle_calls]
     ran = "explore_dispatch" if explore is None else "slowpath_multihit"
     gone = "slowpath_multihit" if explore is None else "explore_dispatch"
     assert ran in times.counts and gone not in times.counts
@@ -299,7 +303,7 @@ def test_explore_true_without_extras_raises(tmp_path, entry):
                           n_linear=1, depth_mean=2.0, cfg=CFG)
     index = build_index(sim.genome, CFG)
     index.qtable = build_query_table(index, CFG, extras=False)
-    td = tp.DeviceIndex.build(sim.genome, index, CFG)
+    td = tp.DeviceIndex.build(sim.genome, index, CFG, device="cpu")
     assert td.ext is None and td.ext_id is None
     slowpath = (sim.genome, index)
     with pytest.raises(ValueError, match="extras"):

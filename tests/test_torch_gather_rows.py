@@ -109,3 +109,80 @@ def test_gather_rows_kernel_at_explore_shapes_on_card(cuda_device):
             torch.cuda.synchronize()
             ms[name] = start.elapsed_time(stop) / 50
         print(f"gather_rows W={width} n={n}: {ms}")
+
+
+@pytest.mark.parametrize("widths,n", [((8, 8), 1), ((8, 2), 1037),
+                                      ((8, 30), 37), ((8, 2, 30), 1000),
+                                      ((2,), 64)])
+def test_gather_rows_multi_matches_take(widths, n):
+    """gather_rows_multi against jnp.take per table, tables of several
+    row counts sharing one index vector."""
+    rng = np.random.default_rng(sum(widths) * n)
+    tables = [_table(rng, rows=999 + 7 * i, width=w)
+              for i, w in enumerate(widths)]
+    idx = rng.integers(0, 999, size=n)
+    got = gr.gather_rows_multi([torch.from_numpy(t) for t in tables],
+                               torch.from_numpy(idx))
+    assert len(got) == len(tables)
+    for t, g in zip(tables, got):
+        want = np.asarray(jnp.take(jnp.asarray(t), jnp.asarray(idx), axis=0))
+        assert g.shape == (n, t.shape[1])
+        assert np.array_equal(g.numpy(), want)
+
+
+def _card_table(g, rows, width, offset):
+    """A contiguous int32 [rows, width] table on the card whose base lies
+    `offset` 4-byte words past an allocation (a view)."""
+    flat = torch.randint(-2 ** 31, 2 ** 31 - 1, (rows * width + offset,),
+                         dtype=torch.int32, device=g.device, generator=g)
+    return flat[offset:].view(rows, width)
+
+
+# (width, base offset in words, idx type, n): every vector path of the
+# kernel: 16-byte rows with the vectors per row fixed (W=8) and at run
+# time (W=12); 8-byte fixed (W=2, W=30) and at run time (W=6); 4-byte
+# words (W=1, W=3); and views whose base is not aligned for the wider
+# vector, which fall back to a narrower one.
+VECTOR_PATHS = [(8, 0, torch.int64, 4097), (8, 0, torch.int32, 1),
+                (12, 0, torch.int32, 1037), (2, 0, torch.int64, 124_928),
+                (2, 0, torch.int32, 1), (30, 0, torch.int64, 62_464),
+                (30, 0, torch.int32, 33), (6, 0, torch.int64, 999),
+                (1, 0, torch.int64, 1000), (3, 0, torch.int32, 77),
+                (8, 1, torch.int64, 4099), (8, 2, torch.int32, 100),
+                (2, 1, torch.int64, 777), (30, 1, torch.int32, 1001)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("width,offset,dtype,n", VECTOR_PATHS)
+def test_gather_rows_vector_paths_on_card(cuda_device, width, offset, dtype,
+                                          n):
+    g = torch.Generator(device=cuda_device).manual_seed(width * 100 + n)
+    table = _card_table(g, 1 << 15, width, offset)
+    idx = torch.randint(0, table.shape[0], (n,), device=cuda_device,
+                        generator=g).to(dtype)
+    before = gr.launches
+    got = gr.gather_rows(table, idx)
+    torch.cuda.synchronize()
+    assert torch.equal(got, gr.gather_rows_ref(table, idx))
+    assert gr.launches == before + 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("widths,want_launches", [
+    ((8, 8), 1), ((8, 2), 1), ((8, 30), 2), ((8, 2, 30), 2), ((2, 8), 2)])
+def test_gather_rows_multi_on_card(cuda_device, widths, want_launches):
+    """The main path's pairs, (8, 8) and (8, 2), take one launch; any
+    other pair one launch per table; a third table its own call."""
+    g = torch.Generator(device=cuda_device).manual_seed(sum(widths))
+    tables = [_card_table(g, (1 << 14) + 3 * i, w, 0)
+              for i, w in enumerate(widths)]
+    for n, dtype in ((124_928, torch.int64), (1, torch.int32),
+                     (16_385, torch.int32)):
+        idx = torch.randint(0, 1 << 14, (n,), device=cuda_device,
+                            generator=g).to(dtype)
+        before = gr.multi_launches
+        got = gr.gather_rows_multi(tables, idx)
+        torch.cuda.synchronize()
+        assert gr.multi_launches == before + want_launches
+        for t, x in zip(tables, got):
+            assert torch.equal(x, gr.gather_rows_ref(t, idx))

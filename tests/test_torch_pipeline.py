@@ -3,10 +3,10 @@ against the reference JAX package and the CPU oracle on the CPU: packed
 detect rows, the fallback-overflow redo, the streaming loop's BED, the
 CLI goldens, and the port's freedom from jax. Tolerance 0."""
 
+import ast
 import dataclasses
 import io
 import os
-import re
 import subprocess
 import sys
 
@@ -25,12 +25,17 @@ from find_circ2_tpu.models.oracle import call_read
 from find_circ2_tpu.models.stream import run_fastq as jrun_fastq
 from find_circ2_tpu.utils.simulate import rnase_r_library, simulate
 from find_circ2_tpu_torch.cli import main as cli_main
+from find_circ2_tpu_torch.io.bed import write_bed as twrite_bed
 from find_circ2_tpu_torch.models import pipeline as tp
+from find_circ2_tpu_torch.models.aggregate import Aggregator as TAggregator
 from find_circ2_tpu_torch.models.stream import run_fastq
+from find_circ2_tpu_torch.utils.journal import RunJournal
+from find_circ2_tpu_torch.utils.profiling import StageTimes
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 DATA = os.path.join(ROOT, "test_data")
 CFG = Config(batch_size=128)
+astuple = dataclasses.astuple
 
 
 @pytest.fixture(scope="module")
@@ -42,7 +47,7 @@ def lib():
                           repeat_frac=0.3, cfg=CFG)
     index = build_index(sim.genome, CFG)
     jd = jp.DeviceIndex.build(sim.genome, index, CFG)
-    return sim, index, jd, tp.DeviceIndex.from_reference(jd)
+    return sim, index, jd, tp.DeviceIndex.from_reference(jd, device="cpu")
 
 
 def _batch(reads, B):
@@ -59,7 +64,7 @@ def _batch(reads, B):
 
 def test_build_matches_from_reference(lib):
     sim, index, jd, td = lib
-    built = tp.DeviceIndex.build(sim.genome, index, CFG)
+    built = tp.DeviceIndex.build(sim.genome, index, CFG, device="cpu")
     assert built.nbases == td.nbases
     n = built.words.shape[0]
     assert torch.equal(built.words, td.words[:n])
@@ -109,12 +114,13 @@ def test_overflow_redo_keeps_oracle_equality(lib):
                          slowpath=(sim.genome, index))
     assert len(calls) == len(sim.reads)
     for (name, seq), dc in zip(sim.reads, calls):
-        assert dc == call_read(sim.genome, index, name, seq, cfg), name
+        assert astuple(dc) == astuple(call_read(sim.genome, index, name, seq,
+                                                cfg)), name
 
 
-def _render(agg):
+def _render(agg, write=write_bed):
     buf = io.StringIO()
-    write_bed(buf, agg.rows("s"))
+    write(buf, agg.rows("s"))
     return buf.getvalue(), sorted(agg.stats.counts.items())
 
 
@@ -137,16 +143,15 @@ def test_run_fastq_matches_jax(lib, tmp_path, slowpath, explore):
     the reference explores §2b on its device program; the port does too
     (explore None: array-mode DeviceExplorer), or on the host twin
     (explore False)."""
-    from find_circ2_tpu.utils.profiling import StageTimes
     sim, index, jd, td = lib
     fq = _fastq(sim, tmp_path)
     sp = (sim.genome, index) if slowpath else None
     agg_j = Aggregator(sim.genome, CFG)
     jrun_fastq(jd, fq, agg_j, CFG, slowpath=sp)
-    agg_t = Aggregator(sim.genome, CFG)
+    agg_t = TAggregator(sim.genome, CFG)
     times = StageTimes()
     run_fastq(td, fq, agg_t, CFG, slowpath=sp, explore=explore, times=times)
-    bed, stats = _render(agg_t)
+    bed, stats = _render(agg_t, twrite_bed)
     assert (bed, stats) == _render(agg_j)
     assert bed.count("\n") > 5
     device = {"explore_dispatch", "explore_multihit"} <= set(times.counts)
@@ -159,8 +164,6 @@ def test_run_fastq_journal_explores_per_read(lib, tmp_path):
     """With a journal, routed reads take the per-read explore mode
     (ReadCalls for the replay records); BED and stats equal the
     reference's, on the first run and on the replay."""
-    from find_circ2_tpu.utils.journal import RunJournal
-    from find_circ2_tpu.utils.profiling import StageTimes
     sim, index, jd, td = lib
     fq = _fastq(sim, tmp_path)
     sp = (sim.genome, index)
@@ -168,11 +171,11 @@ def test_run_fastq_journal_explores_per_read(lib, tmp_path):
     jrun_fastq(jd, fq, agg_j, CFG, slowpath=sp)
     want = _render(agg_j)
     for run in range(2):
-        agg_t = Aggregator(sim.genome, CFG)
+        agg_t = TAggregator(sim.genome, CFG)
         times = StageTimes()
         run_fastq(td, fq, agg_t, CFG, slowpath=sp, times=times,
                   journal=RunJournal(str(tmp_path / "j.jsonl")))
-        assert _render(agg_t) == want
+        assert _render(agg_t, twrite_bed) == want
         assert ("explore_dispatch" in times.counts) == (run == 0)
         assert "slowpath_multihit" not in times.counts
 
@@ -181,12 +184,12 @@ def test_run_reads_matches_oracle_on_simulated_reads():
     sim = simulate(seed=7, n_circ=8, n_linear=6, reads_per_junction=3,
                    n_contiguous=20, n_random=10, err_rate=0.35)
     index = build_index(sim.genome, CFG)
-    td = tp.DeviceIndex.build(sim.genome, index, CFG)
+    td = tp.DeviceIndex.build(sim.genome, index, CFG, device="cpu")
     for prefilter in (True, False):
         calls = tp.run_reads(td, sim.reads, CFG, prefilter)
         want = [call_read(sim.genome, index, n, s, CFG, prefilter)
                 for n, s in sim.reads]
-        assert calls == want
+        assert [astuple(c) for c in calls] == [astuple(c) for c in want]
 
 
 def _read(path):
@@ -268,33 +271,57 @@ def test_cli_cuda_without_card_exits():
                        "--reads-format", "fastq"])
 
 
-def _reference_imports():
-    """Every reference module that the port or chip_smoke.py imports, at
-    module level or inside a function."""
-    pat = re.compile(r"^\s*(?:from|import)\s+(find_circ2_tpu(?:\.\w+)*)\b",
-                     re.M)
+def _port_files():
     paths = [os.path.join(ROOT, "chip_smoke.py")]
     for d, _, files in os.walk(os.path.join(ROOT, "find_circ2_tpu_torch")):
         paths += [os.path.join(d, f) for f in files if f.endswith(".py")]
-    mods = set()
-    for p in paths:
-        with open(p) as fh:
-            mods.update(pat.findall(fh.read()))
-    return sorted(mods)
+    return paths
+
+
+def _module(path):
+    mod = os.path.relpath(path, ROOT)[:-len(".py")].replace(os.sep, ".")
+    return mod[:-len(".__init__")] if mod.endswith(".__init__") else mod
 
 
 def test_port_never_imports_jax():
-    mods = _reference_imports()
-    assert "find_circ2_tpu.models.oracle" in mods
+    """No module of the port, nor chip_smoke.py, imports the JAX package
+    or any of its modules (every import in the AST, at module level or
+    inside a function), and importing all of them in a fresh interpreter
+    leaves no module of the JAX package, jax or jaxlib loaded."""
+    bad = []
+    for path in _port_files():
+        with open(path) as fh:
+            tree = ast.parse(fh.read(), path)
+        for node in ast.walk(tree):
+            if isinstance(node, ast.Import):
+                names = [a.name for a in node.names]
+            elif isinstance(node, ast.ImportFrom) and node.level == 0:
+                names = [node.module]
+            else:
+                continue
+            bad += [(os.path.relpath(path, ROOT), n) for n in names
+                    if n.split(".")[0] in ("find_circ2_tpu", "jax", "jaxlib")]
+    assert not bad, bad
+    mods = sorted(_module(p) for p in _port_files())
+    assert {"chip_smoke", "find_circ2_tpu_torch.models.multihit"} <= set(mods)
     code = ("import sys\n"
-            "import find_circ2_tpu_torch.cli.main\n"
-            "import find_circ2_tpu_torch.models.stream\n"
-            "import chip_smoke\n"
             + "".join(f"import {m}\n" for m in mods) +
             "bad = [m for m in sys.modules if m.split('.')[0] in "
-            "('jax', 'jaxlib')]\n"
+            "('find_circ2_tpu', 'jax', 'jaxlib')]\n"
             "assert not bad, bad\n")
     env = dict(os.environ, PYTHONPATH=ROOT)
     r = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
                        capture_output=True, text=True, timeout=120)
     assert r.returncode == 0, r.stderr
+
+
+def test_device_index_defaults_to_the_card(lib, monkeypatch):
+    """DeviceIndex.build and from_reference without a device put the
+    index on the card; without one they raise instead of running on the
+    CPU."""
+    sim, index, jd, _ = lib
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    for make in (lambda: tp.DeviceIndex.build(sim.genome, index, CFG),
+                 lambda: tp.DeviceIndex.from_reference(jd)):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            make()
