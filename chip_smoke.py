@@ -25,7 +25,15 @@ Phases, each fatal on failure:
      (`explore=False`) give equal BEDs, timed in the same run, and a
      profiled device-explore stream gives the device's busy share; 500
      reads through `run_reads`, routed ones among them, equal the CPU
-     oracle read for read.
+     oracle read for read;
+  7. the sharded engine on the card: a 2x2 mesh (two data rows, four
+     index shards, all four slots on cuda:0) over phase 5's index streams
+     phase 5's FASTQ through `run_fastq` and must give phase 6's BED and
+     stats byte for byte, the filter stack's precision and recall, §2b on
+     the host twin and the row-gather kernels launched on every shard;
+     `detect_merged` equals the single device's detect and merge on every
+     batch; `find_circ --mesh 2x2` and `--nproc 2` (two processes over
+     gloo on the one card) reproduce the golden bytes.
 
 Prints the kernel table as one JSON line, the card line, and as its last
 line {"ok": true, "device": {...}}. Exits non-zero, printing no result,
@@ -171,8 +179,8 @@ def check_gather_rows(device, card: str) -> dict:
     the 50 MB L2: [2^24, 8] (two of them: table and neighbour table),
     [2^24, 2] (ext_id) and [2^21, 30] (ext). Per detect batch: the exact
     statistics gather both tables' rows at 2 probes x 2B anchors
-    (multi, W = 8 and 8) and the enumeration fallback the table's (multi
-    with one table) at 2 probes x min(slots, 2B) anchors x V variants.
+    (multi, W = 8 and 8) and the enumeration fallback the table's (one
+    table, gather_rows) at 2 probes x min(slots, 2B) anchors x V variants.
     Per 1024-read explore chunk and anchor side: table and ext_id rows at
     2 x 1024 x V (multi, W = 8 and 2), ext rows at 1024 x V. The
     single-table W = 8 and W = 2 calls at the old design's shapes, and
@@ -202,7 +210,7 @@ def check_gather_rows(device, card: str) -> dict:
               "ext_id": table(1 << 24, 2), "ext": table(1 << 21, 30)}
     # (wrapper, tables, n, calls per detect batch + one explore chunk)
     shapes = [("gather_rows_multi", ("table", "ntable"), exact_n, 1),
-              ("gather_rows_multi", ("table",), fallback_n, 1),
+              ("gather_rows", ("table",), fallback_n, 1),
               ("gather_rows_multi", ("table", "ext_id"), side_n, 2),
               ("gather_rows", ("ext",), ext_n, 2),
               ("gather_rows", ("table",), exact_n, 0),
@@ -269,25 +277,78 @@ def check_gather_rows(device, card: str) -> dict:
     return out
 
 
-def check_golden(device: str) -> None:
+def _golden_args(device: str, bed: str, stats: str) -> list[str]:
+    return ["find_circ", os.path.join(DATA, "reads.fastq"),
+            "-G", os.path.join(DATA, "genome.fa"), "--reads-format", "fastq",
+            "--batch-size", "64", "--device", device, "-n", "golden",
+            "-o", bed, "-s", stats]
+
+
+def _check_golden_files(bed: str, stats: str, what: str) -> None:
+    for got, want in ((bed, "splice_sites.bed"), (stats, "stats.txt")):
+        with open(got, "rb") as a, open(os.path.join(DATA, want), "rb") as b:
+            if a.read() != b.read():
+                fail(f"{what}: output differs from test_data/{want}")
+    log(f"{what}: golden BED and stats reproduced byte for byte")
+
+
+def check_golden(device: str, extra: tuple = ()) -> None:
     """The port's find_circ CLI on test_data/ vs the committed goldens."""
     from find_circ2_tpu_torch.cli import main as cli
     with tempfile.TemporaryDirectory() as tmp:
         bed = os.path.join(tmp, "out.bed")
         stats = os.path.join(tmp, "out.stats")
-        rc = cli.main(["find_circ", os.path.join(DATA, "reads.fastq"),
-                       "-G", os.path.join(DATA, "genome.fa"),
-                       "--reads-format", "fastq", "--batch-size", "64",
-                       "--device", device, "-n", "golden", "-o", bed,
-                       "-s", stats])
+        rc = cli.main(_golden_args(device, bed, stats) + list(extra))
         if rc != 0:
-            fail(f"find_circ exited {rc} on test_data/")
-        for got, want in ((bed, "splice_sites.bed"), (stats, "stats.txt")):
-            with open(got, "rb") as a, \
-                    open(os.path.join(DATA, want), "rb") as b:
-                if a.read() != b.read():
-                    fail(f"find_circ output differs from test_data/{want}")
-    log("golden BED and stats reproduced byte for byte")
+            fail(f"find_circ {' '.join(extra)} exited {rc} on test_data/")
+        _check_golden_files(bed, stats, " ".join(["find_circ", *extra]))
+
+
+def check_golden_nproc(device: str, nproc: int = 2) -> None:
+    """find_circ --nproc on test_data/: `nproc` processes of the CLI on
+    the one card, joined over gloo on localhost; process 0 writes the
+    merged output, which must be the golden bytes."""
+    import socket
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        port = sock.getsockname()[1]
+    env = dict(os.environ, PYTHONPATH=ROOT + os.pathsep
+               + os.environ.get("PYTHONPATH", ""))
+    with tempfile.TemporaryDirectory() as tmp:
+        bed = os.path.join(tmp, "out.bed")
+        stats = os.path.join(tmp, "out.stats")
+        logs = [os.path.join(tmp, f"rank{rank}.log") for rank in range(nproc)]
+        procs = []
+        for rank, path in enumerate(logs):
+            with open(path, "wb") as fh:
+                procs.append(subprocess.Popen(
+                    [sys.executable, "-m", "find_circ2_tpu_torch.cli.main"]
+                    + _golden_args(device, bed, stats)
+                    + ["--nproc", str(nproc), "--proc-id", str(rank),
+                       "--coordinator", f"localhost:{port}"],
+                    cwd=ROOT, env=env, stdout=fh, stderr=subprocess.STDOUT))
+        # Once one process fails, or at the deadline, the others are
+        # killed rather than left waiting in a collective.
+        deadline = time.monotonic() + 300
+        try:
+            while (any(p.poll() is None for p in procs)
+                   and not any(p.returncode for p in procs)
+                   and time.monotonic() < deadline):
+                time.sleep(0.1)
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+        if any(p.returncode for p in procs):
+            outs = []
+            for path in logs:
+                with open(path, "rb") as fh:
+                    outs.append(fh.read().decode(errors="replace")[-2000:])
+            fail(f"find_circ --nproc {nproc} exited "
+                 f"{[p.returncode for p in procs]}:\n" + "\n====\n".join(outs))
+        _check_golden_files(bed, stats, f"find_circ --nproc {nproc} "
+                            f"--device {device}")
 
 
 def _stage(report: str, key: str):
@@ -453,6 +514,7 @@ def compare_streams(dindex, fq, genome, index, cfg, card) -> dict:
     from find_circ2_tpu_torch.models.stream import run_fastq
     from find_circ2_tpu_torch.ops import gather_rows as gr
     out, beds = {}, {}
+    out["beds"] = beds
     for mode, explore in (("device", None), ("host", False)):
         agg = Aggregator(genome, cfg)
         times = StageTimes()
@@ -464,7 +526,7 @@ def compare_streams(dindex, fq, genome, index, cfg, card) -> dict:
         launches = gr.launches + gr.multi_launches
         buf = _io.StringIO()
         write_bed(buf, agg.rows(sample_name="s"))
-        beds[mode] = (buf.getvalue(), sorted(agg.stats.counts.items()))
+        beds[mode] = _render(agg)
         out[mode] = dict(launches=launches, seconds=wall,
                          reads=times.n_reads)
         log(f"run_fastq explore={explore}: {wall:.3f} s, "
@@ -491,6 +553,213 @@ def compare_streams(dindex, fq, genome, index, cfg, card) -> dict:
         f"activities, device busy {prof['busy_ms']:.3f} ms of a "
         f"{prof['span_ms']:.3f} ms first-to-last span "
         f"({100 * prof['busy_share']:.1f}%) on {card}")
+    return out
+
+
+def _render(agg) -> tuple:
+    """An Aggregator's BED text and sorted stats counters."""
+    from find_circ2_tpu_torch.io.bed import write_bed
+    buf = io.StringIO()
+    write_bed(buf, agg.rows(sample_name="s"))
+    return buf.getvalue(), sorted(agg.stats.counts.items())
+
+
+def _precision_recall(rows, truth) -> tuple[float, float]:
+    """Precision and recall of filter-stack calls against the planted
+    circles, as bench.py measures them."""
+    called = {(r.chrom, r.start, r.end) for r in rows}
+    tp = len(truth & called)
+    return tp / max(1, len(called)), tp / max(1, len(truth))
+
+
+def _coincident_probes(qt, cfg, seq: str) -> bool:
+    """Whether a <= 1-mismatch variant of one of the read's anchors is a
+    key of the query table `qt` whose two cuckoo buckets are one bucket.
+    Both probes then match its one slot, and the table lookups (K1,
+    single table) count it twice; the oracle counts it once."""
+    import numpy as np
+    import torch
+    from find_circ2_tpu_torch.index.hashtable import (LANES, S8_MASK, SLOTS,
+                                                      mix_hash)
+    from find_circ2_tpu_torch.models.pipeline import encode_batch
+    from find_circ2_tpu_torch.ops.anchor_align import (_canonical,
+                                                       enumerate_variants,
+                                                       read_anchors)
+    arr, lens = encode_batch([seq], 1, cfg.max_read_len)
+    anchors = torch.cat(read_anchors(torch.from_numpy(arr),
+                                     torch.from_numpy(lens), cfg))
+    p12, s8, p12r, s8r, _ = enumerate_variants(anchors, cfg)
+    _, cp, cs = _canonical((p12, s8), (p12r, s8r))
+    cp = cp.numpy().ravel().astype(np.uint32)
+    cs = cs.numpy().ravel().astype(np.uint32)
+    n_buckets = int(qt.meta[2])
+    h1, h2 = (mix_hash(cp, cs, salt).astype(np.int64) % n_buckets
+              for salt in np.asarray(qt.meta[:2], np.int32).view(np.uint32))
+    rows = qt.table.reshape(-1, SLOTS, LANES)[h1]
+    present = ((rows[..., 0] == cp[:, None].astype(np.int32))
+               & ((rows[..., 1] & S8_MASK) == cs[:, None].astype(np.int32))
+               ).any(axis=1)
+    return bool((present & (h1 == h2)).any())
+
+
+def _row_is_oracle_call(rows: dict, i: int, call) -> bool:
+    """Row i of unpacked detect results against the oracle's ReadCall:
+    a single-best row (multi bit 0 clear) with the oracle's status and,
+    for a junction, all of its fields."""
+    from find_circ2_tpu_torch.config import ST_JUNCTION
+    from find_circ2_tpu_torch.io.twobit import codes_to_seq
+    if rows["multi"][i] & 1 or int(rows["status"][i]) != call.status:
+        return False
+    if call.status != ST_JUNCTION:
+        return True
+    got = {k: int(rows[k][i]) for k in (
+        "kind", "start", "end", "sense", "align_strand", "edits", "n_bp",
+        "overlap", "qual_left", "qual_right")}
+    got["chrom_idx"] = int(rows["chrom"][i])
+    return (all(getattr(call, k) == v for k, v in got.items())
+            and codes_to_seq(rows["signal"][i]) == call.signal)
+
+
+def check_sharded(fq, sim, genome, index, dindex, cfg, streams, truth,
+                  card) -> dict:
+    """Phase 7: ShardedEngine on a 2x2 mesh whose four slots are all the
+    single-device index's device (cuda:0 on the card), over phase 5's
+    index (its neighbour table is relocated, not rebuilt). `run_fastq`
+    with the engine's dispatch and redo must give phase 6's BED and
+    stats byte for byte and the filter stack's precision and recall, run
+    §2b on the host twin and launch both row-gather wrappers; its time
+    stands beside phase 6's `explore=False` stream.
+
+    Then, on every batch of the library, the engine's classic rows
+    (`redo_packed`) against the single device's `detect_batch`, read for
+    read. A read may differ only by the reference's double count
+    (`_coincident_probes` on the full table, not on the shards), and then
+    the engine's row must be the oracle's call. With those reads left
+    out (length 0), `detect_merged` must equal the single device's
+    `merge_junctions` on the valid rows. Returns the launches and
+    numbers."""
+    import numpy as np
+    import torch
+    from find_circ2_tpu_torch.io.bed import passes_filter
+    from find_circ2_tpu_torch.models.aggregate import Aggregator
+    from find_circ2_tpu_torch.models.oracle import call_read
+    from find_circ2_tpu_torch.models.pipeline import (detect_batch,
+                                                      encode_batch,
+                                                      unpack_results)
+    from find_circ2_tpu_torch.models.stream import run_fastq
+    from find_circ2_tpu_torch.ops import gather_rows as gr
+    from find_circ2_tpu_torch.ops.merge import merge_junctions
+    from find_circ2_tpu_torch.parallel.mesh import make_mesh
+    from find_circ2_tpu_torch.parallel.sharded import ShardedEngine
+    from find_circ2_tpu_torch.utils.profiling import StageTimes
+    out = {}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    eng = ShardedEngine(genome, index,
+                        make_mesh(4, (2, 2), [dindex.device] * 4), cfg)
+    out["setup_s"] = dict(eng.setup_s, total=time.perf_counter() - t0)
+    copies = {id(t) for row in eng.rows for t, _, _ in row.shards}
+    if not eng.fast or eng.n_data != 2 or len(copies) != 2:
+        fail(f"2x2 engine: fast={eng.fast}, {eng.n_data} data rows, "
+             f"{len(copies)} table copies (want True, 2, 2)")
+    log(f"2x2 sharded engine on {dindex.device}: shards carved in "
+        f"{eng.setup_s['carve']:.3f} s, neighbour table relocated in "
+        f"{eng.setup_s['relocate']:.3f} s, {out['setup_s']['total']:.3f} s "
+        f"in all on the host; {len(copies)} copies of the index shards for "
+        f"four slots, on {card}")
+
+    agg = Aggregator(genome, cfg)
+    times = StageTimes()
+    gr.launches = gr.multi_launches = 0
+    t0 = time.perf_counter()
+    run_fastq(None, fq, agg, cfg, times=times, slowpath=(genome, index),
+              dispatch=eng.dispatch_packed, redo=eng.redo_packed)
+    wall = time.perf_counter() - t0
+    out["launches"] = {"gather_rows": gr.launches,
+                       "gather_rows_multi": gr.multi_launches}
+    out.update(seconds=wall, reads=times.n_reads,
+               peak_bytes=torch.cuda.max_memory_allocated())
+    host = streams["host"]
+    log(f"sharded run_fastq (2x2 on {dindex.device}): {wall:.3f} s, "
+        f"{times.n_reads / wall:,.1f} reads/s; run_fastq explore=False on "
+        f"the single device, same index, this call: {host['seconds']:.3f} "
+        f"s, {host['reads'] / host['seconds']:,.1f} reads/s; peak device "
+        f"memory {out['peak_bytes']:,} bytes; on {card}; stages:\n"
+        + times.report(wall=wall))
+    log(f"kernel launches on the sharded path: gather_rows "
+        f"{gr.launches}, gather_rows_multi {gr.multi_launches}")
+    for name, count in out["launches"].items():
+        if count <= 0:
+            fail(f"kernel {name} was not launched on the sharded path")
+    ran = set(times.counts)
+    if "slowpath_multihit" not in ran or "explore_dispatch" in ran:
+        fail(f"the sharded stream ran stages {sorted(ran)}: §2b must run "
+             "on the host twin")
+    got = _render(agg)
+    if got != streams["beds"]["device"]:
+        fail("the sharded stream's BED or stats differ from the single "
+             "device's")
+    rows = [r for r in agg.rows(sample_name="s")
+            if passes_filter(r, cfg.max_span, cfg.min_support,
+                             cfg.filter_max_edits)]
+    prec, rec = _precision_recall(rows, truth)
+    if (round(prec, 4), round(rec, 4)) != (EXPECT_PRECISION, EXPECT_RECALL):
+        fail(f"sharded precision {prec:.4f} / recall {rec:.4f}, the "
+             f"reference gives {EXPECT_PRECISION} / {EXPECT_RECALL}")
+    log(f"sharded stream: BED ({got[0].count(chr(10))} junctions) and stats "
+        f"equal the single device's; filtered precision {prec:.4f}, recall "
+        f"{rec:.4f}")
+
+    # Classic rows read for read, then detect_merged against single-device
+    # detect and merge, every batch.
+    reads = [(n, s) for n, s in sim.reads
+             if 2 * cfg.anchor_len <= len(s) <= cfg.max_read_len]
+    bs, n_rows, faults = cfg.batch_size, 0, []
+    for lo in range(0, len(reads), bs):
+        part = reads[lo:lo + bs]
+        arr, lens = encode_batch([s for _, s in part], bs, cfg.max_read_len)
+        single = detect_batch(
+            dindex.words, dindex.nbases, dindex.table, dindex.meta,
+            dindex.chrom_offsets, torch.from_numpy(arr).to(dindex.device),
+            torch.from_numpy(lens).to(dindex.device), cfg)
+        one = {k: v.cpu().numpy() for k, v in single.items()}
+        many = unpack_results(eng.redo_packed(arr, lens).cpu().numpy())
+        differ = np.flatnonzero((lens > 0) & np.any(
+            [(one[k] != many[k]).reshape(bs, -1).any(axis=1) for k in one],
+            axis=0))
+        for i in differ:
+            name, seq = part[i]
+            if not (_coincident_probes(index.qtable, cfg, seq)
+                    and _row_is_oracle_call(many, i, call_read(
+                        genome, index, name, seq, cfg))):
+                fail(f"the sharded engine's classic row of read {name} "
+                     "differs from the single device's, and not by the "
+                     "double count of a key whose two probe buckets "
+                     "coincide")
+            faults.append(name)
+            log(f"read {name}: (single device, engine) "
+                + str({k: (one[k][i].tolist(), many[k][i].tolist())
+                       for k in one if np.any(one[k][i] != many[k][i])}))
+        lens_kept = np.where(np.isin(np.arange(bs), differ), 0,
+                             lens).astype(np.int32)
+        merged = eng.detect_merged(arr, lens_kept)
+        want = merge_junctions(single, torch.from_numpy(lens_kept).to(
+            dindex.device), cfg)
+        want = {k: v.cpu().numpy() for k, v in want.items()}
+        n = int(want["valid"].sum())
+        if int(merged["valid"].sum()) != n or not all(
+                np.array_equal(merged[k][:n], want[k][:n]) for k in want):
+            fail(f"detect_merged differs from detect_batch + "
+                 f"merge_junctions on the batch at read {lo}")
+        n_rows += n
+    out["merged_batches"] = -(-len(reads) // bs)
+    out["probe_faults"] = faults
+    log(f"detect_merged equals detect_batch + merge_junctions on all "
+        f"{out['merged_batches']} batches ({n_rows} junction rows); "
+        f"classic rows equal read for read but for {len(faults)} reads "
+        f"{faults}, where the single table counts a key whose two probe "
+        f"buckets coincide twice and the engine gives the oracle's call")
     return out
 
 
@@ -574,11 +843,8 @@ def main_path(device: str, library: dict, card: str) -> dict:
         # Precision and recall as bench.py's filter-stack measure them.
         truth = {(t.chrom, t.start, t.end) for t in sim.truths
                  if t.kind == "circular" and len(t.reads) >= cfg.min_support}
-        called = {(r.chrom, r.start, r.end) for r in filt}
-        tp = len(truth & called)
-        prec = tp / max(1, len(called))
-        rec = tp / max(1, len(truth))
-        log(f"filtered calls: {len(called)}, precision {prec:.4f}, recall "
+        prec, rec = _precision_recall(filt, truth)
+        log(f"filtered calls: {len(filt)}, precision {prec:.4f}, recall "
             f"{rec:.4f} vs {len(truth)} planted circles")
         if (round(prec, 4), round(rec, 4)) != (EXPECT_PRECISION,
                                                EXPECT_RECALL):
@@ -592,6 +858,8 @@ def main_path(device: str, library: dict, card: str) -> dict:
             dindex, np.concatenate(seen["arr"]), np.concatenate(seen["lens"]),
             cfg)
         out["streams"] = compare_streams(dindex, fq, g, index, cfg, card)
+        out["sharded"] = check_sharded(fq, sim, g, index, dindex, cfg,
+                                       out["streams"], truth, card)
 
     # Read-for-read equality with the CPU oracle on a slice.
     reads = sim.reads[:ORACLE_READS]
@@ -635,6 +903,8 @@ def main() -> int:
     gather = check_gather_rows("cuda", card)
     check_golden("cuda")
     path = main_path("cuda", LIBRARY, card)
+    check_golden("cuda", ("--mesh", "2x2"))
+    check_golden_nproc("cuda")
 
     # Per wrapper, summed over one detect batch's and one explore chunk's
     # calls: "ms" and "plain_ms" on the device alone (CUDA graphs),
@@ -656,7 +926,8 @@ def main() -> int:
                            else None),
             "called_ms": s["called_ms"],
             "plain_called_ms": s["plain_called_ms"],
-            "explore_launches": path["explore_launches"]})
+            "explore_launches": path["explore_launches"],
+            "sharded_launches": path["sharded"]["launches"][name]})
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

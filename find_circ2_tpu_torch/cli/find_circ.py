@@ -1,12 +1,17 @@
 """`find_circ` — the junction caller CLI on the PyTorch device path
-(reference: find_circ2_tpu/cli/find_circ.py, its single-device branch).
+(reference: find_circ2_tpu/cli/find_circ.py).
 
-Same flags and output as the reference, plus `--device {cuda,cpu}`.
-Routed §2b multi-hit reads run on the device explore program
-(pipeline.DeviceExplorer), as in the reference; only the 2-mm anchor
-rescue runs on the host. The sharded (`--mesh`), multi-process
-(`--nproc`) and oracle (`--backend oracle`) runs are not ported yet and
-exit with an error.
+Same flags and output as the reference, with `--device {cuda,cpu}` in
+place of `--platform`. Routed §2b multi-hit reads run on the device
+explore program (pipeline.DeviceExplorer), as in the reference; only the
+2-mm anchor rescue runs on the host. `--mesh DATAxINDEX` runs the
+sharded engine (parallel/sharded.py) over D·I slots filled round-robin
+with the visible devices of `--device` (so one card holds four index
+shards with `--mesh 2x2`); its §2b reads go to the host twin, as in the
+reference. `--nproc N --proc-id i` runs one of N processes joined over
+gloo: each detects every N-th batch on its own device, and process 0
+merges the junction tables and the summed stats. `--backend oracle` is
+the numpy reference caller.
 """
 
 from __future__ import annotations
@@ -109,8 +114,8 @@ def build_parser() -> argparse.ArgumentParser:
                    "contiguous-alignment prefilter")
     p.add_argument("--backend", choices=("device", "oracle"),
                    default="device",
-                   help="device = the PyTorch path; oracle is not ported "
-                   "(use find_circ2_tpu)")
+                   help="device = the PyTorch path, oracle = numpy "
+                   "reference")
     p.add_argument("--device", choices=("cuda", "cpu"), default="cuda",
                    help="torch device of the detect path (cuda needs a "
                    "card; cpu runs the kernels' plain versions)")
@@ -124,9 +129,23 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--max-edits", type=int, default=d.filter_max_edits)
     p.add_argument("--batch-size", type=int, default=d.batch_size)
     p.add_argument("--mesh", default=None, metavar="DATAxINDEX",
-                   help="sharded multi-device run: not ported yet")
+                   help="run the sharded engine over a DATAxINDEX mesh "
+                   "(e.g. 2x4: data-parallel reads, k-mer-range-sharded "
+                   "index), its slots filled in turn with the visible "
+                   "devices of --device; output is byte-identical to the "
+                   "single-device path")
     p.add_argument("--nproc", type=int, default=None,
-                   help="multi-process run: not ported yet")
+                   help="multi-process run: total number of processes. "
+                   "Each process streams every --nproc'th batch (or "
+                   "read), detects on its own device, and process 0 "
+                   "merges the junction tables; stats are summed over "
+                   "gloo. Requires --proc-id and a real -o path; output "
+                   "is byte-identical to a single-process run")
+    p.add_argument("--proc-id", type=int, default=None,
+                   help="this process's rank in [0, --nproc)")
+    p.add_argument("--coordinator", default="localhost:9377",
+                   help="host:port where process 0 hosts the gloo "
+                   "rendezvous")
     p.add_argument("--journal", default=None,
                    help="JSONL resume journal: completed batches replay "
                    "from disk on rerun")
@@ -135,14 +154,45 @@ def build_parser() -> argparse.ArgumentParser:
     return p
 
 
+def parse_mesh(spec: str) -> tuple[int, int]:
+    """DATAxINDEX -> (data, index)."""
+    try:
+        shape = tuple(int(x) for x in spec.lower().split("x"))
+    except ValueError:
+        shape = ()
+    if len(shape) != 2 or min(shape) < 1:
+        raise SystemExit("--mesh expects DATAxINDEX, e.g. 2x4")
+    return shape
+
+
 def run(args) -> int:
-    for flag, given in (("--mesh", args.mesh), ("--nproc", args.nproc),
-                        ("--backend oracle", args.backend == "oracle")):
-        if given:
-            raise SystemExit(f"find_circ: {flag} is not yet ported to the "
-                             "PyTorch package; use find_circ2_tpu")
+    nproc = args.nproc or 1
+    if nproc > 1:
+        # Detection is per process on its own device; only the stats sum
+        # and the file-based junction merge synchronize the processes.
+        if args.proc_id is None or not 0 <= args.proc_id < nproc:
+            raise SystemExit("--nproc requires --proc-id in [0, nproc)")
+        if args.output == "-":
+            raise SystemExit("--nproc requires -o FILE "
+                             "(process 0 writes the merged table)")
+        if args.mesh:
+            raise SystemExit("--mesh shards within one process; combine "
+                             "processes with --nproc OR devices with "
+                             "--mesh, not both")
+    mesh = parse_mesh(args.mesh) if args.mesh else None
+    from find_circ2_tpu_torch.parallel.distributed import (close_distributed,
+                                                           init_distributed)
+    init_distributed(args.coordinator, nproc, args.proc_id)
+    try:
+        return _run(args, nproc, mesh)
+    finally:
+        close_distributed()
+
+
+def _run(args, nproc: int, mesh) -> int:
     t_setup = time.perf_counter()
-    device = resolve_device(args.device)
+    device = resolve_device(args.device) if args.backend == "device" \
+        else None
     cfg = Config(anchor_len=args.anchor,
                  prefix_len=min(12, args.anchor - 8),
                  stranded=args.stranded, batch_size=args.batch_size)
@@ -175,47 +225,97 @@ def run(args) -> int:
         # --pe: odd-indexed files are mate-2 -> mate-1 orientation.
         return rc_stream(it) if args.pe and fi % 2 else it
 
+    src = itertools.chain.from_iterable(
+        file_stream(fi, f) for fi, f in enumerate(args.input))
+    if nproc > 1:
+        # Round-robin read sharding for the per-read paths: deterministic,
+        # streaming, and the junction merge is order-free.
+        src = itertools.islice(src, args.proc_id, None, nproc)
     prefilter = not args.no_prefilter
     agg = Aggregator(genome, cfg)
     journal = times = None
     if args.journal:
         from find_circ2_tpu_torch.utils.journal import RunJournal
-        journal = RunJournal(args.journal)
+        if nproc > 1:
+            # Per-rank journal: batch ids mean something only within one
+            # (nproc, proc_id) sharding, which the header pins, so a
+            # resume under another --nproc fails instead of replaying
+            # another rank's batches.
+            journal = RunJournal(
+                f"{args.journal}.r{args.proc_id}",
+                meta={"nproc": nproc, "proc_id": args.proc_id})
+        else:
+            journal = RunJournal(args.journal)
     from find_circ2_tpu_torch import native
     from find_circ2_tpu_torch.models.pipeline import DeviceIndex, run_reads
-    dindex = DeviceIndex.build(genome, index, cfg, device=device)
+    from find_circ2_tpu_torch.models.stream import run_fastq
     slowpath = (genome, index)
-    if args.profile:
-        from find_circ2_tpu_torch.utils.profiling import StageTimes
-        times = StageTimes()
-        t_stream = time.perf_counter()
-        print(f"setup\t{t_stream - t_setup:.3f}s\tgenome, index and "
-              "device tables", file=sys.stderr)
-    if args.reads_format == "fastq" and native.available():
-        # Native C FASTQ scanning + batch encoding; multi-file runs use
-        # one journal per input so batch ids stay per-file.
-        from find_circ2_tpu_torch.models.stream import run_fastq
+    native_fastq = args.reads_format == "fastq" and native.available()
+    if args.backend == "device" and not native_fastq \
+            and args.reads_format == "fastq":
+        print("find_circ: WARNING: native loader unavailable; falling "
+              "back to the per-read Python path", file=sys.stderr)
+
+    def journals():
+        # Multi-file runs use one journal per input (keeping the
+        # sharding-pinned header), so batch ids stay per file.
         for fi, f in enumerate(args.input):
             jr = journal
             if journal is not None and len(args.input) > 1:
                 from find_circ2_tpu_torch.utils.journal import RunJournal
                 jr = RunJournal(f"{journal.path}.{fi}", meta=journal.meta)
-            run_fastq(dindex, f, agg, cfg, prefilter, times=times,
-                      slowpath=slowpath, journal=jr,
-                      revcomp=bool(args.pe and fi % 2))
+            yield fi, f, jr
+
+    if args.backend == "device" and mesh is not None:
+        # The sharded engine in place of the single-device step; same
+        # streaming loops and aggregation.
+        from find_circ2_tpu_torch.parallel.mesh import make_mesh, round_robin
+        from find_circ2_tpu_torch.parallel.sharded import ShardedEngine
+        n = mesh[0] * mesh[1]
+        eng = ShardedEngine(genome, index,
+                            make_mesh(n, mesh, round_robin(n, device.type)),
+                            cfg, prefilter)
+        bs = -(-cfg.batch_size // eng.n_data) * eng.n_data
+        times, t_stream = _profile_start(args, t_setup)
+        if native_fastq:
+            for fi, f, jr in journals():
+                run_fastq(None, f, agg, cfg, prefilter, batch_size=bs,
+                          times=times, slowpath=slowpath, journal=jr,
+                          revcomp=bool(args.pe and fi % 2),
+                          dispatch=eng.dispatch_packed,
+                          redo=eng.redo_packed)
+        else:
+            for call in run_reads(None, src, cfg, prefilter, batch_size=bs,
+                                  journal=journal, times=times,
+                                  slowpath=slowpath,
+                                  dispatch=eng.dispatch_packed,
+                                  redo=eng.redo_packed):
+                agg.add(call)
+    elif args.backend == "device":
+        dindex = DeviceIndex.build(genome, index, cfg, device=device)
+        times, t_stream = _profile_start(args, t_setup)
+        if native_fastq:
+            # Each process owns every --nproc'th batch (shard=).
+            shard = (args.proc_id, nproc) if nproc > 1 else None
+            for fi, f, jr in journals():
+                run_fastq(dindex, f, agg, cfg, prefilter, times=times,
+                          slowpath=slowpath, journal=jr,
+                          revcomp=bool(args.pe and fi % 2), shard=shard)
+        else:
+            for call in run_reads(dindex, src, cfg, prefilter,
+                                  journal=journal, times=times,
+                                  slowpath=slowpath):
+                agg.add(call)
     else:
-        if args.reads_format == "fastq":
-            print("find_circ: WARNING: native loader unavailable; "
-                  "falling back to the per-read Python path",
-                  file=sys.stderr)
-        src = itertools.chain.from_iterable(
-            file_stream(fi, f) for fi, f in enumerate(args.input))
-        for call in run_reads(dindex, src, cfg, prefilter, journal=journal,
-                              times=times, slowpath=slowpath):
-            agg.add(call)
+        from find_circ2_tpu_torch.models.oracle import call_read
+        times, t_stream = _profile_start(args, t_setup)
+        for name, seq in src:
+            agg.add(call_read(genome, index, name, seq, cfg, prefilter))
     if times is not None:
         print(times.report(wall=time.perf_counter() - t_stream),
               file=sys.stderr)
+    if nproc > 1 and not _merge_processes(args, agg, nproc):
+        return 0
     rows = agg.rows(sample_name=args.name, prefix=args.prefix)
     if args.filter:
         from find_circ2_tpu_torch.io.bed import passes_filter
@@ -232,6 +332,48 @@ def run(args) -> int:
         with open(args.stats, "wt") as fh:
             fh.write("\n".join(agg.stats.lines()) + "\n")
     return 0
+
+
+def _profile_start(args, t_setup: float):
+    """(StageTimes, stream start) under --profile, after printing the
+    set-up seconds; (None, None) without it."""
+    if not args.profile:
+        return None, None
+    from find_circ2_tpu_torch.utils.profiling import StageTimes
+    t_stream = time.perf_counter()
+    print(f"setup\t{t_stream - t_setup:.3f}s\tgenome, index and "
+          "device tables", file=sys.stderr)
+    return StageTimes(), t_stream
+
+
+def _merge_processes(args, agg: Aggregator, nproc: int) -> bool:
+    """Every process writes its junction table to {output}.part{rank};
+    the stats counters are summed over gloo, which is also the barrier
+    before process 0 reads the parts. Returns True on process 0, whose
+    `agg` then holds the merged table and the summed stats."""
+    import pickle
+    from find_circ2_tpu_torch.models.aggregate import Stats
+    from find_circ2_tpu_torch.parallel.distributed import (allreduce_counts,
+                                                           stats_to_vec)
+    order = Stats.REDUCE_ORDER
+    part = f"{args.output}.part{args.proc_id}"
+    agg._drain_batches()     # buffered summaries -> junction dict
+    with open(part, "wb") as fh:
+        pickle.dump(agg.junctions, fh)
+    total = allreduce_counts(stats_to_vec(agg.stats, order))
+    if args.proc_id != 0:
+        return False
+    for i in range(1, nproc):
+        pi = f"{args.output}.part{i}"
+        with open(pi, "rb") as fh:
+            agg.merge_from(pickle.load(fh))
+        os.remove(pi)
+    os.remove(part)
+    # Replace only the summed per-read counters; any other counter stays.
+    for k in order:
+        agg.stats.counts.pop(k, None)
+    agg.stats.counts.update({k: int(v) for k, v in zip(order, total) if v})
+    return True
 
 
 def main(argv=None) -> int:

@@ -31,8 +31,9 @@ per-variant query to TWO row gathers over HALF the variants:
 The port's copy of find_circ2_tpu/index/hashtable.py: the numpy table
 builders as they are there, and `mix_hash` on numpy arrays (the
 builders) and on torch tensors (the device probes of ops/anchor_align),
-bit for bit the same hash. The shard builders (`shard_query_table`,
-`shard_neighbor_tables`) come with the port's parallel/ package.
+bit for bit the same hash; and the prefix-range shard builders of the
+sharded engine (`shard_query_table`, `_shard_from_table`,
+`shard_neighbor_tables`; parallel/sharded.py).
 """
 
 from __future__ import annotations
@@ -550,3 +551,143 @@ def build_neighbor_table(index: SeedIndex, cfg: Config = Config(), *,
     nt[empty, 1] = np.int32(-1)     # LARGE_POS bit pattern
     nt[empty, 3] = np.int32(-1)
     return nt.reshape(T_pad, SLOTS * NBR_LANES)
+
+
+def shard_neighbor_tables(qt: QueryTable, tables: np.ndarray
+                          ) -> np.ndarray:
+    """Per-shard K1 v4 neighbor tables, row-aligned with `tables`
+    (the output of shard_query_table).
+
+    1-mm neighbors cross prefix-range shard boundaries, so the
+    aggregates are properties of the FULL key set: they are built once
+    on the full table (build_neighbor_table -> qt.ntable) and RELOCATED
+    here — each shard slot's key is probed in the full table and its
+    aggregate row copied. Returns int32
+    [n_shards, T_pad, SLOTS * NBR_LANES]."""
+    if qt.ntable is None:
+        raise ValueError("full-table ntable missing; call "
+                         "build_neighbor_table first")
+    ftab = np.asarray(qt.table).reshape(-1, LANES)
+    ntf = np.asarray(qt.ntable).reshape(-1, NBR_LANES)
+    salts = np.asarray(qt.meta[:2], np.int32).view(np.uint32)
+    nb = np.int64(qt.n_buckets)
+    n_shards, T_pad, _ = tables.shape
+    out = np.zeros((n_shards, T_pad * SLOTS, NBR_LANES), np.int32)
+    out[:, :, 1] = -1           # LARGE_POS bit pattern for empty slots
+    out[:, :, 3] = -1
+    for i in range(n_shards):
+        tab = tables[i].reshape(-1, LANES)
+        occ = np.flatnonzero(tab[:, 0] != EMPTY_KEY)
+        if occ.size == 0:
+            continue
+        p12 = tab[occ, 0].astype(np.uint32)
+        s8 = (tab[occ, 1] & S8_MASK).astype(np.uint32)
+        rows = np.zeros((occ.size, NBR_LANES), np.int32)
+        found = np.zeros(occ.size, bool)
+        for salt in salts:
+            h = (mix_hash(p12, s8, salt).astype(np.int64)) % nb
+            for s in range(SLOTS):
+                slot = h * SLOTS + s
+                m = (~found) \
+                    & (ftab[slot, 0] == tab[occ, 0]) \
+                    & ((ftab[slot, 1] & S8_MASK)
+                       == (tab[occ, 1] & S8_MASK))
+                rows[m] = ntf[slot[m]]
+                found |= m
+        if not found.all():
+            raise RuntimeError(
+                f"shard {i}: {int((~found).sum())} keys not found in "
+                f"the full table (table/ntable mismatch)")
+        out[i, occ] = rows
+    return out.reshape(n_shards, T_pad, SLOTS * NBR_LANES)
+
+
+def _shard_from_table(qt: QueryTable, n_shards: int, n_buckets: int,
+                      cfg: Config, load: float, seed: int):
+    """Carve prefix-range shards out of an EXISTING full table.
+
+    Every occupied slot stores its canonical key (p12, s8) and both
+    orientations' clamped payloads, so sharding is filter + re-place —
+    no re-aggregation of the (possibly multi-hour at 3 Gbp) distinct
+    k-mer pass. Table contents are placement-permutations of the
+    slow-path shards; all lookups are exact key compares, so results
+    are bit-identical (tests/test_sharded.py)."""
+    # No ascontiguousarray: qt.table may be a tens-of-GiB memmap; the
+    # reshape is a view and the boolean filter copies only kept rows.
+    tab = np.asarray(qt.table).reshape(-1, LANES)
+    occupied = tab[:, 0] != EMPTY_KEY
+    S = -(-n_buckets // n_shards)
+    parts = []
+    for i in range(n_shards):
+        keep = occupied & (tab[:, 0] >= i * S) & (tab[:, 0] < (i + 1) * S)
+        rows = tab[keep]
+        packed = rows[:, 1]
+        parts.append(_build_from_keys(
+            rows[:, 0], packed & S8_MASK,
+            (packed >> 16) & CNT_MASK,
+            rows[:, 2].view(np.uint32),
+            (packed >> (16 + CNT_BITS)) & CNT_MASK,
+            rows[:, 3].view(np.uint32),
+            load=load, seed=seed + i, max_bucket=cfg.max_bucket))
+    T_pad = max(p.table.shape[0] for p in parts)
+    tables = np.full((n_shards, T_pad, SLOTS * LANES), EMPTY_KEY,
+                     np.int32)
+    metas = np.zeros((n_shards, 3), np.int32)
+    for i, p in enumerate(parts):
+        tables[i, :p.table.shape[0]] = p.table
+        metas[i] = p.meta
+    return tables, metas
+
+
+def shard_query_table(index: SeedIndex, n_shards: int,
+                      cfg: Config = Config(), *, load: float = 0.8,
+                      seed: int = 0, extras: bool = False):
+    """Range-partition distinct canonical k-mers by prefix12 and build
+    one QueryTable per shard, padded to a common bucket count.
+
+    Returns (tables int32 [n_shards, T_pad, SLOTS*LANES],
+             metas int32 [n_shards, 3]); with `extras` additionally
+             (exts uint32 [n_shards, n_rows, 2*(K-1)],
+              ext_ids int32 [n_shards, T_pad, SLOTS]) — each distinct
+             canonical k-mer's §2b positions live on its owning shard,
+             so cross-shard candidate merging is an all_gather + re-cap
+             (ops/explore.py).
+
+    When the index already carries a built full table, non-extras
+    shards are carved from it directly (`_shard_from_table`) instead of
+    re-running the whole-genome distinct-k-mer aggregation."""
+    if cfg.max_bucket + 1 >= (1 << CNT_BITS):
+        raise ValueError(f"max_bucket must be < {(1 << CNT_BITS) - 1} "
+                         "to fit the packed count field")
+    if index.qtable is not None and not extras:
+        return _shard_from_table(index.qtable, n_shards, index.n_buckets,
+                                 cfg, load, seed)
+    p12, s8, cnt_f, pos_f, cnt_r, pos_r, st_f, st_r = canonical_keys(index)
+    nb = index.n_buckets
+    S = -(-nb // n_shards)
+    bounds = np.searchsorted(p12, np.arange(n_shards + 1) * S)
+    parts = []
+    for i in range(n_shards):
+        lo, hi = bounds[i], bounds[i + 1]
+        parts.append(_build_from_keys(
+            p12[lo:hi], s8[lo:hi], cnt_f[lo:hi], pos_f[lo:hi],
+            cnt_r[lo:hi], pos_r[lo:hi], st_f[lo:hi], st_r[lo:hi],
+            load=load, seed=seed + i, max_bucket=cfg.max_bucket,
+            positions=index.positions if extras else None,
+            max_pair_hits=cfg.max_pair_hits))
+    T_pad = max(qt.table.shape[0] for qt in parts)
+    tables = np.full((n_shards, T_pad, SLOTS * LANES), EMPTY_KEY, np.int32)
+    metas = np.zeros((n_shards, 3), np.int32)
+    for i, qt in enumerate(parts):
+        tables[i, :qt.table.shape[0]] = qt.table
+        metas[i] = qt.meta
+    if not extras:
+        return tables, metas
+    K = cfg.max_pair_hits
+    R_pad = max(qt.ext.shape[0] for qt in parts)
+    exts = np.full((n_shards, R_pad, 2 * (K - 1)), LARGE_POS, np.uint32)
+    ext_ids = np.zeros((n_shards, T_pad, SLOTS), np.int32)
+    for i, qt in enumerate(parts):
+        exts[i, :qt.ext.shape[0]] = qt.ext
+        ext_ids[i, :qt.ext_id.shape[0]] = qt.ext_id
+    return tables, metas, exts, ext_ids

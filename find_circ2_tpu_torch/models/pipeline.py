@@ -45,7 +45,7 @@ from find_circ2_tpu_torch.models.multihit import (call_read_multi,
                                                   call_reads_multi_batch)
 from find_circ2_tpu_torch.models.oracle import ReadCall
 from find_circ2_tpu_torch.ops.anchor_align import (
-    align_anchor_pair, align_anchor_pair_fast, read_anchors)
+    AnchorHits, align_anchor_pair, align_anchor_pair_fast, read_anchors)
 from find_circ2_tpu_torch.ops.breakpoint import as_int32, breakpoint_search
 from find_circ2_tpu_torch.ops.packed import gather_window, pack_words
 
@@ -160,6 +160,16 @@ def revcomp_batch(arr: np.ndarray, lens: np.ndarray) -> np.ndarray:
     return np.where(pos < lens[:, None], r, RPAD_CODE).astype(np.uint8)
 
 
+def _revcomp_device(reads: torch.Tensor, lens: torch.Tensor) -> torch.Tensor:
+    """revcomp_batch on the device, for callers without a host batch."""
+    Lp = reads.shape[1]
+    pos = torch.arange(Lp, device=reads.device)[None, :]
+    lens = lens.to(torch.int64)[:, None]
+    r = torch.gather(reads, 1, torch.clamp(lens - 1 - pos, 0, Lp - 1))
+    r = torch.where(r < 4, 3 - r, r)
+    return torch.where(pos < lens, r, RPAD_CODE).to(torch.uint8)
+
+
 def _full_read_mm(words, nbases: int, query, start, lens) -> torch.Tensor:
     """Hamming(query[:l], genome[start:start+l]) per row (SPEC.md §6)."""
     Lp = query.shape[1]
@@ -171,14 +181,17 @@ def _full_read_mm(words, nbases: int, query, start, lens) -> torch.Tensor:
 
 
 def detect_core(words, nbases: int, chrom_offsets, reads, lens, hits_a,
-                hits_b, cfg: Config, prefilter: bool, rc) -> dict:
+                hits_b, cfg: Config, prefilter: bool, rc=None) -> dict:
     """Pairing, prefilter, K2 and status resolution given anchor hits.
 
     Row status follows the oracle's priority order exactly [FROZEN]:
     prefiltered > unaligned_A > unaligned_B > diff_strand > diff_chrom >
     anchors_overlap > no_junction > junction. `rc` is each read's
-    left-aligned reverse complement (revcomp_batch, computed on the host).
+    left-aligned reverse complement: revcomp_batch, computed on the host,
+    on the streaming paths; None builds it on the device.
     """
+    if rc is None:
+        rc = _revcomp_device(reads, lens)
     B = reads.shape[0]
     a = cfg.anchor_len
     dev = reads.device
@@ -262,6 +275,51 @@ def _pack(res: dict) -> torch.Tensor:
     return torch.stack(cols + [sig_packed.to(torch.int32)], dim=1)
 
 
+def detect_batch(words, nbases: int, table, meta, chrom_offsets, reads,
+                 lens, cfg: Config, prefilter: bool = True,
+                 rc=None) -> dict:
+    """Full classic detection step (enumeration K1) as the dict of [B]
+    result tensors (signal [B, 4]); the unpacked form of
+    detect_batch_packed."""
+    hits_a, hits_b = _align_phase(table, meta, reads, lens, cfg)
+    return detect_core(words, nbases, chrom_offsets, reads, lens, hits_a,
+                       hits_b, cfg, prefilter, rc)
+
+
+def _align_phase(table, meta, reads, lens, cfg: Config
+                 ) -> tuple[AnchorHits, AnchorHits]:
+    anchors_a, anchors_b = read_anchors(reads, lens, cfg)
+    return align_anchor_pair(table, meta, anchors_a, anchors_b, cfg)
+
+
+def _align_phase_fast(table, ntable, meta, reads, lens, cfg: Config):
+    anchors_a, anchors_b = read_anchors(reads, lens, cfg)
+    return align_anchor_pair_fast(table, ntable, meta, anchors_a, anchors_b,
+                                  cfg)
+
+
+def _core_phase(words, nbases: int, chrom_offsets, reads, lens, hits_a,
+                hits_b, cfg: Config, prefilter: bool, rc=None) -> dict:
+    return detect_core(words, nbases, chrom_offsets, reads, lens, hits_a,
+                       hits_b, cfg, prefilter, rc)
+
+
+def detect_batch_phased(dindex: "DeviceIndex", reads, lens, cfg: Config,
+                        prefilter: bool = True, rc=None) -> dict:
+    """The detection step as its two phases, K1 (exact-first when the
+    index has a neighbour table) then the core, as the dict of
+    detect_batch. The fallback-overflow flag is dropped: this entry does
+    not redo a batch (the streaming paths do)."""
+    d = dindex
+    if d.ntable is not None:
+        hits_a, hits_b, _ = _align_phase_fast(d.table, d.ntable, d.meta,
+                                              reads, lens, cfg)
+    else:
+        hits_a, hits_b = _align_phase(d.table, d.meta, reads, lens, cfg)
+    return _core_phase(d.words, d.nbases, d.chrom_offsets, reads, lens,
+                       hits_a, hits_b, cfg, prefilter, rc)
+
+
 def detect_batch_packed(words, nbases: int, table, meta, chrom_offsets,
                         reads, lens, cfg: Config, prefilter: bool,
                         rc) -> torch.Tensor:
@@ -314,12 +372,19 @@ def dispatch_packed(dindex: DeviceIndex, arr, lens, cfg: Config,
                                prefilter, rc=rc)
 
 
-def redo_if_overflow(dindex: DeviceIndex, res: dict, arr, lens,
-                     cfg: Config, prefilter: bool = True) -> dict:
+def redo_if_overflow(dindex: DeviceIndex | None, res: dict, arr, lens,
+                     cfg: Config, prefilter: bool = True,
+                     redo=None) -> dict:
     """If the unpacked batch carries the fallback-overflow flag (multi
     bit 3), redo it on the classic program and return its results;
-    otherwise return `res`. Synchronous (rare path)."""
-    if dindex.ntable is None or not (res["multi"] & 8).any():
+    otherwise return `res`. `redo(arr, lens) -> packed rows`, when given,
+    is that program (the sharded engine's `redo_packed`) in place of the
+    single device's. Synchronous (rare path)."""
+    if not (res["multi"] & 8).any():
+        return res
+    if redo is not None:
+        return unpack_results(redo(arr, lens).cpu().numpy())
+    if dindex is None or dindex.ntable is None:
         return res
     d = dindex
     reads, lens_t, rc = _to_device(d, arr, lens)
@@ -450,10 +515,11 @@ class DeviceExplorer:
         return unpack_results(packed)
 
 
-def run_reads(dindex: DeviceIndex, reads, cfg: Config = Config(),
+def run_reads(dindex: DeviceIndex | None, reads, cfg: Config = Config(),
               prefilter: bool = True, batch_size: int | None = None,
               journal=None, times=None, pipeline_depth: int = 2,
-              slowpath=None, explore: bool | None = None):
+              slowpath=None, dispatch=None, explore: bool | None = None,
+              redo=None):
     """Host streaming loop: batch (name, seq) reads, run the device step
     `pipeline_depth` batches ahead of the readback, and return the
     ReadCalls in input order.
@@ -464,7 +530,13 @@ def run_reads(dindex: DeviceIndex, reads, cfg: Config = Config(),
     the device program (`DeviceExplorer`) when the index has §2b extras,
     else the host twin (models/multihit); True forces the device program
     (ValueError without extras); False forces the host twin. All three
-    give the same calls. The 2-mm rescue always runs on the host. With a
+    give the same calls. The 2-mm rescue always runs on the host.
+
+    `dispatch(arr [bs, Lp] uint8, lens [bs] int32) -> packed rows`
+    replaces the single-device step, and `redo(arr, lens)` its classic
+    redo of a fallback-overflow batch: the sharded engine plugs in here
+    (parallel.sharded.ShardedEngine.dispatch_packed, .redo_packed), with
+    `dindex` None and no device explore. With a
     `journal` (utils.journal.RunJournal) completed batches replay from
     disk; `times` (utils.profiling.StageTimes) collects per-stage wall
     time.
@@ -480,7 +552,8 @@ def run_reads(dindex: DeviceIndex, reads, cfg: Config = Config(),
     batch_id = 0
     inflight: deque = deque()   # (batch_id, records, HostCopy, arr, lens)
     if explore is None:
-        explore = slowpath is not None and dindex.ext is not None
+        explore = (slowpath is not None and dindex is not None
+                   and dindex.ext is not None)
     explorer = DeviceExplorer(dindex, cfg, prefilter) if explore else None
     # Batches whose routed reads await explore results, one stage behind
     # detect: (batch_id, batch_calls with None slots, slots, handle).
@@ -520,7 +593,7 @@ def run_reads(dindex: DeviceIndex, reads, cfg: Config = Config(),
         None until finalize)."""
         with timed("device_detect"):
             res = redo_if_overflow(dindex, unpack_results(copy.numpy()),
-                                   arr, blens, cfg, prefilter)
+                                   arr, blens, cfg, prefilter, redo)
         batch_calls: list[ReadCall] = []
         route_slots: list[int] = []
         routed: list[tuple[str, str]] = []
@@ -582,8 +655,9 @@ def run_reads(dindex: DeviceIndex, reads, cfg: Config = Config(),
             with timed("encode"):
                 arr, lens = encode_batch([seq for _, seq in buf], bs, Lp)
             with timed("device_dispatch"):
-                copy = HostCopy(dispatch_packed(dindex, arr, lens, cfg,
-                                                prefilter))
+                copy = HostCopy(
+                    dispatch(arr, lens) if dispatch is not None
+                    else dispatch_packed(dindex, arr, lens, cfg, prefilter))
             inflight.append((this_id, list(buf), copy, arr, lens))
         buf.clear()
         if len(inflight) > pipeline_depth:

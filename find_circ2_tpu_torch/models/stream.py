@@ -126,12 +126,13 @@ def _iter_records(path):
                 raise ValueError("trailing partial FASTQ record")
 
 
-def run_fastq(dindex: DeviceIndex, path, agg: Aggregator,
+def run_fastq(dindex: DeviceIndex | None, path, agg: Aggregator,
               cfg: Config = Config(), prefilter: bool = True,
               batch_size: int | None = None, times=None,
               pipeline_depth: int = 4, slowpath=None,
               journal=None, revcomp: bool = False,
-              explore: bool | None = None) -> None:
+              explore: bool | None = None, dispatch=None,
+              shard: tuple[int, int] | None = None, redo=None) -> None:
     """Stream a FASTQ(.gz) file through the device pipeline into `agg`.
 
     Dispatch runs `pipeline_depth` batches ahead of the readback.
@@ -147,7 +148,18 @@ def run_fastq(dindex: DeviceIndex, path, agg: Aggregator,
     the replay records stay complete. `journal` (utils.journal
     .RunJournal): completed batches replay from compact FastBatch
     records on rerun. `revcomp=True` reverse-complements every read
-    after encoding (the --pe mate-2 transform, SPEC.md §7)."""
+    after encoding (the --pe mate-2 transform, SPEC.md §7).
+
+    `dispatch` and `redo` replace the single-device step and its
+    overflow redo, as in pipeline.run_reads: the sharded engine's
+    (`dindex` None; routed reads then go to the host twin).
+    `shard=(proc_id, nproc)` is the multi-process mode (`find_circ
+    --nproc`): every process scans the file but encodes and detects only
+    the batches with batch_id % nproc == proc_id, and rank 0 alone counts
+    the reads that are out of batch (too short, too long). Each process's
+    stats cover its own batches; the caller sums them over the processes.
+    The ranks together process each read once, and the junction merge is
+    order-free, so the merged output equals a one-process run."""
     import contextlib
     from collections import deque
 
@@ -160,7 +172,8 @@ def run_fastq(dindex: DeviceIndex, path, agg: Aggregator,
     done = journal.completed_batches() if journal is not None else {}
     next_batch_id = 0
     if explore is None:
-        explore = slowpath is not None and dindex.ext is not None
+        explore = (slowpath is not None and dindex is not None
+                   and dindex.ext is not None)
     explorer = DeviceExplorer(dindex, cfg, prefilter) if explore else None
     rpool = None
     if (slowpath is not None and cfg.rescue_anchor_mm >= 2
@@ -241,7 +254,7 @@ def run_fastq(dindex: DeviceIndex, path, agg: Aggregator,
         batch_id, buf, spans, sel, copy, arr, blens = inflight.popleft()
         with timed("device_detect"):
             res = redo_if_overflow(dindex, unpack_results(copy.numpy()),
-                                   arr, blens, cfg, prefilter)
+                                   arr, blens, cfg, prefilter, redo)
         # The slow-path stages keep their own timers; "aggregate" must
         # not enclose them or the report double-counts.
         with timed("aggregate"):
@@ -354,14 +367,18 @@ def run_fastq(dindex: DeviceIndex, path, agg: Aggregator,
             short = lens_all < a2
             long_ = lens_all > Lp
             ok_idx = np.nonzero(~short & ~long_)[0]
-        for st, mask in ((ST_TOO_SHORT, short), (ST_TOO_LONG, long_)):
-            cnt = int(mask.sum())
-            if cnt:
-                agg.stats.add("reads_total", cnt)
-                agg.stats.add_status(st, cnt)
+        if shard is None or shard[0] == 0:
+            # Out-of-batch reads are counted once, by rank 0.
+            for st, mask in ((ST_TOO_SHORT, short), (ST_TOO_LONG, long_)):
+                cnt = int(mask.sum())
+                if cnt:
+                    agg.stats.add("reads_total", cnt)
+                    agg.stats.add_status(st, cnt)
         for lo in range(0, ok_idx.size, bs):
             batch_id = next_batch_id
             next_batch_id += 1
+            if shard is not None and batch_id % shard[1] != shard[0]:
+                continue
             if batch_id in done:
                 replay(done[batch_id], min(bs, ok_idx.size - lo))
                 continue
@@ -375,8 +392,9 @@ def run_fastq(dindex: DeviceIndex, path, agg: Aggregator,
                 if revcomp:
                     arr = revcomp_batch(arr, lens)
             with timed("device_dispatch"):
-                copy = HostCopy(dispatch_packed(dindex, arr, lens, cfg,
-                                                prefilter))
+                copy = HostCopy(
+                    dispatch(arr, lens) if dispatch is not None
+                    else dispatch_packed(dindex, arr, lens, cfg, prefilter))
             inflight.append((batch_id, buf, spans, sel, copy, arr, lens))
             if len(inflight) > pipeline_depth:
                 consume()

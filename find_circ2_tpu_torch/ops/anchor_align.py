@@ -8,6 +8,15 @@ the K1 v4 fast path resolves an anchor whose exact key is present from
 falls back to the enumeration on a static slice for the rest. Every
 table row fetch goes through `ops.gather_rows`.
 
+The `*_sharded` forms take the index as prefix-range shards (the
+sharded engine, parallel/sharded.py), each a list of per-shard tables
+on their own devices. The reference runs every shard in its own program
+and combines with psum/pmin inside; here one process drives all of a
+data row's shards, so each function is a per-shard part (gathers and
+probes on the shard's device), an integer sum/min/any over the shards on
+the anchors' device (`_combine`), and a global finish. The single-table
+forms are the same with one shard and nothing between the two parts.
+
 Global positions are uint32 in the reference; here they are int64
 holding the same values (the table's int32 lanes carry the bit pattern,
 unmasked with `& 0xFFFFFFFF`). The reference's XLA workarounds are not
@@ -81,14 +90,17 @@ def _canonical(fw, rc):
 
 def _bucket_rows(tables, cp, cs, meta):
     """Rows of each table at the two cuckoo probes of keys (cp, cs):
-    one gather launch for both probes and every table, so each bucket
-    index is loaded once. Returns, per table, the pair (probe-0 rows,
-    probe-1 rows), each [*cp.shape, W]."""
+    one gather launch for both probes and every table (`gather_rows` for
+    one table, `gather_rows_multi` for two), so each bucket index is
+    loaded once. Returns, per table, the pair (probe-0 rows, probe-1
+    rows), each [*cp.shape, W]."""
     n_buckets = meta[2].to(torch.int64) & M32
     h = torch.cat([mix_hash(cp, cs, meta[s].to(torch.int64) & M32)
                    % n_buckets for s in (0, 1)]).reshape(-1)
+    rows = ([gather_rows(tables[0], h)] if len(tables) == 1
+            else gather_rows_multi(tables, h))
     out = []
-    for t, g in zip(tables, gather_rows_multi(tables, h)):
+    for t, g in zip(tables, rows):
         g = g.reshape(2, *cp.shape, t.shape[1])
         out.append((g[0], g[1]))
     return out
@@ -189,6 +201,33 @@ def candidate_stats(table, meta, anchors, cfg: Config, ext=None,
     return count, first_pos, mm_v, strand_v, extras
 
 
+def _on_shards(shards, fn, args, device):
+    """fn(*shard, *args) on each index shard's own device; each result
+    tuple comes back to `device` (the data row's first device)."""
+    outs = []
+    for shard in shards:
+        dev = shard[0].device
+        got = fn(*shard, *(a.to(dev, non_blocking=True) for a in args))
+        outs.append(tuple(x.to(device, non_blocking=True) for x in got))
+    return outs
+
+
+def _combine(parts, ops):
+    """The cross-shard combine of K1's per-shard partials: field j of the
+    result is the sum, minimum or any of field j over the shards, as
+    ops[j] says ("sum", "min", "any"). Integer statistics, so the result
+    equals one shard holding the whole table. One shard: its partials as
+    they are."""
+    if len(parts) == 1:
+        return parts[0]
+    out = []
+    for j, op in enumerate(ops):
+        x = torch.stack([p[j] for p in parts])
+        out.append(x.sum(0, dtype=x.dtype) if op == "sum"
+                   else x.amin(0) if op == "min" else x.any(0))
+    return tuple(out)
+
+
 def finalize_hits(count, first_pos, mm_v, strand_v, cfg: Config
                   ) -> AnchorHits:
     """Frozen lexicographic best-hit selection + MAPQ surrogate (SPEC §2).
@@ -227,12 +266,9 @@ def _hits(m0, n_best, total, n_exact, strand_best, pos_best, cfg: Config
                       qual=qual.to(i32))
 
 
-def exact_anchor_stats(table, ntable, meta, anchors, cfg: Config):
-    """K1 v4 fast path: the frozen SPEC §2 statistics from the exact
-    canonical key alone (table row + neighbour-table row, two probes).
-    Returns (AnchorHits [B], resolved bool [B]); resolved=False means the
-    key is absent in both orientations and the anchor needs the
-    enumeration. Dirty anchors (code >= 4) resolve to empty statistics."""
+def _exact_keys(anchors, cfg: Config):
+    """(clean, swap, canonical p12, canonical s8) of each anchor's exact
+    key; anchors with a code >= 4 are not clean."""
     anc = anchors.to(torch.int64)
     clean = (anc < 4).all(dim=-1)
     qc = torch.where(anc < 4, anc, 0)
@@ -240,6 +276,20 @@ def exact_anchor_stats(table, ntable, meta, anchors, cfg: Config):
     swap, cp, cs = _canonical(((qc * wp).sum(-1), (qc * ws).sum(-1)),
                               (((3 - qc) * wpr).sum(-1),
                                ((3 - qc) * wsr).sum(-1)))
+    return clean, swap, cp, cs
+
+
+# How exact_partials' fields combine across index shards: `found`, then
+# count and first position of each orientation, exact and 1-mm ball.
+EXACT_OPS = ("any", "sum", "min", "sum", "min", "sum", "min", "sum", "min")
+
+
+def exact_partials(table, ntable, meta, cp, cs):
+    """One index shard's part of exact_anchor_stats: the table and
+    neighbour-table rows of the canonical keys (cp, cs) at both probes,
+    reduced to (found, cnt_f, pos_f, cnt_r, pos_r, s1_f, minpos1_f, s1_r,
+    minpos1_r). A key lives on one shard, in at most one slot of one of
+    its two buckets; elsewhere counts are 0 and positions LARGE_POS."""
     (g1, g2), (n1, n2) = _bucket_rows((table, ntable), cp, cs, meta)
 
     def probe(g, n):
@@ -261,12 +311,17 @@ def exact_anchor_stats(table, ntable, meta, anchors, cfg: Config):
                 msum(n[..., 2]), mmin(n[..., 3]))
 
     f1, f2 = probe(g1, n1), probe(g2, n2)
-    found = f1[0] | f2[0]
-    cf_t, cr_t, s1f_t, s1r_t = (f1[i] + f2[i] for i in (1, 3, 5, 7))
-    pf_t, pr_t, m1f_t, m1r_t = (torch.minimum(f1[i], f2[i])
-                                for i in (2, 4, 6, 8))
-    # Repetitive-20-mer guard [FROZEN] on the exact counts (neighbour
-    # aggregates are guard-filtered at build).
+    return tuple(f1[i] | f2[i] if op == "any" else
+                 f1[i] + f2[i] if op == "sum" else torch.minimum(f1[i], f2[i])
+                 for i, op in enumerate(EXACT_OPS))
+
+
+def exact_finish(partials, clean, swap, cfg: Config):
+    """exact_anchor_stats' global finish on the combined partials:
+    (AnchorHits [B], resolved bool [B])."""
+    found, cf_t, pf_t, cr_t, pr_t, s1f_t, m1f_t, s1r_t, m1r_t = partials
+    # Repetitive-20-mer guard [FROZEN] on the exact counts summed over
+    # the shards (neighbour aggregates are guard-filtered at build).
     usable = found & clean
     cf_t = torch.where(usable & (cf_t <= cfg.max_bucket), cf_t, 0)
     cr_t = torch.where(usable & (cr_t <= cfg.max_bucket), cr_t, 0)
@@ -301,18 +356,82 @@ def exact_anchor_stats(table, ntable, meta, anchors, cfg: Config):
     return hits, found | ~clean
 
 
+def exact_anchor_stats_sharded(shards, anchors, cfg: Config):
+    """K1 v4 over prefix-range index shards [(table, ntable, meta)],
+    each on its own device: per-shard partials, combined on the anchors'
+    device, then the global finish. Equals exact_anchor_stats on the
+    whole table."""
+    clean, swap, cp, cs = _exact_keys(anchors, cfg)
+    parts = _on_shards(shards, exact_partials, (cp, cs), anchors.device)
+    return exact_finish(_combine(parts, EXACT_OPS), clean, swap, cfg)
+
+
+def exact_anchor_stats(table, ntable, meta, anchors, cfg: Config):
+    """K1 v4 fast path: the frozen SPEC §2 statistics from the exact
+    canonical key alone (table row + neighbour-table row, two probes).
+    Returns (AnchorHits [B], resolved bool [B]); resolved=False means the
+    key is absent in both orientations and the anchor needs the
+    enumeration. Dirty anchors (code >= 4) resolve to empty statistics."""
+    return exact_anchor_stats_sharded([(table, ntable, meta)], anchors, cfg)
+
+
+def align_anchors_sharded(shards, anchors, cfg: Config) -> AnchorHits:
+    """Classic K1 over index shards [(table, meta)]: each shard's
+    (count, first_pos), summed and minimized on the anchors' device,
+    then finalize_hits."""
+    parts = _on_shards(shards, lambda t, m, a: candidate_stats(t, m, a, cfg),
+                       (anchors,), anchors.device)
+    mm_v, strand_v = parts[0][2:]
+    parts = [p[:2] for p in parts]
+    if len(parts) > 1:
+        # Mask empty slots before the cross-shard min: another shard may
+        # own the variant and hold the true (larger) position.
+        parts = [(c, torch.where(c > 0, p, LARGE_POS)) for c, p in parts]
+    count, first_pos = _combine(parts, ("sum", "min"))
+    return finalize_hits(count, first_pos, mm_v, strand_v, cfg)
+
+
 def align_anchors(table, meta, anchors, cfg: Config) -> AnchorHits:
     """SPEC.md §2 anchor alignment by enumeration (classic K1)."""
-    return finalize_hits(*candidate_stats(table, meta, anchors, cfg), cfg)
+    return align_anchors_sharded([(table, meta)], anchors, cfg)
+
+
+def _split(hits, B):
+    return (AnchorHits(*(x[:B] for x in hits)),
+            AnchorHits(*(x[B:] for x in hits)))
+
+
+def align_anchor_pair_sharded(shards, anchors_a, anchors_b, cfg: Config
+                              ) -> tuple[AnchorHits, AnchorHits]:
+    """Both anchors of a batch as one stacked [2B] enumeration over
+    index shards [(table, meta)]."""
+    return _split(align_anchors_sharded(
+        shards, torch.cat([anchors_a, anchors_b]), cfg), anchors_a.shape[0])
 
 
 def align_anchor_pair(table, meta, anchors_a, anchors_b, cfg: Config
                       ) -> tuple[AnchorHits, AnchorHits]:
     """Both anchors of a batch as one stacked [2B] enumeration."""
+    return align_anchor_pair_sharded([(table, meta)], anchors_a, anchors_b,
+                                     cfg)
+
+
+def align_anchor_pair_fast_sharded(shards, anchors_a, anchors_b,
+                                   cfg: Config):
+    """align_anchor_pair_fast over index shards [(table, ntable, meta)].
+    The fallback slice is compacted on the combined `resolved`, so every
+    shard enumerates the same anchors, and its statistics combine as the
+    classic path's."""
     B = anchors_a.shape[0]
-    hits = align_anchors(table, meta, torch.cat([anchors_a, anchors_b]), cfg)
-    return (AnchorHits(*(x[:B] for x in hits)),
-            AnchorHits(*(x[B:] for x in hits)))
+    both = torch.cat([anchors_a, anchors_b])
+    hits, resolved = exact_anchor_stats_sharded(shards, both, cfg)
+    k = min(cfg.exact_fallback_slots, 2 * B)
+    idx = torch.argsort(resolved.to(torch.int8), stable=True)[:k]
+    sub_hits = align_anchors_sharded([(t, m) for t, _, m in shards],
+                                     both[idx], cfg)
+    merged = [f.index_copy(0, idx, s) for f, s in zip(hits, sub_hits)]
+    overflow = (~resolved).sum() > k
+    return (*_split(merged, B), overflow)
 
 
 def align_anchor_pair_fast(table, ntable, meta, anchors_a, anchors_b,
@@ -325,13 +444,5 @@ def align_anchor_pair_fast(table, ntable, meta, anchors_a, anchors_b,
     0-d bool tensor, True when more anchors were unresolved than the
     slice holds — the caller must then redo the batch on the classic
     path. Nothing here waits for the device."""
-    B = anchors_a.shape[0]
-    both = torch.cat([anchors_a, anchors_b])
-    hits, resolved = exact_anchor_stats(table, ntable, meta, both, cfg)
-    k = min(cfg.exact_fallback_slots, 2 * B)
-    idx = torch.argsort(resolved.to(torch.int8), stable=True)[:k]
-    sub_hits = align_anchors(table, meta, both[idx], cfg)
-    merged = [f.index_copy(0, idx, s) for f, s in zip(hits, sub_hits)]
-    overflow = (~resolved).sum() > k
-    return (AnchorHits(*(x[:B] for x in merged)),
-            AnchorHits(*(x[B:] for x in merged)), overflow)
+    return align_anchor_pair_fast_sharded([(table, ntable, meta)],
+                                          anchors_a, anchors_b, cfg)

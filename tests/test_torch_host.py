@@ -23,6 +23,7 @@ from find_circ2_tpu.cli import merge_bed as rmerge_bed
 from find_circ2_tpu.cli import unmapped2anchors as runmapped2anchors
 from find_circ2_tpu.index import build as rbuild
 from find_circ2_tpu.index import hashtable as rhashtable
+from find_circ2_tpu.index import shard as rshard
 from find_circ2_tpu.io import bam as rbam
 from find_circ2_tpu.io import bed as rbed
 from find_circ2_tpu.io import fasta as rfasta
@@ -44,6 +45,7 @@ from find_circ2_tpu_torch.cli import merge_bed as pmerge_bed
 from find_circ2_tpu_torch.cli import unmapped2anchors as punmapped2anchors
 from find_circ2_tpu_torch.index import build as pbuild
 from find_circ2_tpu_torch.index import hashtable as phashtable
+from find_circ2_tpu_torch.index import shard as pshard
 from find_circ2_tpu_torch.io import bam as pbam
 from find_circ2_tpu_torch.io import bed as pbed
 from find_circ2_tpu_torch.io import fasta as pfasta
@@ -245,6 +247,33 @@ def test_index_and_tables_match(repeat_tables, what):
     else:
         assert np.array_equal(pnt, rnt)
     assert phashtable.TABLE_FORMAT == rhashtable.TABLE_FORMAT
+
+
+@pytest.mark.parametrize("n_shards", [1, 2, 3, 4])
+def test_shard_builders_match(repeat_tables, n_shards):
+    """The prefix-range shard builders of the sharded engine on the same
+    index: shards carved from the full table (`_shard_from_table`) with
+    their relocated neighbour tables, shards built from the distinct
+    k-mers with §2b extras, and the sorted-index ShardedIndex."""
+    outs = {}
+    for name, ht, sh, cfg in (("ref", rhashtable, rshard, rconfig.Config()),
+                              ("port", phashtable, pshard,
+                               pconfig.Config())):
+        _, index, ntable = repeat_tables[name]
+        qt = dataclasses.replace(index.qtable, ntable=ntable)
+        tables, metas = ht.shard_query_table(
+            dataclasses.replace(index, qtable=qt), n_shards, cfg)
+        outs[name] = (
+            tables, metas, ht.shard_neighbor_tables(qt, tables),
+            *ht.shard_query_table(dataclasses.replace(index, qtable=None),
+                                  n_shards, cfg, extras=True),
+            *astuple(sh.shard_index(index, n_shards)))
+    assert len(outs["port"]) == len(outs["ref"]) == 13
+    for i, (got, want) in enumerate(zip(outs["port"], outs["ref"])):
+        assert np.array_equal(got, want), i
+    tables, _, ntables = outs["port"][:3]
+    assert tables.shape[0] == ntables.shape[0] == n_shards
+    assert (tables[..., 0] != phashtable.EMPTY_KEY).sum() > 0
 
 
 @pytest.mark.parametrize("salt", [0, 0x80000001, 0xDEADBEEF, 0xFFFFFFFF])

@@ -254,12 +254,57 @@ def test_cli_run_filter_reproduces_golden_candidates(tmp_path):
         _read(os.path.join(DATA, "circ_candidates.bed"))
 
 
-@pytest.mark.parametrize("flags", [["--mesh", "2x4"], ["--nproc", "2"],
-                                   ["--backend", "oracle"]])
+@pytest.mark.parametrize("flags", [
+    (["--nproc", "2"], "--nproc requires --proc-id"),
+    (["--mesh", "2x4", "--nproc", "2", "--proc-id", "0", "-o", "o.bed"],
+     "--mesh shards within one process"),
+    (["--mesh", "2x"], "--mesh expects DATAxINDEX")])
 def test_cli_unported_modes_exit(flags):
-    with pytest.raises(SystemExit, match="not yet ported"):
+    """The reference's checks of --mesh and --nproc, made before any
+    input is read or any process group is joined."""
+    extra, match = flags
+    with pytest.raises(SystemExit, match=match):
         cli_main.main(["find_circ", "x.fq", "-G", "g.fa", "--device", "cpu"]
-                      + flags)
+                      + extra)
+
+
+def test_cli_oracle_backend_reproduces_golden(tmp_path):
+    """--backend oracle (the numpy caller, no device) on test_data/."""
+    bed, stats = tmp_path / "out.bed", tmp_path / "out.stats"
+    assert cli_main.main([
+        "find_circ", os.path.join(DATA, "reads.fastq"),
+        "-G", os.path.join(DATA, "genome.fa"), "--reads-format", "fastq",
+        "--backend", "oracle", "--device", "cpu", "-n", "golden",
+        "-o", str(bed), "-s", str(stats)]) == 0
+    assert _read(bed) == _read(os.path.join(DATA, "splice_sites.bed"))
+    assert _read(stats) == _read(os.path.join(DATA, "stats.txt"))
+
+
+@pytest.mark.parametrize("exact_first", [True, False])
+def test_detect_batch_and_phased_match_jax(lib, exact_first):
+    """detect_batch (the unpacked classic step) and detect_batch_phased
+    (K1 then core; exact-first with a neighbour table) equal the
+    reference's, field for field, with the reverse complement built on
+    the device (rc=None) and shipped from the host."""
+    sim, _, jd, td = lib
+    arr, lens = _batch(sim.reads[1::2], 64)
+    rc = jp.revcomp_batch(arr, lens)
+    reads_t, lens_t = torch.from_numpy(arr), torch.from_numpy(lens)
+    want = jp.detect_batch(jd.gpacked, jd.nbases, jd.table, jd.meta,
+                           jd.chrom_offsets, arr, lens, CFG, True)
+    got = tp.detect_batch(td.words, td.nbases, td.table, td.meta,
+                          td.chrom_offsets, reads_t, lens_t, CFG, True)
+    if not exact_first:
+        jd = dataclasses.replace(jd, ntable=None)
+        td = dataclasses.replace(td, ntable=None)
+    jph = jp.detect_batch_phased(jd, arr, lens, CFG, True, rc=rc)
+    tph = tp.detect_batch_phased(td, reads_t, lens_t, CFG, True,
+                                 rc=torch.from_numpy(rc))
+    assert set(got) == set(want) == set(tph) == set(jph)
+    for k in want:
+        assert np.array_equal(got[k].numpy(), np.asarray(want[k])), k
+        assert np.array_equal(tph[k].numpy(), np.asarray(jph[k])), k
+        assert np.array_equal(tph[k].numpy(), got[k].numpy()), k
 
 
 def test_cli_cuda_without_card_exits():
@@ -303,7 +348,12 @@ def test_port_never_imports_jax():
                     if n.split(".")[0] in ("find_circ2_tpu", "jax", "jaxlib")]
     assert not bad, bad
     mods = sorted(_module(p) for p in _port_files())
-    assert {"chip_smoke", "find_circ2_tpu_torch.models.multihit"} <= set(mods)
+    assert {"chip_smoke", "find_circ2_tpu_torch.models.multihit",
+            "find_circ2_tpu_torch.ops.merge",
+            "find_circ2_tpu_torch.index.shard",
+            "find_circ2_tpu_torch.parallel.mesh",
+            "find_circ2_tpu_torch.parallel.sharded",
+            "find_circ2_tpu_torch.parallel.distributed"} <= set(mods)
     code = ("import sys\n"
             + "".join(f"import {m}\n" for m in mods) +
             "bad = [m for m in sys.modules if m.split('.')[0] in "
