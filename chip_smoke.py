@@ -14,17 +14,21 @@ Phases, each fatal on failure:
   4. the port's `find_circ` CLI on test_data/ must reproduce the golden
      BED and stats byte for byte;
   5. the main path at real size: `run --filter` on the 16 Mbp RNase-R
-     filter-stack library (~95k reads), with the kernels' launch counts,
-     precision and recall against the planted circles, and a stage table
-     that shows §2b explore on the device and no host multi-hit stage;
-  6. §2b explore on the card, on the index the CLI built in phase 5:
-     `explore_batch_packed` on the first 1024 reads that phase 5 routed to
-     the explorer equals the port on the CPU row for row, with prefilter
-     on and off, and torch.profiler counts one chunk's device kernels;
-     `run_fastq` with device explore and with the host twin
-     (`explore=False`) give equal BEDs, timed in the same run, and a
-     profiled device-explore stream gives the device's busy share; 500
-     reads through `run_reads`, routed ones among them, equal the CPU
+     filter-stack library (~95k reads), with the kernels' launch counts
+     (the explore kernel once per explore chunk), precision and recall
+     against the planted circles, and a stage table that shows §2b
+     explore on the device and no host multi-hit stage;
+  6. §2b explore on the card, on the index the CLI built in phase 5: the
+     explore kernel (`explore_pairs`) equals its plain version on the
+     card row for row on every read phase 5 routed to the explorer and on
+     an `explore_cases` batch of edge cases, prefilter on and off, and is
+     timed beside it and its bound; `explore_batch_packed` on the first
+     1024 routed reads equals the port on the CPU; torch.profiler counts
+     one chunk's device activities and host enqueue with the kernel and
+     with the plain version; `run_fastq` with device explore and with the
+     host twin (`explore=False`) give equal BEDs, timed in the same run,
+     and a profiled device-explore stream gives the device's busy share;
+     500 reads through `run_reads`, routed ones among them, equal the CPU
      oracle read for read;
   7. the sharded engine on the card: a 2x2 mesh (two data rows, four
      index shards, all four slots on cuda:0) over phase 5's index streams
@@ -58,8 +62,10 @@ DATA = os.path.join(ROOT, "test_data")
 LIBRARY = dict(seed=7, chrom_lengths={"chrR": 16_000_000}, n_circ=6000,
                n_linear=800, depth_mean=12.0)
 ORACLE_READS = 500
-# Phase 6: routed reads held against the CPU port (one explore chunk).
+# Phase 6: routed reads held against the CPU port (one explore chunk),
+# the rows of the explore_cases batch and its seed.
 EXPLORE_READS = 1024
+EXPLORE_CASE_SEED = 5
 # Precision and recall of the reference package's `--filter` calls on
 # this library, to 4 places (BENCH_r05.json pipeline_precision and
 # pipeline_recall). They are outputs of the frozen algorithm, which the
@@ -68,6 +74,13 @@ EXPECT_PRECISION, EXPECT_RECALL = 0.9998, 0.9152
 # Phase 3: the H100 SXM's HBM rate (NVIDIA's data sheet), its L2 size,
 # and the replays of each timed CUDA graph.
 HBM_BYTES_PER_S = 3.35e12
+# The SMs' 32-bit rate outside the tensor cores (the data sheet's 67
+# TFLOP/s float32; int32 runs at no more), and the int32 operations of one
+# split in csrc/explore.cu's pair loop.
+INT32_OPS_PER_S = 67e12
+EXPLORE_OPS_PER_SPLIT = 12
+# csrc/explore.cu's kRankMax: longer merge lists take the K-round selection.
+EXPLORE_RANK_MAX = 128
 L2_BYTES = 50 << 20
 GRAPH_REPLAYS = 5
 
@@ -374,15 +387,15 @@ def _profile_value(report: str, key: str) -> float:
 def watch_explorer():
     """While the block runs, count what DeviceExplorer.dispatch_arrays
     (every §2b explore chunk of both streaming loops goes through it)
-    does: its calls, routed reads, the row-gather launches (both
-    wrappers) made inside it, and the first EXPLORE_READS routed rows
-    (uint8 codes, int32 lengths). Also keep the DeviceIndex and slowpath=(genome, index) that
+    does: its calls, chunks, routed reads, the row-gather launches (both
+    wrappers) made inside it, and every routed row (uint8 codes, int32
+    lengths). Also keep the DeviceIndex and slowpath=(genome, index) that
     run_fastq was given. Yields the dict it fills."""
     import numpy as np
     from find_circ2_tpu_torch.models import pipeline as tpipe
     from find_circ2_tpu_torch.models import stream as tstream
     from find_circ2_tpu_torch.ops import gather_rows as gr
-    seen = dict(calls=0, reads=0, launches=0, arr=[], lens=[])
+    seen = dict(calls=0, chunks=0, reads=0, launches=0, arr=[], lens=[])
     dispatch_arrays, run_fastq = (tpipe.DeviceExplorer.dispatch_arrays,
                                   tstream.run_fastq)
 
@@ -391,9 +404,9 @@ def watch_explorer():
         handle = dispatch_arrays(self, arr, lens)
         seen["launches"] += gr.launches + gr.multi_launches - before
         seen["calls"] += 1
-        if seen["reads"] < EXPLORE_READS:
-            seen["arr"].append(np.array(arr))
-            seen["lens"].append(np.array(lens))
+        seen["chunks"] += len(handle)
+        seen["arr"].append(np.array(arr))
+        seen["lens"].append(np.array(lens))
         seen["reads"] += arr.shape[0]
         return handle
 
@@ -435,21 +448,157 @@ def device_profile(fn) -> dict:
                 busy_share=busy / max(span, 1))
 
 
-def check_explore(dindex, arr, lens, cfg) -> dict:
-    """explore_batch_packed on the card against the port on the CPU, row
-    for row, on the first EXPLORE_READS reads that the main path routed
-    to the explorer, with prefilter on (as the main path runs it) and off
-    (every row runs the pair grid to its end). Returns, for prefilter on:
-    the card's ms per chunk (CUDA events), its host enqueue ms, device
-    activities and device-busy ms per chunk (torch.profiler), the CPU
-    port's ms, and the chunk's peak memory above the index."""
+def explore_k1(d, reads, lens, cfg) -> tuple:
+    """ops/explore.explore_k1 on a DeviceIndex: explore_pairs' arguments
+    for one chunk of routed reads."""
+    from find_circ2_tpu_torch.ops.explore import explore_k1 as k1
+    return k1(d.words, d.nbases, d.table, d.meta, d.ext, d.ext_id,
+              d.chrom_offsets, reads, lens, cfg)
+
+
+def explore_bound(args, cfg) -> dict:
+    """The least time the card could take for explore_pairs on `args`:
+    the larger of its operations over the SMs' 32-bit rate and its bytes
+    over the HBM rate. Operations: EXPLORE_OPS_PER_SPLIT for every split
+    of every pair that can pair (valid, one strand and chromosome,
+    linear or circular), the pairs whose split loop the kernel runs.
+    Bytes, each read once: the reads and lengths, both anchors' count
+    rows and hit fields, the first_pos/extras lanes at the best mismatch
+    level, each valid candidate's window words, the chromosome offsets
+    and the [B, 14] rows. Also the reads with a per-strand list of more
+    than EXPLORE_RANK_MAX lanes, which the kernel's merge selects by
+    rounds of block minima."""
+    import torch
+    from find_circ2_tpu_torch.index.hashtable import M32
+    from find_circ2_tpu_torch.ops import explore as tx
+    (words, nbases, offsets, reads, lens, sa, sb, ha, hb, mm_v) = args
+    B, Lp = reads.shape
+    a, K = cfg.anchor_len, cfg.max_pair_hits
+    V = mm_v.shape[0] // 2
+    cands, lanes, longest = [], 0, torch.zeros_like(lens)
+    for (count, first, extras), hits in ((sa, ha), (sb, hb)):
+        cands.append(tx.merged_candidates(count, first, extras, mm_v,
+                                          hits.mm, cfg))
+        at_best = (mm_v[None, :] == hits.mm[:, None]) & (count > 0)
+        per = torch.where(at_best, torch.clamp(count, max=K), 0)
+        lanes += int(per.sum())
+        longest = torch.maximum(longest, torch.maximum(
+            per[:, :V].sum(1), per[:, V:].sum(1)).to(longest.dtype))
+    (pa, sta, va), (pb, stb, vb) = cands
+    s0 = (sta == 0)[:, :, None]
+    pA = torch.where(s0, pa[:, :, None], pb[:, None, :])
+    pB = torch.where(s0, pb[:, None, :], pa[:, :, None])
+    geom = (((pA + a) & M32) <= pB) | (((pB + a) & M32) <= pA)
+    same = torch.searchsorted(offsets, pA, right=True) == torch.searchsorted(
+        offsets, pB, right=True)
+    can = ((sta[:, :, None] == stb[:, None, :]) & va[:, :, None]
+           & vb[:, None, :] & geom & same)
+    splits = torch.clamp(torch.clamp(lens.to(torch.int64) - a, max=Lp)
+                         - a + 1, min=0)
+    ops = EXPLORE_OPS_PER_SPLIT * int((can.sum((1, 2)) * splits).sum())
+    window = 4 * ((Lp + 2) // 8 + 2)
+    hit_bytes = sum(getattr(ha, f).element_size() for f in (
+        "pos", "strand", "aligned", "mm", "n_best", "qual"))
+    nbytes = (B * Lp + 4 * B + 2 * 4 * sa[0].numel() + 4 * mm_v.numel()
+              + 2 * B * hit_bytes + 8 * lanes
+              + window * int(va.sum() + vb.sum()) + 8 * offsets.numel()
+              + 4 * 14 * B)
+    ops_ms, bytes_ms = 1e3 * ops / INT32_OPS_PER_S, 1e3 * nbytes / \
+        HBM_BYTES_PER_S
+    return dict(ops=ops, bytes=nbytes, bound_ms=max(ops_ms, bytes_ms),
+                bound_by="operations" if ops_ms >= bytes_ms else "bytes",
+                long_lists=int((longest > EXPLORE_RANK_MAX).sum()))
+
+
+def time_pairs(args, cfg, card) -> dict:
+    """explore_pairs (the kernel) and explore_pairs_ref (the plain
+    version) on one chunk's K1 outputs, prefilter on, in the order plain,
+    kernel, kernel, plain: as called (CUDA events) and on the device
+    alone, the kernel by CUDA-graph replay, the plain version by
+    torch.profiler's busy time (its window gather copies a host tensor,
+    which a graph capture refuses), the kernel by that too; beside the
+    bound of explore_bound."""
+    from find_circ2_tpu_torch.ops import explore as tx
+
+    def kernel(_):
+        return tx.explore_pairs(*args, cfg, True)
+
+    def plain(_):
+        return tx.explore_pairs_ref(*args, cfg, True)
+
+    def busy(fn):
+        return device_profile(lambda: fn(0))["busy_ms"]
+    p1, k1 = called_ms(plain, range(5)), called_ms(kernel, range(20))
+    k2, p2 = called_ms(kernel, range(20)), called_ms(plain, range(5))
+    gp1, gk1, bk1 = busy(plain), graph_ms(kernel, range(20)), busy(kernel)
+    bk2, gk2, gp2 = busy(kernel), graph_ms(kernel, range(20)), busy(plain)
+    out = dict(called_ms=min(k1, k2), plain_called_ms=min(p1, p2),
+               ms=min(gk1, gk2), profiler_ms=min(bk1, bk2),
+               plain_ms=min(gp1, gp2), **explore_bound(args, cfg))
+    log(f"explore_pairs on {args[3].shape[0]} routed reads: device alone "
+        f"{out['ms']:.5f} ms (graph; {out['profiler_ms']:.5f} ms "
+        f"torch.profiler) vs plain {out['plain_ms']:.5f} ms "
+        f"(torch.profiler); as called {out['called_ms']:.5f} ms vs plain "
+        f"{out['plain_called_ms']:.5f} ms; bound {out['bound_ms']:.5f} ms "
+        f"by {out['bound_by']} ({out['ops']:,} int32 operations, "
+        f"{out['bytes']:,} bytes), {100 * out['bound_ms'] / out['ms']:.1f}% "
+        f"of it; {out['long_lists']} of the reads have a per-strand "
+        f"candidate list longer than {EXPLORE_RANK_MAX}; on {card}")
+    return out
+
+
+def check_explore(dindex, arr, lens, cfg, card) -> dict:
+    """§2b explore on the card, on the main path's index and the reads it
+    routed to the explorer (phase 6):
+    - the kernel (explore_pairs) against the plain version on the card
+      (explore_pairs_ref), on the same K1 outputs, row for row, on every
+      routed read in chunks of 1024 and on an explore_cases batch of 1024
+      edge cases, prefilter on and off;
+    - explore_batch_packed on the card against the port on the CPU on the
+      first 1024 routed reads, prefilter on and off;
+    - the kernel's times beside the plain version's and its bound
+      (time_pairs), on the first chunk;
+    - one chunk of explore_batch_packed (K1 + the kernel) and of K1 + the
+      plain version, each: ms by CUDA events, host enqueue ms, device
+      activities and busy ms (torch.profiler), peak bytes above the index.
+    Returns those numbers."""
     import dataclasses
     import numpy as np
     import torch
-    from find_circ2_tpu_torch.ops.explore import explore_batch_packed
+    from find_circ2_tpu_torch.ops import explore as tx
+    from find_circ2_tpu_torch.utils.explore_cases import (explore_case,
+                                                          pair_args)
     if arr.shape[0] < EXPLORE_READS:
         fail(f"the main path routed only {arr.shape[0]} reads, need "
              f"{EXPLORE_READS}")
+    dev = dindex.device
+    out = dict(max_abs_err=0)
+
+    def hold(args, what):
+        for prefilter in (True, False):
+            got = tx.explore_pairs(*args, cfg, prefilter)
+            want = tx.explore_pairs_ref(*args, cfg, prefilter)
+            torch.cuda.synchronize()
+            err = int((got.to(torch.int64) - want.to(torch.int64)).abs()
+                      .max()) if got.numel() else 0
+            out["max_abs_err"] = max(out["max_abs_err"], err)
+            if err or not torch.equal(got, want):
+                bad = (got != want).any(1).nonzero()[:5, 0].tolist()
+                fail(f"explore_pairs differs from its plain version on "
+                     f"{what}, prefilter {prefilter} (rows {bad})")
+
+    n = arr.shape[0]
+    for lo in range(0, n, EXPLORE_READS):
+        hold(explore_k1(dindex, torch.from_numpy(arr[lo:lo + EXPLORE_READS])
+                        .to(dev), torch.from_numpy(lens[lo:lo + EXPLORE_READS])
+                        .to(dev), cfg), f"routed reads {lo}..")
+    case = explore_case(EXPLORE_CASE_SEED, EXPLORE_READS, cfg)
+    hold(pair_args(case, cfg, dev), "the explore_cases batch")
+    log(f"explore_pairs equals its plain version on the card on all {n} "
+        f"routed reads ({-(-n // EXPLORE_READS)} chunks) and on "
+        f"{EXPLORE_READS} explore_cases rows (seed {EXPLORE_CASE_SEED}), "
+        "prefilter on and off, exactly")
+
     reads = torch.from_numpy(arr[:EXPLORE_READS])
     rlens = torch.from_numpy(lens[:EXPLORE_READS])
     cpu = dataclasses.replace(dindex, **{
@@ -458,18 +607,17 @@ def check_explore(dindex, arr, lens, cfg) -> dict:
         if isinstance(getattr(dindex, f.name), torch.Tensor)})
 
     def run(d, prefilter):
-        return explore_batch_packed(
+        return tx.explore_batch_packed(
             d.words, d.nbases, d.table, d.meta, d.ext, d.ext_id,
             d.chrom_offsets, reads.to(d.device), rlens.to(d.device), cfg,
             prefilter)
 
-    out = {}
+    def run_plain(d, prefilter):
+        return tx.explore_pairs_ref(*explore_k1(
+            d, reads.to(d.device), rlens.to(d.device), cfg), cfg, prefilter)
+
     for prefilter in (True, False):
-        torch.cuda.synchronize()
-        base = torch.cuda.memory_allocated()
-        torch.cuda.reset_peak_memory_stats()
         got = run(dindex, prefilter).cpu().numpy()
-        peak = torch.cuda.max_memory_allocated() - base
         t0 = time.perf_counter()
         want = run(cpu, prefilter).numpy()
         cpu_ms = 1e3 * (time.perf_counter() - t0)
@@ -482,21 +630,39 @@ def check_explore(dindex, arr, lens, cfg) -> dict:
         log(f"explore_batch_packed on {EXPLORE_READS} routed reads, "
             f"prefilter {prefilter}, equals the CPU port row for row; rows "
             f"per status {dict(zip(status.tolist(), count.tolist()))}; CPU "
-            f"{cpu_ms:.1f} ms, chunk peak {peak:,} bytes above the index")
+            f"{cpu_ms:.1f} ms")
         if prefilter:
-            out.update(cpu_ms=cpu_ms, peak_bytes=peak)
-    out["card_ms"] = cuda_ms(lambda: run(dindex, True), 5)
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    run(dindex, True)
-    out["enqueue_ms"] = 1e3 * (time.perf_counter() - t0)
-    torch.cuda.synchronize()
-    prof = device_profile(lambda: run(dindex, True))
-    out.update(device_ops=prof["ops"], device_ms=prof["busy_ms"])
-    log(f"one explore chunk (prefilter on): {out['card_ms']:.3f} ms as "
-        f"called (CUDA events), host enqueue {out['enqueue_ms']:.3f} ms, "
-        f"{prof['ops']} device activities busy {prof['busy_ms']:.3f} ms "
-        f"(torch.profiler)")
+            out["cpu_ms"] = cpu_ms
+
+    out["pairs"] = time_pairs(explore_k1(dindex, reads.to(dev),
+                                         rlens.to(dev), cfg), cfg, card)
+    # One chunk, K1 included: the plain version (as before the kernel)
+    # and the kernel, each in turn.
+    for name, fn in (("plain", run_plain), ("kernel", run),
+                     ("kernel", run), ("plain", run_plain)):
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        fn(dindex, True)
+        enqueue = 1e3 * (time.perf_counter() - t0)
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated() - base
+        card_ms = cuda_ms(lambda: fn(dindex, True), 5)
+        prof = device_profile(lambda: fn(dindex, True))
+        rec = dict(card_ms=card_ms, enqueue_ms=enqueue,
+                   device_ops=prof["ops"], device_ms=prof["busy_ms"],
+                   peak_bytes=peak)
+        old = out.get(name)
+        out[name] = rec if old is None else {
+            k: min(old[k], rec[k]) for k in rec}
+    for name in ("plain", "kernel"):
+        r = out[name]
+        log(f"one explore chunk, K1 + {name} (prefilter on): "
+            f"{r['card_ms']:.3f} ms as called (CUDA events), host enqueue "
+            f"{r['enqueue_ms']:.3f} ms, {r['device_ops']} device activities "
+            f"busy {r['device_ms']:.3f} ms (torch.profiler), peak "
+            f"{r['peak_bytes']:,} bytes above the index, on {card}")
     return out
 
 
@@ -507,32 +673,32 @@ def compare_streams(dindex, fq, genome, index, cfg, card) -> dict:
     each; then one device-explore stream under torch.profiler for the
     device's busy share. Returns the launches and seconds per mode and
     the profiled run's numbers."""
-    import io as _io
-    from find_circ2_tpu_torch.io.bed import write_bed
     from find_circ2_tpu_torch.models.aggregate import Aggregator
     from find_circ2_tpu_torch.utils.profiling import StageTimes
     from find_circ2_tpu_torch.models.stream import run_fastq
+    from find_circ2_tpu_torch.ops import explore as tx
     from find_circ2_tpu_torch.ops import gather_rows as gr
     out, beds = {}, {}
     out["beds"] = beds
     for mode, explore in (("device", None), ("host", False)):
         agg = Aggregator(genome, cfg)
         times = StageTimes()
-        gr.launches = gr.multi_launches = 0
+        gr.launches = gr.multi_launches = tx.launches = 0
         t0 = time.perf_counter()
         run_fastq(dindex, fq, agg, cfg, times=times, slowpath=(genome, index),
                   explore=explore)
         wall = time.perf_counter() - t0
         launches = gr.launches + gr.multi_launches
-        buf = _io.StringIO()
-        write_bed(buf, agg.rows(sample_name="s"))
         beds[mode] = _render(agg)
-        out[mode] = dict(launches=launches, seconds=wall,
-                         reads=times.n_reads)
+        out[mode] = dict(launches=launches, explore_launches=tx.launches,
+                         seconds=wall, reads=times.n_reads)
         log(f"run_fastq explore={explore}: {wall:.3f} s, "
             f"{times.n_reads / wall:,.1f} reads/s, {launches} row-gather "
-            f"launches on {card}; stages:\n"
+            f"and {tx.launches} explore_pairs launches on {card}; stages:\n"
             + times.report(wall=wall))
+        if (tx.launches > 0) != (explore is None):
+            fail(f"run_fastq explore={explore} launched explore_pairs "
+                 f"{tx.launches} times")
         ran = set(times.counts)
         want = ({"explore_dispatch"}, {"slowpath_multihit"})
         if explore is not None:
@@ -647,6 +813,7 @@ def check_sharded(fq, sim, genome, index, dindex, cfg, streams, truth,
                                                       encode_batch,
                                                       unpack_results)
     from find_circ2_tpu_torch.models.stream import run_fastq
+    from find_circ2_tpu_torch.ops import explore as tx
     from find_circ2_tpu_torch.ops import gather_rows as gr
     from find_circ2_tpu_torch.ops.merge import merge_junctions
     from find_circ2_tpu_torch.parallel.mesh import make_mesh
@@ -671,13 +838,14 @@ def check_sharded(fq, sim, genome, index, dindex, cfg, streams, truth,
 
     agg = Aggregator(genome, cfg)
     times = StageTimes()
-    gr.launches = gr.multi_launches = 0
+    gr.launches = gr.multi_launches = tx.launches = 0
     t0 = time.perf_counter()
     run_fastq(None, fq, agg, cfg, times=times, slowpath=(genome, index),
               dispatch=eng.dispatch_packed, redo=eng.redo_packed)
     wall = time.perf_counter() - t0
     out["launches"] = {"gather_rows": gr.launches,
                        "gather_rows_multi": gr.multi_launches}
+    out["explore_launches"] = tx.launches
     out.update(seconds=wall, reads=times.n_reads,
                peak_bytes=torch.cuda.max_memory_allocated())
     host = streams["host"]
@@ -688,7 +856,8 @@ def check_sharded(fq, sim, genome, index, dindex, cfg, streams, truth,
         f"memory {out['peak_bytes']:,} bytes; on {card}; stages:\n"
         + times.report(wall=wall))
     log(f"kernel launches on the sharded path: gather_rows "
-        f"{gr.launches}, gather_rows_multi {gr.multi_launches}")
+        f"{gr.launches}, gather_rows_multi {gr.multi_launches}, "
+        f"explore_pairs {tx.launches} (§2b on the host twin)")
     for name, count in out["launches"].items():
         if count <= 0:
             fail(f"kernel {name} was not launched on the sharded path")
@@ -779,6 +948,7 @@ def main_path(device: str, library: dict, card: str) -> dict:
     from find_circ2_tpu_torch.utils.simulate import rnase_r_library
     from find_circ2_tpu_torch.cli import main as cli
     from find_circ2_tpu_torch.models.pipeline import run_reads
+    from find_circ2_tpu_torch.ops import explore as tx
     from find_circ2_tpu_torch.ops import gather_rows as gr
 
     cfg = Config()
@@ -802,11 +972,12 @@ def main_path(device: str, library: dict, card: str) -> dict:
             torch.cuda.reset_peak_memory_stats()
         err = io.StringIO()
         with contextlib.redirect_stderr(err), watch_explorer() as seen:
-            gr.launches = gr.multi_launches = 0
+            gr.launches = gr.multi_launches = tx.launches = 0
             rc = cli.main(["run", fq, "-G", fa, "-o", outdir, "--filter",
                            "--device", device, "--profile"])
             out["launches"] = {"gather_rows": gr.launches,
-                               "gather_rows_multi": gr.multi_launches}
+                               "gather_rows_multi": gr.multi_launches,
+                               "explore_pairs": tx.launches}
         out["explore_launches"] = seen["launches"]
         report = err.getvalue()
         print(report, end="")
@@ -824,13 +995,17 @@ def main_path(device: str, library: dict, card: str) -> dict:
                 "bytes (explore on)")
         log(f"kernel launches on the main path: gather_rows "
             f"{out['launches']['gather_rows']}, gather_rows_multi "
-            f"{out['launches']['gather_rows_multi']}; "
-            f"{out['explore_launches']} of them inside §2b explore; "
+            f"{out['launches']['gather_rows_multi']} "
+            f"({out['explore_launches']} of them inside §2b explore), "
+            f"explore_pairs {out['launches']['explore_pairs']}; "
             f"{seen['reads']} routed reads in {seen['calls']} explore "
-            f"dispatches")
+            f"dispatches, {seen['chunks']} chunks")
         for name, count in out["launches"].items():
             if count <= 0:
                 fail(f"kernel {name} was not launched on the main path")
+        if out["launches"]["explore_pairs"] != seen["chunks"] and on_card:
+            fail(f"explore_pairs launched {out['launches']['explore_pairs']}"
+                 f" times for {seen['chunks']} explore chunks")
         if seen["reads"] <= 0 or out["explore_launches"] <= 0:
             fail("§2b explore routed no reads or launched no row gather "
                  "on the main path")
@@ -856,7 +1031,7 @@ def main_path(device: str, library: dict, card: str) -> dict:
         g, index = seen["slowpath"]
         out["explore"] = check_explore(
             dindex, np.concatenate(seen["arr"]), np.concatenate(seen["lens"]),
-            cfg)
+            cfg, card)
         out["streams"] = compare_streams(dindex, fq, g, index, cfg, card)
         out["sharded"] = check_sharded(fq, sim, g, index, dindex, cfg,
                                        out["streams"], truth, card)
@@ -928,6 +1103,21 @@ def main() -> int:
             "plain_called_ms": s["plain_called_ms"],
             "explore_launches": path["explore_launches"],
             "sharded_launches": path["sharded"]["launches"][name]})
+    # explore_pairs on one 1024-read chunk's K1 outputs; no one PyTorch
+    # call computes it.
+    x = path["explore"]
+    pairs = x["pairs"]
+    kernels.append({
+        "name": "explore_pairs", "route": "cuda",
+        "source": "find_circ2_tpu_torch/csrc/explore.cu",
+        "replaces": "find_circ2_tpu/ops/explore.py:147",
+        "launches": path["launches"]["explore_pairs"],
+        "max_abs_err": x["max_abs_err"], "ms": pairs["ms"],
+        "plain_ms": pairs["plain_ms"], "bound_ms": pairs["bound_ms"],
+        "bound_by": pairs["bound_by"], "library_ms": None,
+        "called_ms": pairs["called_ms"],
+        "plain_called_ms": pairs["plain_called_ms"],
+        "sharded_launches": path["sharded"]["explore_launches"]})
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

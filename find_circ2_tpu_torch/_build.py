@@ -1,10 +1,11 @@
 """Build and load the hand-written CUDA kernels of `csrc/`.
 
 At first use, every `csrc/*.cu` is compiled with `nvcc` for Hopper
-(`sm_90a`) into one shared library with a plain C interface under
-`build/kernels/` at the repository root, keyed by a hash of the sources
-and flags, and loaded with `ctypes`. A failed build raises: there is no
-fallback for CUDA tensors.
+(`sm_90a`), one `nvcc` per source, all started together, and linked into
+one shared library with a plain C interface under `build/kernels/` at the
+repository root, keyed by a hash of the sources and flags, and loaded
+with `ctypes`. A failed build raises: there is no fallback for CUDA
+tensors.
 """
 
 from __future__ import annotations
@@ -21,7 +22,7 @@ _HERE = os.path.dirname(os.path.abspath(__file__))
 CSRC = os.path.join(_HERE, "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(_HERE), "build", "kernels")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC")
+              "-O3", "-Xcompiler", "-fPIC")
 
 _lib = None
 
@@ -53,12 +54,27 @@ def build() -> str:
     if os.path.exists(so):
         return so
     os.makedirs(BUILD_DIR, exist_ok=True)
-    tmp = f"{so}.{os.getpid()}.tmp"
-    r = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", tmp, *_sources()],
-                       capture_output=True, text=True)
-    if r.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({r.returncode}):\n{r.stdout}"
-                           f"{r.stderr}")
+    nvcc, tmp = _nvcc(), f"{so}.{os.getpid()}.tmp"
+    objs = [f"{tmp}.{os.path.basename(s)}.o" for s in _sources()]
+    try:
+        procs = [subprocess.Popen([nvcc, *NVCC_FLAGS, "-c", "-o", o, s],
+                                  stdout=subprocess.PIPE,
+                                  stderr=subprocess.STDOUT, text=True)
+                 for s, o in zip(_sources(), objs)]
+        texts = [p.communicate()[0] for p in procs]  # waits for all
+        for s, p, text in zip(_sources(), procs, texts):
+            if p.returncode != 0:
+                raise RuntimeError(f"nvcc failed ({p.returncode}) on "
+                                   f"{os.path.basename(s)}:\n{text}")
+        r = subprocess.run([nvcc, *NVCC_FLAGS, "-shared", "-o", tmp, *objs],
+                           capture_output=True, text=True)
+        if r.returncode != 0:
+            raise RuntimeError(f"nvcc link failed ({r.returncode}):\n"
+                               f"{r.stdout}{r.stderr}")
+    finally:
+        for o in objs:
+            if os.path.exists(o):
+                os.remove(o)
     os.replace(tmp, so)
     return so
 
@@ -72,6 +88,10 @@ def load() -> ctypes.CDLL:
         # CUDA error, out.
         lib.fc2t_gather_rows.argtypes = [ctypes.c_char_p]
         lib.fc2t_gather_rows.restype = ctypes.c_int
+        # One EXPLORE_ARGS buffer in; the kernels launched, or minus a
+        # CUDA error, out.
+        lib.fc2t_explore.argtypes = [ctypes.c_char_p]
+        lib.fc2t_explore.restype = ctypes.c_int
         _lib = lib
     return _lib
 
@@ -79,6 +99,12 @@ def load() -> ctypes.CDLL:
 # csrc/gather_rows.cu's GatherArgs: table_a, out_a, table_b, out_b, idx,
 # n, n_rows, stream, then width_a, width_b, idx_is_64, device.
 GATHER_ARGS = struct.Struct("<5Q2qQ4i")
+
+# csrc/explore.cu's ExploreArgs: words, chrom_offsets, reads, lens, mm_v,
+# out, then per anchor (A, B) count, first_pos, extras, pos, strand,
+# aligned, mm, n_best, qual; stream, nbases; then B, Lp, V, K, n_chroms,
+# anchor_len, prefilter_mm, pair_rescue, prefilter, device.
+EXPLORE_ARGS = struct.Struct("<25Qq10i")
 
 
 def check(err: int, what: str) -> None:

@@ -175,8 +175,10 @@ def candidate_stats(table, meta, anchors, cfg: Config, ext=None,
                 torch.where(m, cr, 0).sum(-1),
                 torch.where(m, _u32(g[..., 3]), LARGE_POS).amin(-1), rid)
 
-    # A key lives in at most one of its two buckets, so adding counts
-    # and ext row ids and taking position minima over the probes is exact.
+    # Counts and ext row ids add over the two probes and positions take
+    # their minimum, as the reference does. A key lives in one slot of one
+    # bucket, but when its two buckets are one bucket both probes match
+    # that slot: its count and ext row id then count twice (ROADMAP.md §3).
     e1, e2 = rows[1] if want_ext else (None, None)
     cf1, pf1, cr1, pr1, rid1 = probe(rows[0][0], e1)
     cf2, pf2, cr2, pr2, rid2 = probe(rows[0][1], e2)
@@ -193,8 +195,13 @@ def candidate_stats(table, meta, anchors, cfg: Config, ext=None,
     if not want_ext:
         return count, first_pos, mm_v, strand_v
     K1 = cfg.max_pair_hits - 1
-    x = _u32(gather_rows(ext, (rid1 + rid2).reshape(-1))
-             ).reshape(*cp.shape, 2 * K1)
+    # A doubled row id may lie past the last ext row; such a row reads as
+    # LARGE_POS, the fill of the reference's jnp.take. The gather takes
+    # row 0 there and the row is overwritten.
+    rid = (rid1 + rid2).reshape(-1)
+    past = rid >= ext.shape[0]
+    x = _u32(gather_rows(ext, torch.where(past, 0, rid)))
+    x = torch.where(past[:, None], LARGE_POS, x).reshape(*cp.shape, 2 * K1)
     sw = swap[..., None]
     extras = torch.cat([torch.where(sw, x[..., K1:], x[..., :K1]),
                         torch.where(sw, x[..., :K1], x[..., K1:])], dim=1)

@@ -10,19 +10,22 @@ no viable pair. Each candidate has exactly one pairing role (left or
 right piece), so one (Lp+2)-wide genome window per candidate serves its
 prefix sums, its full-read prefilter count and its splice dinucleotides.
 
-The reference computes the prefix sums as a bf16 triangular-ones matmul
-for the TPU's matrix unit; here they are an int32 `cumsum`, which is
-exact. Global positions are int64 holding the reference's uint32 values;
-every sum that wraps in uint32 there is masked with `& 0xFFFFFFFF` here
-(invalid lanes hold LARGE_POS, and LARGE_POS + a wraps to a - 1). The
-[B, K, K, Lp+1] split grid stays int32 and is updated in place, which
-bounds the device memory of a 1024-read chunk to a few grid copies.
+Everything after K1 (`explore_pairs`) is one hand-written CUDA kernel
+per chunk on the card (csrc/explore.cu, one thread block per read); a CPU
+tensor takes the plain version, `explore_pairs_ref`. In the plain version
+the reference's bf16 triangular-ones matmul prefix sums are an int32
+`cumsum`, which is exact. Global positions are int64 holding the
+reference's uint32 values; every sum that wraps in uint32 there is masked
+with `& 0xFFFFFFFF` here (invalid lanes hold LARGE_POS, and LARGE_POS + a
+wraps to a - 1). Its [B, K, K, Lp+1] split grid stays int32 and is updated
+in place.
 """
 
 from __future__ import annotations
 
 import torch
 
+from find_circ2_tpu_torch import _build
 from find_circ2_tpu_torch.config import (
     RPAD_CODE,
     Config,
@@ -48,6 +51,12 @@ from find_circ2_tpu_torch.ops.packed import gather_window
 
 _A, _C, _G, _T = 0, 1, 2, 3
 BIG = 1 << 20
+# The pair kernel's block holds one (i, j) pair a thread, 256 threads.
+MAX_PAIR_HITS = 16
+
+# Kernel launches of explore_pairs since the last reset (set to 0 to
+# reset).
+launches = 0
 
 
 def merged_candidates(count, first_pos, extras, mm_v, best_mm,
@@ -308,23 +317,124 @@ def explore_core(words, nbases: int, chrom_offsets, reads, lens, hits_a,
         signal=signal.to(i32))
 
 
-def explore_batch_packed(words, nbases: int, table, meta, ext, ext_id,
-                         chrom_offsets, reads, lens, cfg: Config,
-                         prefilter: bool = True) -> torch.Tensor:
-    """Full §2b multi-hit re-call of a batch of routed reads (uint8
-    [B, Lp], int32 [B]), packed as int32 [B, 14] in
-    models/pipeline.PACK_FIELDS order (multi 0: the rows are final)."""
+def explore_pairs_ref(words, nbases: int, chrom_offsets, reads, lens,
+                      stats_a, stats_b, hits_a, hits_b, mm_v, cfg: Config,
+                      prefilter: bool = True) -> torch.Tensor:
+    """Plain version of explore_pairs: merged_candidates for both
+    anchors, explore_core and the packing."""
     from find_circ2_tpu_torch.models.pipeline import _pack
 
+    posA, strA, valA = merged_candidates(*stats_a, mm_v, hits_a.mm, cfg)
+    posB, strB, valB = merged_candidates(*stats_b, mm_v, hits_b.mm, cfg)
+    return _pack(explore_core(words, nbases, chrom_offsets, reads, lens,
+                              hits_a, hits_b, posA, strA, valA, posB, strB,
+                              valB, cfg, prefilter))
+
+
+# What the kernel reads of each anchor's finalize_hits, in ExploreArgs
+# order, with the dtypes it takes.
+_HIT_FIELDS = (("pos", torch.int64), ("strand", torch.int32),
+               ("aligned", torch.bool), ("mm", torch.int32),
+               ("n_best", torch.int32), ("qual", torch.int32))
+
+
+def _check(words, nbases: int, chrom_offsets, reads, lens, stats_a,
+           stats_b, hits_a, hits_b, mm_v, cfg: Config) -> list:
+    """Every tensor the kernel reads, in ExploreArgs order, after checking
+    that it is what the kernel takes; raises otherwise."""
+    B, Lp = reads.shape
+    V2 = mm_v.shape[0]
+    K = cfg.max_pair_hits
+    want = [(words, torch.int32, (words.shape[0],)),
+            (chrom_offsets, torch.int64, (chrom_offsets.shape[0],)),
+            (reads, torch.uint8, (B, Lp)), (lens, torch.int32, (B,)),
+            (mm_v, torch.int32, (V2,))]
+    for stats, hits in ((stats_a, hits_a), (stats_b, hits_b)):
+        count, first_pos, extras = stats
+        want += [(count, torch.int32, (B, V2)),
+                 (first_pos, torch.int64, (B, V2)),
+                 (extras, torch.int64, (B, V2, K - 1))]
+        want += [(getattr(hits, f), dt, (B,)) for f, dt in _HIT_FIELDS]
+    dev = reads.device
+    for t, dtype, shape in want:
+        if t.device != dev:
+            raise ValueError(f"explore_pairs: a tensor on {t.device}, reads "
+                             f"on {dev}; all must be on one CUDA device")
+        if t.dtype != dtype or tuple(t.shape) != shape \
+                or not t.is_contiguous():
+            raise ValueError(f"explore_pairs: want a contiguous {dtype} "
+                             f"{list(shape)}, got {t.dtype} "
+                             f"{list(t.shape)}")
+    if dev.type != "cuda":
+        raise ValueError(f"explore_pairs: tensors on {dev}; the kernel "
+                         "takes one CUDA device (CPU tensors take the "
+                         "plain version)")
+    if (not 1 <= K <= MAX_PAIR_HITS or V2 % 2 or V2 // 2 * K > 8192
+            or chrom_offsets.shape[0] < 1):
+        raise ValueError(f"explore_pairs: max_pair_hits {K} (kernel: 1..."
+                         f"{MAX_PAIR_HITS}), 2V = {V2} (V * K <= 8192), "
+                         f"{chrom_offsets.shape[0]} chromosomes")
+    if not Lp + 2 <= nbases < 2 ** 32:
+        raise ValueError(f"explore_pairs: genome of {nbases} bases; the "
+                         f"kernel needs {Lp + 2} <= n < 2^32")
+    return [t for t, _, _ in want]
+
+
+def explore_pairs(words, nbases: int, chrom_offsets, reads, lens, stats_a,
+                  stats_b, hits_a, hits_b, mm_v, cfg: Config,
+                  prefilter: bool = True) -> torch.Tensor:
+    """§2b after K1, packed: int32 [B, 14] rows in models/pipeline
+    PACK_FIELDS order (multi 0: final). `stats_a`/`stats_b` are each
+    anchor's (count int32 [B, 2V], first_pos int64 [B, 2V], extras int64
+    [B, 2V, K-1]) from candidate_stats, `hits_a`/`hits_b` their
+    finalize_hits, `mm_v` int32 [2V]. CPU tensors take the plain version;
+    CUDA tensors launch csrc/explore.cu on the current stream (one launch,
+    no wait) or raise."""
+    global launches
+    args = (words, nbases, chrom_offsets, reads, lens, stats_a, stats_b,
+            hits_a, hits_b, mm_v)
+    if all(t.is_cpu for t in (words, chrom_offsets, reads, lens, mm_v,
+                              *stats_a, *stats_b, *hits_a, *hits_b)):
+        return explore_pairs_ref(*args, cfg, prefilter)
+    ptrs = [t.data_ptr() for t in _check(*args, cfg)]
+    B, Lp = reads.shape
+    out = torch.empty((B, 14), dtype=torch.int32, device=reads.device)
+    if B == 0:
+        return out
+    dev = reads.get_device()
+    got = _build.load().fc2t_explore(_build.EXPLORE_ARGS.pack(
+        *ptrs[:5], out.data_ptr(), *ptrs[5:],
+        torch._C._cuda_getCurrentRawStream(dev), nbases, B, Lp,
+        mm_v.shape[0] // 2, cfg.max_pair_hits, chrom_offsets.shape[0],
+        cfg.anchor_len, cfg.prefilter_mm, int(cfg.pair_rescue),
+        int(prefilter), dev))
+    if got < 0:
+        _build.check(-got, "explore_pairs launch")
+    launches += got
+    return out
+
+
+def explore_k1(words, nbases: int, table, meta, ext, ext_id, chrom_offsets,
+               reads, lens, cfg: Config) -> tuple:
+    """K1 with the §2b extras for both anchors of a batch of routed reads
+    (uint8 [B, Lp], int32 [B]): explore_pairs' arguments before `cfg`."""
     anchors_a, anchors_b = read_anchors(reads, lens, cfg)
     ca, fa, mm_v, strand_v, xa = candidate_stats(table, meta, anchors_a,
                                                  cfg, ext, ext_id)
     cb, fb, _, _, xb = candidate_stats(table, meta, anchors_b, cfg, ext,
                                        ext_id)
-    hits_a = finalize_hits(ca, fa, mm_v, strand_v, cfg)
-    hits_b = finalize_hits(cb, fb, mm_v, strand_v, cfg)
-    posA, strA, valA = merged_candidates(ca, fa, xa, mm_v, hits_a.mm, cfg)
-    posB, strB, valB = merged_candidates(cb, fb, xb, mm_v, hits_b.mm, cfg)
-    return _pack(explore_core(words, nbases, chrom_offsets, reads, lens,
-                              hits_a, hits_b, posA, strA, valA, posB, strB,
-                              valB, cfg, prefilter))
+    return (words, nbases, chrom_offsets, reads, lens, (ca, fa, xa),
+            (cb, fb, xb), finalize_hits(ca, fa, mm_v, strand_v, cfg),
+            finalize_hits(cb, fb, mm_v, strand_v, cfg), mm_v)
+
+
+def explore_batch_packed(words, nbases: int, table, meta, ext, ext_id,
+                         chrom_offsets, reads, lens, cfg: Config,
+                         prefilter: bool = True) -> torch.Tensor:
+    """Full §2b multi-hit re-call of a batch of routed reads (uint8
+    [B, Lp], int32 [B]), packed as int32 [B, 14] in
+    models/pipeline.PACK_FIELDS order (multi 0: the rows are final): K1
+    with the §2b extras, then explore_pairs."""
+    return explore_pairs(*explore_k1(words, nbases, table, meta, ext, ext_id,
+                                     chrom_offsets, reads, lens, cfg),
+                         cfg, prefilter)
