@@ -22,12 +22,16 @@ Phases, each fatal on failure:
      explore kernel (`explore_pairs`) equals its plain version on the
      card row for row on every read phase 5 routed to the explorer and on
      an `explore_cases` batch of edge cases, prefilter on and off, and is
-     timed beside it and its bound; `explore_batch_packed` on the first
-     1024 routed reads equals the port on the CPU; torch.profiler counts
-     one chunk's device activities and host enqueue with the kernel and
-     with the plain version; `run_fastq` with device explore and with the
-     host twin (`explore=False`) give equal BEDs, timed in the same run,
-     and a profiled device-explore stream gives the device's busy share;
+     timed beside it and its bound on the first 1024 routed reads, and
+     alone on the first 32 and 256 (the other chunk buckets), with its
+     registers, shared bytes and resident blocks and, from its stamped
+     build, each stage's SM clock cycles a block; `explore_batch_packed`
+     on the first 1024 routed reads equals the port on the CPU;
+     torch.profiler counts one chunk's device activities and host enqueue
+     with the kernel and with the plain version; `run_fastq` with device
+     explore and with the host twin (`explore=False`) give equal BEDs,
+     timed in the same run, and a profiled device-explore stream gives the
+     device's busy share;
      500 reads through `run_reads`, routed ones among them, equal the CPU
      oracle read for read;
   7. the sharded engine on the card: a 2x2 mesh (two data rows, four
@@ -79,8 +83,12 @@ HBM_BYTES_PER_S = 3.35e12
 # split in csrc/explore.cu's pair loop.
 INT32_OPS_PER_S = 67e12
 EXPLORE_OPS_PER_SPLIT = 12
-# csrc/explore.cu's kRankMax: longer merge lists take the K-round selection.
-EXPLORE_RANK_MAX = 128
+# csrc/explore.cu's kRankMax: the survivors of one strand's list (K from
+# each of its two warps) ranked pairwise; the lists longer than that are
+# the merge's longest.
+EXPLORE_RANK_MAX = 32
+# The smaller chunk sizes of DeviceExplorer.BUCKETS, timed beside 1024.
+EXPLORE_BUCKETS = (32, 256)
 L2_BYTES = 50 << 20
 GRAPH_REPLAYS = 5
 
@@ -466,8 +474,7 @@ def explore_bound(args, cfg) -> dict:
     rows and hit fields, the first_pos/extras lanes at the best mismatch
     level, each valid candidate's window words, the chromosome offsets
     and the [B, 14] rows. Also the reads with a per-strand list of more
-    than EXPLORE_RANK_MAX lanes, which the kernel's merge selects by
-    rounds of block minima."""
+    than EXPLORE_RANK_MAX lanes, the kernel's longest merges."""
     import torch
     from find_circ2_tpu_torch.index.hashtable import M32
     from find_circ2_tpu_torch.ops import explore as tx
@@ -510,14 +517,40 @@ def explore_bound(args, cfg) -> dict:
                 long_lists=int((longest > EXPLORE_RANK_MAX).sum()))
 
 
-def time_pairs(args, cfg, card) -> dict:
+def explore_stages(args, cfg, what: str, card: str) -> dict:
+    """Where one block's time goes: the kernel's measurement build
+    (ops/explore.stage_cycles) on `args`, its rows held against the plain
+    version, and per stage the median, 90th percentile and maximum over
+    the blocks of the SM clock cycles, and of their sum."""
+    import torch
+    from find_circ2_tpu_torch.ops import explore as tx
+    rows, cyc = tx.stage_cycles(args, cfg, True)
+    if not torch.equal(rows, tx.explore_pairs_ref(*args, cfg, True)):
+        fail(f"the stamped explore kernel differs from its plain version "
+             f"on {what}")
+    cyc = torch.cat([cyc, cyc.sum(1, keepdim=True)], 1).double().cpu()
+    q = torch.tensor([0.5, 0.9, 1.0], dtype=torch.float64)
+    out = {name: [float(v) for v in torch.quantile(cyc[:, k], q)]
+           for k, name in enumerate((*tx.STAGES, "block"))}
+    log(f"explore kernel stages on {what}, SM clock cycles a block "
+        f"(median / p90 / max): " + "; ".join(
+            f"{name} {m:.0f} / {p:.0f} / {x:.0f}"
+            for name, (m, p, x) in out.items()) + f"; on {card}")
+    return out
+
+
+def time_pairs(args, cfg, card, buckets=()) -> dict:
     """explore_pairs (the kernel) and explore_pairs_ref (the plain
     version) on one chunk's K1 outputs, prefilter on, in the order plain,
     kernel, kernel, plain: as called (CUDA events) and on the device
     alone, the kernel by CUDA-graph replay, the plain version by
     torch.profiler's busy time (its window gather copies a host tensor,
     which a graph capture refuses), the kernel by that too; beside the
-    bound of explore_bound."""
+    bound of explore_bound. `buckets` maps the smaller chunk sizes of
+    DeviceExplorer.BUCKETS to their K1 outputs: the kernel alone on
+    each, as called and by graph replay, beside its bound. One block
+    runs per read, so when 32 reads take nearly the time of 1024, one
+    block's critical path sets the time, not the card's rates."""
     from find_circ2_tpu_torch.ops import explore as tx
 
     def kernel(_):
@@ -544,6 +577,32 @@ def time_pairs(args, cfg, card) -> dict:
         f"{out['bytes']:,} bytes), {100 * out['bound_ms'] / out['ms']:.1f}% "
         f"of it; {out['long_lists']} of the reads have a per-strand "
         f"candidate list longer than {EXPLORE_RANK_MAX}; on {card}")
+    out["buckets"] = {args[3].shape[0]: dict(
+        ms=out["ms"], called_ms=out["called_ms"], bound_ms=out["bound_ms"])}
+    for n, bargs in buckets.items():
+        def bucket(_, bargs=bargs):
+            return tx.explore_pairs(*bargs, cfg, True)
+        rec = dict(ms=min(graph_ms(bucket, range(20)),
+                          graph_ms(bucket, range(20))),
+                   called_ms=min(called_ms(bucket, range(20)),
+                                 called_ms(bucket, range(20))),
+                   bound_ms=explore_bound(bargs, cfg)["bound_ms"])
+        out["buckets"][n] = rec
+        log(f"explore_pairs on the first {n} routed reads: device alone "
+            f"{rec['ms']:.5f} ms (graph), as called {rec['called_ms']:.5f} "
+            f"ms, bound {rec['bound_ms']:.5f} ms; {rec['ms'] / out['ms']:.3f}"
+            f" of the {args[3].shape[0]}-read time; on {card}")
+    out["stages"] = {n: explore_stages(bargs, cfg, f"the first {n} routed "
+                                       "reads", card)
+                     for n, bargs in ((args[3].shape[0], args),
+                                      *buckets.items())}
+    res = tx.resources(cfg, int(args[2].shape[0]), args[3].device)
+    out["resources"] = res
+    log(f"explore kernel: {res['registers']} registers and "
+        f"{res['local_bytes']} spilled bytes a thread, {res['threads']} "
+        f"threads and {res['shared_bytes']:,} shared bytes a block, "
+        f"{res['blocks_per_sm']} resident blocks an SM (CUDA occupancy "
+        f"API) on {card}")
     return out
 
 
@@ -634,8 +693,10 @@ def check_explore(dindex, arr, lens, cfg, card) -> dict:
         if prefilter:
             out["cpu_ms"] = cpu_ms
 
-    out["pairs"] = time_pairs(explore_k1(dindex, reads.to(dev),
-                                         rlens.to(dev), cfg), cfg, card)
+    out["pairs"] = time_pairs(
+        explore_k1(dindex, reads.to(dev), rlens.to(dev), cfg), cfg, card,
+        {n: explore_k1(dindex, reads[:n].to(dev), rlens[:n].to(dev), cfg)
+         for n in EXPLORE_BUCKETS})
     # One chunk, K1 included: the plain version (as before the kernel)
     # and the kernel, each in turn.
     for name, fn in (("plain", run_plain), ("kernel", run),
@@ -1117,7 +1178,13 @@ def main() -> int:
         "bound_by": pairs["bound_by"], "library_ms": None,
         "called_ms": pairs["called_ms"],
         "plain_called_ms": pairs["plain_called_ms"],
-        "sharded_launches": path["sharded"]["explore_launches"]})
+        "sharded_launches": path["sharded"]["explore_launches"],
+        "bucket_ms": {str(n): b["ms"] for n, b in pairs["buckets"].items()},
+        "bucket_called_ms": {str(n): b["called_ms"]
+                             for n, b in pairs["buckets"].items()},
+        "resources": pairs["resources"],
+        "stage_cycles": {str(n): {k: v[0] for k, v in st.items()}
+                         for n, st in pairs["stages"].items()}})
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -23,8 +23,11 @@ CSRC = os.path.join(_HERE, "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(_HERE), "build", "kernels")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC")
+# The measurement build: csrc/explore.cu records per-stage clocks.
+STAMP_FLAGS = ("-DFC2T_EXPLORE_STAMPS",)
 
 _lib = None
+_stamped = None
 
 
 def _nvcc() -> str:
@@ -39,25 +42,25 @@ def _sources() -> list[str]:
     return sorted(glob.glob(os.path.join(CSRC, "*.cu")))
 
 
-def library_path() -> str:
-    h = hashlib.sha1(" ".join(NVCC_FLAGS).encode())
+def library_path(flags: tuple = NVCC_FLAGS) -> str:
+    h = hashlib.sha1(" ".join(flags).encode())
     for s in _sources():
         with open(s, "rb") as fh:
             h.update(os.path.basename(s).encode() + b"\0" + fh.read())
     return os.path.join(BUILD_DIR, f"libfc2t_{h.hexdigest()[:16]}.so")
 
 
-def build() -> str:
-    """Compile csrc/*.cu unless the keyed library exists; return its
-    path. Raises RuntimeError with nvcc's output on failure."""
-    so = library_path()
+def build(flags: tuple = NVCC_FLAGS) -> str:
+    """Compile csrc/*.cu with `flags` unless the keyed library exists;
+    return its path. Raises RuntimeError with nvcc's output on failure."""
+    so = library_path(flags)
     if os.path.exists(so):
         return so
     os.makedirs(BUILD_DIR, exist_ok=True)
     nvcc, tmp = _nvcc(), f"{so}.{os.getpid()}.tmp"
     objs = [f"{tmp}.{os.path.basename(s)}.o" for s in _sources()]
     try:
-        procs = [subprocess.Popen([nvcc, *NVCC_FLAGS, "-c", "-o", o, s],
+        procs = [subprocess.Popen([nvcc, *flags, "-c", "-o", o, s],
                                   stdout=subprocess.PIPE,
                                   stderr=subprocess.STDOUT, text=True)
                  for s, o in zip(_sources(), objs)]
@@ -66,7 +69,7 @@ def build() -> str:
             if p.returncode != 0:
                 raise RuntimeError(f"nvcc failed ({p.returncode}) on "
                                    f"{os.path.basename(s)}:\n{text}")
-        r = subprocess.run([nvcc, *NVCC_FLAGS, "-shared", "-o", tmp, *objs],
+        r = subprocess.run([nvcc, *flags, "-shared", "-o", tmp, *objs],
                            capture_output=True, text=True)
         if r.returncode != 0:
             raise RuntimeError(f"nvcc link failed ({r.returncode}):\n"
@@ -79,21 +82,41 @@ def build() -> str:
     return so
 
 
+def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """Set the C entries' argument and result types."""
+    # One GATHER_ARGS buffer in; the kernels launched, or minus a CUDA
+    # error, out.
+    lib.fc2t_gather_rows.argtypes = [ctypes.c_char_p]
+    lib.fc2t_gather_rows.restype = ctypes.c_int
+    # One EXPLORE_ARGS buffer in; the kernels launched, or minus a CUDA
+    # error, out.
+    lib.fc2t_explore.argtypes = [ctypes.c_char_p]
+    lib.fc2t_explore.restype = ctypes.c_int
+    # Lp, K, V, n_chroms and an int[5] out; 0 or minus a CUDA error.
+    lib.fc2t_explore_resources.argtypes = [ctypes.c_int] * 4 + [
+        ctypes.POINTER(ctypes.c_int)]
+    lib.fc2t_explore_resources.restype = ctypes.c_int
+    return lib
+
+
 def load() -> ctypes.CDLL:
     """The loaded kernel library, built on first call."""
     global _lib
     if _lib is None:
-        lib = ctypes.CDLL(build())
-        # One GATHER_ARGS buffer in; the kernels launched, or minus a
-        # CUDA error, out.
-        lib.fc2t_gather_rows.argtypes = [ctypes.c_char_p]
-        lib.fc2t_gather_rows.restype = ctypes.c_int
-        # One EXPLORE_ARGS buffer in; the kernels launched, or minus a
-        # CUDA error, out.
-        lib.fc2t_explore.argtypes = [ctypes.c_char_p]
-        lib.fc2t_explore.restype = ctypes.c_int
-        _lib = lib
+        _lib = _bind(ctypes.CDLL(build()))
     return _lib
+
+
+def load_stamped() -> ctypes.CDLL:
+    """The measurement build of the kernel library (STAMP_FLAGS), built on
+    first call; it also has fc2t_explore_stamps(void*)."""
+    global _stamped
+    if _stamped is None:
+        lib = _bind(ctypes.CDLL(build(NVCC_FLAGS + STAMP_FLAGS)))
+        lib.fc2t_explore_stamps.argtypes = [ctypes.c_void_p]
+        lib.fc2t_explore_stamps.restype = ctypes.c_int
+        _stamped = lib
+    return _stamped
 
 
 # csrc/gather_rows.cu's GatherArgs: table_a, out_a, table_b, out_b, idx,

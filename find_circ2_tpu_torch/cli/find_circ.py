@@ -65,12 +65,17 @@ def rc_stream(it):
         yield name, revcomp_seq(seq)
 
 
-def resolve_device(name: str):
-    """torch.device for --device; cuda without a card is an error."""
+def resolve_device(name: str, proc_id: int | None = None):
+    """torch.device for --device; cuda without a card is an error. Rank
+    `proc_id` of a --nproc run takes the card proc_id mod the visible
+    cards, so the ranks of a host with several cards detect each on its
+    own; with one card they share it."""
     import torch
     if name == "cuda" and not torch.cuda.is_available():
         raise SystemExit("find_circ: --device cuda but no CUDA device is "
                          "available (pass --device cpu to run on the CPU)")
+    if name == "cuda" and proc_id is not None:
+        return torch.device("cuda", proc_id % torch.cuda.device_count())
     return torch.device(name)
 
 
@@ -191,8 +196,8 @@ def run(args) -> int:
 
 def _run(args, nproc: int, mesh) -> int:
     t_setup = time.perf_counter()
-    device = resolve_device(args.device) if args.backend == "device" \
-        else None
+    device = resolve_device(args.device, args.proc_id if nproc > 1
+                            else None) if args.backend == "device" else None
     cfg = Config(anchor_len=args.anchor,
                  prefix_len=min(12, args.anchor - 8),
                  stranded=args.stranded, batch_size=args.batch_size)

@@ -12,49 +12,62 @@
 // (explore_pairs_ref) is about a thousand eager kernels a 1024-read chunk
 // over int32 copies of that grid, 168.8 MB each at K = 16, Lp = 160.
 //
-// What bounds it on this card. The work is int32 arithmetic over (pair,
-// split): each of a read's K x K = 256 pairs that can pair walks up to
-// Lp - 2a + 1 = 121 splits at about 12 operations a split (the packed
-// score and flags of two shared loads, three compares and selects), so
-// at most 1024 x 256 x 121 x 12 = 0.38 G operations a 1024-read chunk.
-// The bytes it must move are the reads, K1's count rows, the first_pos
-// and extras lanes at each anchor's best mismatch level, the 2K
-// (Lp+2)-base windows of nibble words and the [B, 14] rows: a few MB a
-// chunk. At the H100's 67 T/s 32-bit rate and 3.35 TB/s both bounds are a
-// few microseconds: the operations the larger at full pair counts, the
-// bytes on the 16 Mbp library's routed reads (a few dozen pairs a read run
-// their split loop). chip_smoke.py computes both from each run's data.
-// Neither is what the kernel meets: its blocks wait on dependent global
-// loads and block barriers (K1's rows, then the windows, then the
-// reductions).
+// What bounds it on this card. The work is a few MB of bytes (the reads,
+// K1's count rows, the first_pos/extras lanes at each anchor's best
+// mismatch level, the 2K candidates' window words, the [B, 14] rows) and
+// int32 arithmetic over (viable pair, split): a few dozen of a read's
+// K x K pairs can pair and walk Lp - 2a + 1 splits at most. At the
+// H100's 3.35 TB/s and 67 T/s 32-bit rate both bounds are a few
+// microseconds a 1024-read chunk (chip_smoke.py computes them from each
+// run's data). Neither is what the kernel meets. A chunk is 1024 blocks,
+// under two waves on 132 SMs, so the time is about two blocks' critical
+// paths: three dependent round trips to device memory (K1's count rows,
+// then the lanes they select, then the windows those lanes name), each
+// about a microsecond on the card, and the block's own instructions
+// between its barriers. The design shortens that path (stage_cycles in
+// ops/explore.py measures each stage through the FC2T_EXPLORE_STAMPS
+// build):
 //
-// Design (right first; making it fast is later work):
-//  * Merge: each anchor's lanes at its best mismatch level (lane <
-//    min(count, K)) go to shared memory per strand through a shared
-//    counter, every thread's loads of a batch issued before its appends.
-//    The K smallest per strand, duplicates kept as `sort` keeps them:
-//    up to kRankMax entries each ranked against the others (ties by
-//    index); more (up to 60 slots x 16 lanes at the 1-mismatch level, as
-//    at high-copy repeats; PERF.md gives their share of routed reads) by K
-//    rounds of a block minimum over (position, index), which costs K block
-//    reductions, not n^2 compares. '+' entries before '-', capped at K.
-//  * Candidate sides: one warp per candidate reads its (Lp+2)-base window
-//    straight from the nibble words (start clamped as _candidate_side),
-//    counts mismatches against the read or its reverse complement with a
-//    warp scan, and keeps one int per split k: its role's mismatch count
-//    (prefix for the left piece, suffix for the right) times 4 plus its
-//    role's two dinucleotide flags. A pair's split score is then the sum
-//    of its candidates' counts and its flags their AND: the split loop is
-//    two bank-conflict-free shared loads (odd row stride).
-//  * Pairs: thread i*K + j walks the splits of pair (i, j) and keeps the
-//    minimum score, the number of splits at it and the minimum packed
-//    split key; the split grid never exists in memory. A pair that cannot
-//    pair (an invalid lane, two strands or chromosomes, neither geometry)
-//    skips its loop: it can neither win nor compete below.
-//  * The frozen pair tie-break as successive masked block minima with the
-//    plain code's fills, the first pair in row-major order, the
-//    pair-margin rescue's minimum over pairs at other coordinates; one
-//    thread writes the row.
+//  1. Prologue: everything that does not depend on the candidates (both
+//     anchors' count rows, mm_v, the hit fields the epilogue reads, small
+//     chromosome tables) goes to shared memory by cp.async, issued at
+//     once with one commit and one wait; the read by plain loads issued
+//     before that wait.
+//  2. Merge without block rounds: each slot's lanes at the best level go
+//     to shared memory; then the four lists (2 anchors x 2 strands) go
+//     to four warp pairs at once. Each lane loads its 16 entries of a
+//     list straight into registers (all its shared loads, then all its
+//     predicated global loads, in flight together) and sorts them with a
+//     register bitonic network; K rounds of a warp minimum
+//     (__reduce_min_sync, the owner by __ballot_sync) take the warp's K
+//     smallest, the owner shifting its next entry up; no barrier. One
+//     barrier, then each of the at most 2K survivors of a list is ranked
+//     against the other warp's (kRankMax). Only values leave the merge,
+//     so duplicates stay as `sort` keeps them.
+//  3. Windows in one round trip: all 2K candidates' nibble words (start
+//     clamped as _candidate_side) by cp.async, one commit and one wait,
+//     with each candidate's chromosome found once and the read and its
+//     reverse complement packed into nibble words meanwhile. Then 8
+//     lanes per candidate, each a run of splits, 8 a step: mismatches and
+//     dinucleotide flags by word operations on the nibbles, a prefix scan
+//     over the 8 lanes, one int16 a split stored 16 bytes at a time: its
+//     role's flags plus 4 x its prefix mismatch count (left piece) or
+//     minus it (right piece; the pair adds the right piece's total).
+//  4. Pairs: the K x K pairs are flagged viable (valid lanes, one strand
+//     and chromosome, linear or circular) by ballots and compacted; each
+//     viable pair gets g lanes (32 for up to 8 pairs, down to 1 for more
+//     than 128), which take splits k = lo + sub, lo + sub + g, ... and
+//     reduce by shuffles: the minimum packed split key (score, !canon+,
+//     !canon-, k) and the minimum score with its count. The split grid
+//     never exists.
+//  5. The frozen pair tie-break (edits, !c+, !c-, pA, pB, s), then the
+//     first pair in row-major order, is one lexicographic reduction of a
+//     96-bit key over the viable pairs by one warp; the rescue's `alt`
+//     one more pass over them. The same warp writes the row.
+//
+// Not used, and why: tensor cores (wgmma, mma.sync): the function has no
+// product. TMA: the loads are data-dependent gathers of 4 to 88 bytes.
+// Thread block clusters: blocks share nothing.
 // Position arithmetic is uint32 and wraps where the plain code masks with
 // & 0xFFFFFFFF.
 //
@@ -64,6 +77,7 @@
 
 #include <cstddef>
 #include <cstdint>
+#include <cuda_pipeline.h>
 #include <cuda_runtime.h>
 
 // One anchor's K1 outputs, rows of [B, ...] int tensors.
@@ -98,18 +112,37 @@ static_assert(sizeof(ExploreArgs) == 248, "layout packed by ops/explore");
 // The block's shared memory, carved by Layout below.
 extern __shared__ __align__(16) unsigned char fc2t_explore_smem[];
 
+// Built with FC2T_EXPLORE_STAMPS (ops/explore.stage_cycles), thread 0
+// records its SM clock at the start, at the barrier that ends each stage
+// and before the row: kStamps values a block into fc2t_stamps[B,
+// kStamps]. Without it, STAMP is nothing.
+constexpr int kStamps = 9;
+#ifdef FC2T_EXPLORE_STAMPS
+__device__ unsigned long long* fc2t_stamps = nullptr;
+#define STAMP(s)                                                          \
+    do {                                                                  \
+        if (threadIdx.x == 0 && fc2t_stamps)                              \
+            fc2t_stamps[(size_t)blockIdx.x * kStamps + (s)] = clock64();  \
+    } while (0)
+#else
+#define STAMP(s) \
+    do {         \
+    } while (0)
+#endif
+
 namespace {
 
 constexpr int kThreads = 256;
-constexpr int kWarps = kThreads / 32;
-constexpr int kBatch = 8;                 // merge loads in flight a thread
-constexpr int kRankMax = 128;             // largest list ranked pairwise
+constexpr int kWarps = kThreads / 32;     // 4 lists x 2 halves
 constexpr unsigned kFull = 0xffffffffu;
 constexpr int kMaxK = 16;                 // K * K pairs <= kThreads
+constexpr int kLaneEntries = 16;          // list entries a lane holds
+constexpr int kMaxListLanes = 1024;       // V * K <= 2 * 32 * kLaneEntries
+constexpr int kRankMax = 32;              // survivors of a list: 2 x kMaxK
+constexpr int kChromShared = 256;         // chromosome tables kept in smem
 constexpr uint32_t kLargePos = 0xffffffffu;
 constexpr int kBig = 1 << 20;             // ops/explore.py BIG
 constexpr int kNoSplit = 1 << 30;         // the split key's fill
-constexpr unsigned kNone = 0xffffffffu;   // identity of the block minima
 constexpr int kPackFields = 14;
 // config.py's codes.
 constexpr int kA = 0, kC = 1, kG = 2, kT = 3, kRpad = 6;
@@ -118,106 +151,58 @@ constexpr int kJunction = 0, kPrefiltered = 3, kUnalignedA = 4,
               kAnchorOverlap = 8, kNoJunction = 9;
 constexpr int kLinear = 0, kCircular = 1, kSenseMinus = 1;
 
-// The winning pair's fields in shared memory.
-enum Win { wKind, wStart, wEnd, wEdits, wNbp, wK, wS, wPA, wPB, wChrom,
-           wCp, wCm, wI, wJ, kWinFields };
+// The hit fields of both anchors in shared memory (int32 each).
+enum Hit { hStrand, hMm, hNbest, hQual, hAligned, kHitFields };
 
-// Byte offsets of the block's shared memory (all dynamic), from Lp, K, V.
+// Byte offsets of the block's shared memory (all dynamic), from Lp, K, V
+// and the chromosomes kept in shared memory. 8-byte arrays first.
 struct Layout {
-    int stride;  // ints per candidate row of `split`, odd
-    size_t split, red64, lanes, cpos, cstr, cval, sorted, counter, red, win,
-        windows, read, rc, total;
+    int stride;  // int16 per candidate row of `rows`, a multiple of 8
+    int nw;      // window words per candidate, one spare past any read
+    int nq;      // nibble words of the read (and of its complement)
+    size_t pkey_hi, pkey_lo, surv, offs, hpos, rows, words, cnt, mmv, cpos,
+        cs0, cstr, cch, ctot, pstart, pend, pkn, hit, survn, pmask, misc,
+        qw, plist, read, total;
 };
 
-__host__ __device__ inline Layout layout(int Lp, int K, int V) {
+__host__ __device__ inline Layout layout(int Lp, int K, int V,
+                                         int n_offs) {
     Layout L;
-    L.stride = (Lp + 1) | 1;
-    const size_t split = (size_t)2 * K * L.stride * 4;
-    const size_t merge = (size_t)2 * V * K * 4;  // aliases `split`
+    L.stride = (Lp + 8) & ~7;
+    L.nw = (Lp + 16) / 8 + 2;
+    L.nq = (Lp + 8) / 8 + 1;
+    const size_t P = (size_t)K * K, C = (size_t)2 * K;
     size_t o = 0;
-    L.split = o;
-    o += split > merge ? split : merge;  // a multiple of 8
-    L.red64 = o;
-    o += kWarps * 8;
-    L.lanes = o;
-    o += (size_t)2 * V * 4;
-    L.cpos = o;
-    o += (size_t)2 * K * 4;
-    L.cstr = o;
-    o += (size_t)2 * K * 4;
-    L.cval = o;
-    o += (size_t)2 * K * 4;
-    L.sorted = o;
-    o += (size_t)2 * K * 4;
-    L.counter = o;  // [0], [1]: merge counts per strand; [2]: contig
-    o += 4 * 4;
-    L.red = o;
-    o += kWarps * 4;
-    L.win = o;
-    o += kWinFields * 4;
-    L.windows = o;
-    o += (size_t)2 * K * (Lp + 2);
-    L.read = o;
-    o += Lp;
-    L.rc = o;
-    o += Lp;
+    L.pkey_hi = o;  o += P * 8;
+    L.pkey_lo = o;  o += P * 8;
+    L.surv = o;     o += (size_t)kWarps * K * 4;
+    L.offs = o;     o += (size_t)n_offs * 8;
+    L.hpos = o;     o += 2 * 8;
+    o = (o + 15) & ~(size_t)15;
+    L.rows = o;     o += C * L.stride * 2;
+    L.words = o;    o += C * L.nw * 4;
+    L.cnt = o;      o += (size_t)2 * 2 * V * 4;
+    L.mmv = o;      o += (size_t)2 * V * 4;
+    L.cpos = o;     o += C * 4;
+    L.cs0 = o;      o += C * 4;
+    L.cstr = o;     o += C * 4;   // strand, or -1: an invalid lane
+    L.cch = o;      o += C * 4;
+    L.ctot = o;     o += C * 4;   // mismatches over the whole read
+    L.pstart = o;   o += P * 4;
+    L.pend = o;     o += P * 4;
+    L.pkn = o;      o += P * 4;
+    L.hit = o;      o += 2 * kHitFields * 4;
+    L.survn = o;    o += kWarps * 4;
+    L.pmask = o;    o += kWarps * 4;
+    L.misc = o;     o += 4 * 4;   // [0]: the §6 prefilter flag
+    L.qw = o;       o += (size_t)2 * L.nq * 4;  // read, reverse complement
+    L.plist = o;    o += P;       // viable pairs, row-major index
+    L.read = o;     o += Lp;
     L.total = (o + 15) & ~(size_t)15;
     return L;
 }
 
 __device__ __forceinline__ int comp(int x) { return x < 4 ? 3 - x : x; }
-
-// The minimum of x over the block (T unsigned or unsigned long long,
-// red[kWarps] of scratch); every thread calls it.
-template <typename T>
-__device__ __forceinline__ T block_min(T x, T* red) {
-    for (int o = 16; o > 0; o >>= 1) {
-        const T y = __shfl_xor_sync(kFull, x, o);
-        x = y < x ? y : x;
-    }
-    if ((threadIdx.x & 31) == 0) red[threadIdx.x >> 5] = x;
-    __syncthreads();
-    T r = red[0];
-    for (int w = 1; w < kWarps; ++w) r = red[w] < r ? red[w] : r;
-    __syncthreads();
-    return r;
-}
-
-// The k smallest of buf[0:n] (k <= kRankMax, n <= 32 * kThreads),
-// ascending with duplicates, into out[0:min(n, k)]. Every thread calls
-// it with the same n.
-__device__ void select_k(const uint32_t* buf, int n, int k, uint32_t* out,
-                         unsigned long long* red) {
-    const int tid = threadIdx.x;
-    if (n <= kRankMax) {
-        for (int e = tid; e < n; e += kThreads) {
-            const uint32_t val = buf[e];
-            int rank = 0;
-            for (int q = 0; q < n && rank < k; ++q) {
-                const uint32_t w = buf[q];
-                rank += w < val || (w == val && q < e);
-            }
-            if (rank < k) out[rank] = val;
-        }
-        return;
-    }
-    // k rounds: the block minimum of (value, index) over the entries not
-    // yet taken; its owner takes it. Bit i of `taken`: entry tid + i *
-    // kThreads.
-    unsigned taken = 0;
-    for (int r = 0; r < k; ++r) {
-        unsigned long long mine = ~0ull;
-        for (int e = tid, i = 0; e < n; e += kThreads, ++i) {
-            const unsigned long long key =
-                (unsigned long long)buf[e] << 32 | (unsigned)e;
-            if (!((taken >> i) & 1u) && key < mine) mine = key;
-        }
-        const unsigned long long m = block_min(mine, red);
-        const int e = (int)(m & 0xffffffffu);
-        if (e % kThreads == tid) taken |= 1u << (e / kThreads);
-        if (tid == 0) out[r] = (uint32_t)(m >> 32);
-    }
-}
 
 // searchsorted(offsets, x, right=True): the offsets <= x.
 __device__ __forceinline__ int upper(const int64_t* off, int n,
@@ -233,281 +218,530 @@ __device__ __forceinline__ int upper(const int64_t* off, int n,
     return lo;
 }
 
+// 4- or 8-byte asynchronous copy, global to shared.
+__device__ __forceinline__ void copy_async(void* dst, const void* src,
+                                           size_t bytes) {
+    __pipeline_memcpy_async(dst, src, bytes);
+}
+
+// Base t of candidate c's window: its nibble words hold bases s0 .. s0 +
+// Lp + 1 from word s0 / 8 on.
+__device__ __forceinline__ int window_base(const uint32_t* w, uint32_t s0,
+                                           int t) {
+    const uint32_t g = s0 + (uint32_t)t;
+    return (int)((w[(g >> 3) - (s0 >> 3)] >> (4 * (g & 7))) & 7u);
+}
+
+// Bases t .. t+7 of a candidate's window as nibbles, base t lowest.
+__device__ __forceinline__ uint32_t nibbles(const uint32_t* w, uint32_t s0,
+                                            int t) {
+    const uint32_t g = s0 + (uint32_t)t;
+    const uint32_t i = (g >> 3) - (s0 >> 3);
+    return __funnelshift_r(w[i], w[i + 1], 4 * (g & 7)) & 0x77777777u;
+}
+
+// Bit 0 of each nibble: the read's base and the window's differ, or
+// either is not A, C, G or T (code >= 4); bases at or past n (of 8): 0.
+__device__ __forceinline__ uint32_t mismatches(uint32_t q, uint32_t g,
+                                               int n) {
+    const uint32_t x = q ^ g;
+    const uint32_t m = (x | x >> 1 | x >> 2 | (q | g) >> 2) & 0x11111111u;
+    return n >= 8 ? m : (n <= 0 ? 0u : m & ((1u << (4 * n)) - 1u));
+}
+
+// Bit 0 of each nibble: that base is `code`.
+__device__ __forceinline__ uint32_t same(uint32_t w, int code) {
+    const uint32_t y = w ^ ((uint32_t)code * 0x11111111u);
+    return ~(y | y >> 1 | y >> 2) & 0x11111111u;
+}
+
+// The clamped window start of a valid candidate at `pos` on strand `st`
+// (as _candidate_side): a left piece reads G[pos : pos+Lp+2], a right
+// piece G[pos+a-len-2 : ...].
+__device__ __forceinline__ uint32_t window_start(bool left, uint32_t pos,
+                                                 uint32_t al, int len,
+                                                 uint32_t max_start) {
+    const uint32_t start = left ? pos : pos + al - (uint32_t)len - 2u;
+    return start < max_start ? start : max_start;
+}
+
 __global__ void __launch_bounds__(kThreads)
-explore_kernel(const ExploreArgs a) {
+explore_kernel(const __grid_constant__ ExploreArgs a, const int n_offs) {
     const int b = blockIdx.x;
     const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
     const int Lp = a.Lp, K = a.K, V = a.V, al = a.anchor_len;
-    const Layout L = layout(Lp, K, V);
+    const int V2 = 2 * V, K2 = 2 * K, KK = K * K;
+    const uint32_t ua = (uint32_t)al;
+    const Layout L = layout(Lp, K, V, n_offs);
     unsigned char* smem = fc2t_explore_smem;
-    int* split = reinterpret_cast<int*>(smem + L.split);
-    uint32_t* mbuf = reinterpret_cast<uint32_t*>(smem + L.split);
-    unsigned long long* red64 =
-        reinterpret_cast<unsigned long long*>(smem + L.red64);
-    int* lanes = reinterpret_cast<int*>(smem + L.lanes);
-    uint32_t* cpos = reinterpret_cast<uint32_t*>(smem + L.cpos);
-    int* cstr = reinterpret_cast<int*>(smem + L.cstr);
-    int* cval = reinterpret_cast<int*>(smem + L.cval);
-    uint32_t* sorted = reinterpret_cast<uint32_t*>(smem + L.sorted);
-    int* counter = reinterpret_cast<int*>(smem + L.counter);
-    unsigned* red = reinterpret_cast<unsigned*>(smem + L.red);
-    unsigned* win = reinterpret_cast<unsigned*>(smem + L.win);
-    uint8_t* windows = smem + L.windows;
+    auto* pkey_hi = reinterpret_cast<unsigned long long*>(smem + L.pkey_hi);
+    auto* pkey_lo = reinterpret_cast<unsigned long long*>(smem + L.pkey_lo);
+    auto* surv = reinterpret_cast<uint32_t*>(smem + L.surv);
+    auto* offs_s = reinterpret_cast<int64_t*>(smem + L.offs);
+    auto* hpos = reinterpret_cast<int64_t*>(smem + L.hpos);
+    auto* rows = reinterpret_cast<int16_t*>(smem + L.rows);
+    auto* wsm = reinterpret_cast<uint32_t*>(smem + L.words);
+    auto* cnt = reinterpret_cast<int*>(smem + L.cnt);
+    auto* mmv = reinterpret_cast<int*>(smem + L.mmv);
+    auto* cpos = reinterpret_cast<uint32_t*>(smem + L.cpos);
+    auto* cs0 = reinterpret_cast<uint32_t*>(smem + L.cs0);
+    auto* cstr = reinterpret_cast<int*>(smem + L.cstr);
+    auto* cch = reinterpret_cast<int*>(smem + L.cch);
+    auto* ctot = reinterpret_cast<int*>(smem + L.ctot);
+    auto* pstart = reinterpret_cast<uint32_t*>(smem + L.pstart);
+    auto* pend = reinterpret_cast<uint32_t*>(smem + L.pend);
+    auto* pkn = reinterpret_cast<uint32_t*>(smem + L.pkn);
+    auto* hit = reinterpret_cast<int*>(smem + L.hit);
+    auto* survn = reinterpret_cast<int*>(smem + L.survn);
+    auto* pmask = reinterpret_cast<unsigned*>(smem + L.pmask);
+    auto* misc = reinterpret_cast<int*>(smem + L.misc);
+    uint8_t* plist = smem + L.plist;
     uint8_t* R = smem + L.read;
-    uint8_t* RC = smem + L.rc;
+    auto* qw = reinterpret_cast<uint32_t*>(smem + L.qw);
+    const int64_t* offs = n_offs ? offs_s : a.chrom_offsets;
+    const int nw = L.nw, nq = L.nq;
+    STAMP(0);
 
-    // The read and its left-aligned reverse complement (RPAD past len).
+    // --- 1. prologue: every load that does not depend on the candidates,
+    // one commit, one wait.
+    const size_t row2 = (size_t)b * V2;
+    for (int t = tid; t < 3 * V2; t += kThreads) {
+        if (t < 2 * V2) {
+            const int x = t >= V2;
+            copy_async(cnt + t, a.anchor[x].count + row2 + (t - x * V2), 4);
+        } else {
+            copy_async(mmv + t - 2 * V2, a.mm_v + t - 2 * V2, 4);
+        }
+    }
+    for (int t = tid; t < n_offs; t += kThreads)
+        copy_async(offs_s + t, a.chrom_offsets + t, 8);
+    if (tid < 2) {
+        copy_async(hpos + tid, a.anchor[tid].pos + b, 8);
+    } else if (tid < 10) {
+        const int x = (tid - 2) >> 2, f = (tid - 2) & 3;
+        const ExploreAnchor& an = a.anchor[x];
+        const int32_t* src = f == hStrand ? an.strand
+                             : f == hMm   ? an.mm
+                             : f == hNbest ? an.n_best
+                                           : an.qual;
+        copy_async(hit + x * kHitFields + f, src + b, 4);
+    }
+    __pipeline_commit();
     const int len = a.lens[b];
     const uint8_t* read = a.reads + (size_t)b * Lp;
-    for (int p = tid; p < Lp; p += kThreads) {
-        R[p] = read[p];
-        int src = len - 1 - p;
-        src = src < 0 ? 0 : (src > Lp - 1 ? Lp - 1 : src);
-        RC[p] = (uint8_t)(p < len ? comp(read[src]) : kRpad);
-    }
-    if (tid == 0) counter[2] = 0;
+    for (int p = tid; p < Lp; p += kThreads) R[p] = read[p];
+    if (tid >= 10 && tid < 12)
+        hit[(tid - 10) * kHitFields + hAligned] = a.anchor[tid - 10].aligned[b];
+    if (tid == 12) misc[0] = 0;
+    __pipeline_wait_prior(0);
+    __syncthreads();
+    STAMP(1);
 
-    // --- merged_candidates, anchor A then B ------------------------------
-    const int V2 = 2 * V;
-    for (int x = 0; x < 2; ++x) {
-        const ExploreAnchor& an = a.anchor[x];
-        const int best = an.mm[b];
-        const size_t row = (size_t)b * V2;
-        // Each slot's lanes at the best level: min(count, K), else none.
-        for (int t = tid; t < V2; t += kThreads) {
-            const int c = an.count[row + t];
-            lanes[t] = c > 0 && a.mm_v[t] == best ? (c < K ? c : K) : 0;
-        }
-        if (tid < 2) counter[tid] = 0;
-        __syncthreads();
-        for (int t0 = 0; t0 < V2 * K; t0 += kThreads * kBatch) {
-            uint32_t val[kBatch];
-#pragma unroll
-            for (int u = 0; u < kBatch; ++u) {
-                const int t = t0 + u * kThreads + tid;
-                const int slot = t / K, l = t - slot * K;
-                val[u] = kLargePos;
-                if (t < V2 * K && l < lanes[slot])
-                    val[u] = (uint32_t)(
-                        l == 0 ? an.first_pos[row + slot]
-                               : an.extras[(row + slot) * (K - 1) + l - 1]);
-            }
-#pragma unroll
-            for (int u = 0; u < kBatch; ++u) {
-                if (val[u] == kLargePos) continue;
-                const int st = (t0 + u * kThreads + tid) / K >= V;
-                mbuf[st * V * K + atomicAdd(&counter[st], 1)] = val[u];
-            }
-        }
-        __syncthreads();
-        for (int st = 0; st < 2; ++st)
-            select_k(mbuf + st * V * K, counter[st], K, sorted + st * K,
-                     red64);
-        __syncthreads();
-        if (tid < K) {
-            const int np = counter[0] < K ? counter[0] : K;
-            const int nm = counter[1] < K ? counter[1] : K;
-            const int c = x * K + tid;
-            if (tid < np) {
-                cpos[c] = sorted[tid];
-                cstr[c] = 0;
-                cval[c] = 1;
-            } else if (tid < np + nm) {
-                cpos[c] = sorted[K + tid - np];
-                cstr[c] = 1;
-                cval[c] = 1;
-            } else {
-                cpos[c] = kLargePos;
-                cstr[c] = 0;
-                cval[c] = 0;
-            }
-        }
-        __syncthreads();
-    }
-
-    // --- _candidate_side: one warp per valid candidate -------------------
-    const long long max_start = a.nbases - (Lp + 2);
-    const int S = L.stride;
-    for (int c = warp; c < 2 * K; c += kWarps) {
-        if (!cval[c]) continue;
-        const int st = cstr[c];
-        const bool left = c < K ? st == 0 : st == 1;
-        const uint32_t pos = cpos[c];
-        const uint32_t start =
-            left ? pos : pos + (uint32_t)al - (uint32_t)len - 2u;
-        const long long s0 =
-            (long long)start < max_start ? (long long)start : max_start;
-        uint8_t* w = windows + (size_t)c * (Lp + 2);
-        for (int t = lane; t < Lp + 2; t += 32) {
-            const long long g = s0 + t;
-            const uint32_t word = (uint32_t)a.words[g >> 3];
-            w[t] = (uint8_t)((word >> (4 * (int)(g & 7))) & 7u);
-        }
-        __syncwarp();
-        const uint8_t* q = st == 0 ? R : RC;
-        const uint8_t* seg = left ? w : w + 2;
-        int* row = split + c * S;
-        int carry = 0;
-        for (int p0 = 0; p0 < Lp; p0 += 32) {
-            const int p = p0 + lane;
-            int incl = 0;
-            if (p < Lp) {
-                const int qc = q[p], wc = seg[p];
-                incl = (qc != wc || qc >= 4 || wc >= 4) && p < len;
-            }
-            for (int d = 1; d < 32; d <<= 1) {
-                const int y = __shfl_up_sync(kFull, incl, d);
-                if (lane >= d) incl += y;
-            }
-            if (p < Lp) row[p + 1] = carry + incl;  // mismatches in [0, p]
-            carry += __shfl_sync(kFull, incl, 31);
-        }
-        if (lane == 0) {
-            row[0] = 0;
-            if (carry <= a.prefilter_mm) counter[2] = 1;  // §6 prefilter
-        }
-        __syncwarp();
-        for (int k = lane; k <= Lp; k += 32) {
-            const int pf = row[k], w0 = w[k], w1 = w[k + 1];
-            int u, f;
-            if (left) {
-                u = pf;
-                f = ((w0 == kG && w1 == kT) << 1) | (w0 == kC && w1 == kT);
-            } else {
-                u = carry - pf;
-                f = ((w0 == kA && w1 == kG) << 1) | (w0 == kA && w1 == kC);
-            }
-            row[k] = u * 4 + f;
-        }
-        __syncwarp();
+    // Each slot's lanes at its anchor's best mismatch level: min(count, K),
+    // else none.
+    int* lanes = cnt;  // in place: [2][2V]
+    for (int e = tid; e < 2 * V2; e += kThreads) {
+        const int x = e >= V2;
+        const int c = cnt[e];
+        lanes[e] = c > 0 && mmv[e - x * V2] == hit[x * kHitFields + hMm]
+                       ? (c < K ? c : K)
+                       : 0;
     }
     __syncthreads();
 
-    // --- the K x K pairs, one a thread ----------------------------------
-    const bool is_pair = tid < K * K;
-    const int i = is_pair ? tid / K : 0;
-    const int j = is_pair ? tid - i * K : 0;
-    const int s = cstr[i];
-    const uint32_t ua = (uint32_t)al;
-    // Strand canonicalization [FROZEN] SPEC §3: '-' pairs swap roles.
-    const uint32_t pA = s == 0 ? cpos[i] : cpos[K + j];
-    const uint32_t pB = s == 0 ? cpos[K + j] : cpos[i];
-    const uint32_t endB = pB + ua;
-    const bool linear = pA + ua <= pB, circular = endB <= pA;
-    const int kind = circular ? kCircular : kLinear;
-    bool pair_ok = is_pair && cval[i] && cval[K + j] && s == cstr[K + j] &&
-                   (linear || circular);
-    int chA = 0;
-    if (pair_ok) {
-        chA = upper(a.chrom_offsets, a.n_chroms, pA) - 1;
-        pair_ok = chA == upper(a.chrom_offsets, a.n_chroms, pB) - 1;
-    }
-    int edits = kBig, n_bp = 0, kmin = kNoSplit;
-    if (pair_ok) {
-        const int lo = al, hi = len - al < Lp ? len - al : Lp;
-        const int* ra = split + i * S;
-        const int* rb = split + (K + j) * S;
-        int best = 0x7fffffff, bk = 0, msc = 0x7fffffff, cnt = 0;
-        for (int k = lo; k <= hi; ++k) {
-            const int x = ra[k], y = rb[k];
-            const int sc = (x >> 2) + (y >> 2);
-            // (score, !canon+, !canon-) of the frozen split tie-break.
-            const int e4 = sc * 4 + 3 - (x & y & 3);
-            if (e4 < best) {
-                best = e4;
-                bk = k;
+    // --- 2. merged_candidates: warp pair `list` (anchor x, strand st)
+    // holds its list's lanes at the best level, half h each, in
+    // registers; K rounds of a warp minimum over (position, index).
+    {
+        const int list = warp >> 1, h = warp & 1;
+        const int x = list >> 1, st = list & 1;
+        const ExploreAnchor& an = a.anchor[x];
+        const size_t srow = row2 + (size_t)st * V;
+        const int64_t* fp = an.first_pos + srow;
+        const int64_t* ex = an.extras + srow * (K - 1);
+        const int VK = V * K;
+        // q / K by a float product: exact, as q < 2^10 and K <= 16 leave
+        // (q + 0.5) / K at least 1 / 32 from an integer.
+        const float inv_k = __frcp_rn((float)K);
+        // All of a lane's shared loads first, then one predicated global
+        // load an entry with no branch between them, so all of them are
+        // in flight together.
+        const int* nrow = lanes + x * V2 + st * V;
+        uint32_t val[kLaneEntries];
+        int nl[kLaneEntries];
+#pragma unroll
+        for (int u = 0; u < kLaneEntries; ++u) {
+            const int q = (2 * u + h) * 32 + lane;
+            const int sl = (int)(((float)q + 0.5f) * inv_k);
+            nl[u] = q < VK ? nrow[sl < V ? sl : V - 1] : 0;
+        }
+#pragma unroll
+        for (int u = 0; u < kLaneEntries; ++u) {
+            const int q = (2 * u + h) * 32 + lane;
+            const int sl = (int)(((float)q + 0.5f) * inv_k);
+            const int l = q - sl * K;
+            const int64_t* base = l == 0 ? fp : ex;
+            const int off = l == 0 ? sl : sl * (K - 1) + l - 1;
+            int64_t raw = kLargePos;
+            if (l < nl[u]) raw = base[off];
+            val[u] = (uint32_t)raw;
+        }
+        // Each lane sorts its entries (a register bitonic network); then
+        // K rounds take the warp's smallest head, whose lane shifts its
+        // next entry up. Only values leave the merge, so equal positions
+        // are all kept, as `sort` keeps duplicates.
+#pragma unroll
+        for (int k = 2; k <= kLaneEntries; k <<= 1)
+#pragma unroll
+            for (int j = k >> 1; j > 0; j >>= 1)
+#pragma unroll
+                for (int i = 0; i < kLaneEntries; ++i) {
+                    const int l = i ^ j;
+                    if (l > i) {
+                        const uint32_t lo = min(val[i], val[l]);
+                        const uint32_t hi = max(val[i], val[l]);
+                        val[i] = (i & k) == 0 ? lo : hi;
+                        val[l] = (i & k) == 0 ? hi : lo;
+                    }
+                }
+        int r = 0;
+        for (; r < K; ++r) {
+            const uint32_t mv = __reduce_min_sync(kFull, val[0]);
+            if (mv == kLargePos) break;
+            const unsigned owner =
+                __ffs(__ballot_sync(kFull, val[0] == mv)) - 1;
+            if (lane == 0) surv[warp * K + r] = mv;
+            if ((unsigned)lane == owner) {
+#pragma unroll
+                for (int u = 0; u + 1 < kLaneEntries; ++u) val[u] = val[u + 1];
+                val[kLaneEntries - 1] = kLargePos;
             }
+        }
+        if (lane == 0) survn[warp] = r;
+    }
+    __syncthreads();
+    STAMP(2);
+
+    // Rank each survivor against the other half of its list (equal
+    // positions: half 0 first); the K smallest per strand, '+' entries
+    // before '-', capped at K.
+    if (tid < kWarps * K) {
+        const int w = tid / K, r = tid - w * K;
+        if (r < survn[w]) {
+            const uint32_t v = surv[w * K + r];
+            const int o = w ^ 1;
+            int rank = r;
+            for (int e = 0; e < survn[o]; ++e)
+                rank += o < w ? surv[o * K + e] <= v : surv[o * K + e] < v;
+            const int x = w >> 2, st = (w >> 1) & 1;
+            const int n0 = survn[4 * x] + survn[4 * x + 1];
+            const int t = st == 0 ? rank : (n0 < K ? n0 : K) + rank;
+            if (rank < K && t < K) {
+                cpos[x * K + t] = v;
+                cstr[x * K + t] = st;
+            }
+        }
+    } else if (tid < kWarps * K + K2) {
+        const int c = tid - kWarps * K, x = c / K;
+        const int n0 = survn[4 * x] + survn[4 * x + 1];
+        const int n1 = survn[4 * x + 2] + survn[4 * x + 3];
+        const int n = (n0 < K ? n0 : K) + (n1 < K ? n1 : K);
+        if (c - x * K >= n) {
+            cpos[c] = kLargePos;
+            cstr[c] = -1;
+        }
+    }
+    __syncthreads();
+    STAMP(3);
+
+    // --- 3. windows: every valid candidate's words in one round trip;
+    // meanwhile its chromosome and the reverse complement.
+    const uint32_t max_start = (uint32_t)(a.nbases - (Lp + 2));
+    for (int e = tid; e < K2 * nw; e += kThreads) {
+        const int c = e / nw, k = e - c * nw;
+        const int st = cstr[c];
+        if (st < 0) continue;
+        const uint32_t s0 = window_start(c < K ? st == 0 : st == 1, cpos[c],
+                                         ua, len, max_start);
+        const uint32_t w0 = s0 >> 3;
+        if (w0 + k <= (s0 + Lp + 1) >> 3)
+            copy_async(wsm + c * nw + k, a.words + w0 + k, 4);
+    }
+    __pipeline_commit();
+    if (tid < K2 && cstr[tid] >= 0) {
+        const int st = cstr[tid];
+        cs0[tid] = window_start(tid < K ? st == 0 : st == 1, cpos[tid], ua,
+                                len, max_start);
+        cch[tid] = upper(offs, a.n_chroms, cpos[tid]) - 1;
+    }
+    // The read and its reverse complement (RPAD past len) as nibble
+    // words, base p at bits 4 (p % 8) of word p / 8.
+    for (int t = tid; t < 2 * nq; t += kThreads) {
+        const bool rc = t >= nq;
+        const int i = rc ? t - nq : t;
+        uint32_t word = 0;
+        for (int j = 0; j < 8; ++j) {
+            const int p = 8 * i + j;
+            const int src = len - 1 - p < Lp - 1 ? len - 1 - p : Lp - 1;
+            const int code = rc ? (p < len ? comp(R[src]) : kRpad)
+                                : (p < Lp ? R[p] : kRpad);
+            word |= (uint32_t)code << (4 * j);
+        }
+        qw[t] = word;
+    }
+    __pipeline_wait_prior(0);
+    __syncthreads();
+    STAMP(4);
+
+    // The K x K pairs that can pair (valid lanes, one strand and
+    // chromosome, linear or circular), one ballot mask a warp.
+    bool viable = false;
+    if (tid < KK) {
+        const int i = tid / K, j = tid - i * K;
+        const int si = cstr[i];
+        if (si >= 0 && si == cstr[K + j] && cch[i] == cch[K + j]) {
+            // Strand canonicalization [FROZEN] SPEC §3: '-' pairs swap
+            // roles.
+            const uint32_t pA = si == 0 ? cpos[i] : cpos[K + j];
+            const uint32_t pB = si == 0 ? cpos[K + j] : cpos[i];
+            viable = pA + ua <= pB || pB + ua <= pA;
+        }
+    }
+    {
+        const unsigned m = __ballot_sync(kFull, viable);
+        if (lane == 0) pmask[warp] = m;
+    }
+
+    // _candidate_side: kPartLanes lanes a candidate, each a run of
+    // consecutive splits, 8 a step as nibble words: one pass counts the
+    // run's mismatches, a scan over the candidate's lanes gives each run
+    // its prefix, a second pass writes the row, 16 bytes a step. A
+    // candidate's row keeps, per split k, its role's two dinucleotide
+    // flags plus 4 x its prefix mismatch count pf(k) (left piece) or
+    // minus it (right piece, whose suffix count is then ctot + row >> 2).
+    {
+        constexpr int kPartLanes = kThreads / (2 * kMaxK);
+        const int c = tid / kPartLanes, part = tid - c * kPartLanes;
+        const int st = c < K2 ? cstr[c] : -1;
+        const bool left = c < K ? st == 0 : st == 1;
+        const uint32_t s0 = st >= 0 ? cs0[c] : 0;
+        const uint32_t* w = wsm + c * nw;
+        const uint32_t* q = qw + (st == 0 ? 0 : nq);
+        const int off = left ? 0 : 2;
+        const int run = 8 * ((Lp + 64) / 64);  // splits 0..Lp in 8 runs
+        const int k0 = part * run;
+        const int k1 = st < 0 ? k0 : (k0 + run < Lp + 1 ? k0 + run : Lp + 1);
+        const int lim = len < Lp ? len : Lp;   // mismatches in [0, lim)
+        int n = 0;
+        for (int k = k0; k < k1; k += 8)
+            n += __popc(mismatches(q[k >> 3], nibbles(w, s0, k + off),
+                                   lim - k));
+        int pf = n;  // inclusive scan over the candidate's lanes
+        for (int d = 1; d < kPartLanes; d <<= 1) {
+            const int y = __shfl_up_sync(kFull, pf, d);
+            if (part >= d) pf += y;
+        }
+        const int total = __shfl_sync(kFull, pf, kPartLanes - 1, kPartLanes);
+        pf -= n;
+        int16_t* row = rows + c * L.stride;
+        for (int k = k0; k < k1; k += 8) {
+            const uint32_t mis =
+                mismatches(q[k >> 3], nibbles(w, s0, k + off), lim - k);
+            const uint32_t w0 = nibbles(w, s0, k), w1 = nibbles(w, s0, k + 1);
+            const uint32_t f =
+                left ? (same(w0, kG) & same(w1, kT)) << 1 |
+                           (same(w0, kC) & same(w1, kT))
+                     : (same(w0, kA) & same(w1, kG)) << 1 |
+                           (same(w0, kA) & same(w1, kC));
+            uint32_t out[4];
+#pragma unroll
+            for (int j = 0; j < 8; j += 2) {
+                const int p0 = pf + __popc(mis & ((1u << (4 * j)) - 1u));
+                const int p1 = pf + __popc(mis & ((1u << (4 * j + 4)) - 1u));
+                const int f0 = (f >> (4 * j)) & 3, f1 = (f >> (4 * j + 4)) & 3;
+                const int v0 = left ? p0 * 4 + f0 : f0 - p0 * 4;
+                const int v1 = left ? p1 * 4 + f1 : f1 - p1 * 4;
+                out[j >> 1] = (uint32_t)(uint16_t)v0 | (uint32_t)v1 << 16;
+            }
+            *reinterpret_cast<uint4*>(row + k) =
+                make_uint4(out[0], out[1], out[2], out[3]);
+            pf += __popc(mis);
+        }
+        if (st >= 0 && part == 0) {
+            ctot[c] = total;
+            if (total <= a.prefilter_mm) misc[0] = 1;  // §6 prefilter
+        }
+    }
+    __syncthreads();
+    STAMP(5);
+    // The viable pairs, compacted in row-major order.
+    int npairs = 0, before = 0;
+    for (int w = 0; w < kWarps; ++w) {
+        const int n = __popc(pmask[w]);
+        npairs += n;
+        before += w < warp ? n : 0;
+    }
+    if (viable)
+        plist[before + __popc(pmask[warp] & ((1u << lane) - 1u))] =
+            (uint8_t)tid;
+    __syncthreads();
+    STAMP(6);
+
+    // --- 4. the viable pairs, g lanes each (g = 32 for up to 8 pairs,
+    // down to 1 for more than 128): its lanes take splits k = lo + sub,
+    // lo + sub + g, ... and reduce by shuffles.
+    int g = 32;
+    while (g > 1 && npairs * g > kThreads) g >>= 1;
+    const int groups = kThreads / g, gi = tid / g, sub = tid - gi * g;
+    const int lo = al, hi = len - al < Lp ? len - al : Lp;
+    for (int p0 = 0; p0 + warp * (32 / g) < npairs; p0 += groups) {
+        const int p = p0 + gi;
+        const bool active = p < npairs;
+        const int idx = active ? plist[p] : 0;  // row-major i * K + j
+        const int i = idx / K, j = idx - i * K;
+        const int s = cstr[i];
+        const uint32_t pA = s == 0 ? cpos[i] : cpos[K + j];
+        const uint32_t pB = s == 0 ? cpos[K + j] : cpos[i];
+        const uint32_t endB = pB + ua;
+        const bool circular = endB <= pA;
+        const int16_t* ra = rows + i * L.stride;
+        const int16_t* rb = rows + (K + j) * L.stride;
+        const int tot = active ? ctot[s == 0 ? K + j : i] : 0;
+        // The packed split key (score, !canon+, !canon-, k) and the
+        // minimum score with the splits at it.
+        int kmin = kNoSplit, msc = 0x7fffffff, nat = 0;
+        for (int k = lo + sub; active && k <= hi; k += g) {
+            const int x = ra[k], y = rb[k];
+            const int sc = (x >> 2) + (y >> 2) + tot;
+            const int key = (sc * 4 + 3 - (x & y & 3)) * (Lp + 2) + k;
+            kmin = key < kmin ? key : kmin;
             if (sc < msc) {
                 msc = sc;
-                cnt = 1;
+                nat = 1;
             } else if (sc == msc) {
-                ++cnt;
+                ++nat;
             }
         }
-        if (lo <= hi) {
-            edits = msc;
-            n_bp = cnt;
-            kmin = best * (Lp + 2) + bk;
+        int gmsc = msc;
+        for (int o = g >> 1; o > 0; o >>= 1) {
+            const int k2 = __shfl_xor_sync(kFull, kmin, o);
+            const int m2 = __shfl_xor_sync(kFull, gmsc, o);
+            kmin = k2 < kmin ? k2 : kmin;
+            gmsc = m2 < gmsc ? m2 : gmsc;
+        }
+        int n_at = msc == gmsc ? nat : 0;
+        for (int o = g >> 1; o > 0; o >>= 1)
+            n_at += __shfl_xor_sync(kFull, n_at, o);
+        if (active && sub == 0) {
+            const int edits = lo <= hi ? gmsc : kBig;
+            const int n_bp = lo <= hi ? n_at : 0;
+            const int best_k = kmin % (Lp + 2), rest = kmin / (Lp + 2);
+            const bool cm_b = (rest & 1) == 0, cp_b = ((rest >> 1) & 1) == 0;
+            const uint32_t donor = pA + (uint32_t)best_k;
+            const uint32_t acceptor = endB + (uint32_t)best_k - (uint32_t)len;
+            const uint32_t startj = circular ? acceptor : donor;
+            const uint32_t endj = circular ? donor : acceptor;
+            const unsigned e1 =
+                (unsigned)edits * 4u + (cp_b ? 0u : 2u) + (cm_b ? 0u : 1u);
+            // A linear pair whose junction ends before it starts is not
+            // viable: it neither wins nor competes.
+            pkey_hi[p] = circular || endj > startj
+                             ? (unsigned long long)e1 << 32 | pA
+                             : ~0ull;
+            pkey_lo[p] = (unsigned long long)pB << 32 | (unsigned)s << 16 |
+                         (unsigned)idx;
+            pstart[p] = startj;
+            pend[p] = endj;
+            pkn[p] = (unsigned)best_k | (unsigned)n_bp << 16;
         }
     }
-    const int best_k = kmin % (Lp + 2), rest = kmin / (Lp + 2);
-    const bool cm_b = (rest & 1) == 0, cp_b = ((rest >> 1) & 1) == 0;
-    const uint32_t donor = pA + (uint32_t)best_k;
-    const uint32_t acceptor = endB + (uint32_t)best_k - (uint32_t)len;
-    const uint32_t startj = circular ? acceptor : donor;
-    const uint32_t endj = circular ? donor : acceptor;
-    pair_ok = pair_ok && !(kind == kLinear && endj <= startj);
-
-    // Frozen pair tie-break (edits, !c+, !c-, pA, pB, s), then the first
-    // pair in row-major order, with the plain code's fills.
-    const unsigned e1 =
-        (unsigned)edits * 4u + (cp_b ? 0u : 2u) + (cm_b ? 0u : 1u);
-    bool ok = pair_ok;
-    unsigned m = block_min(is_pair ? (ok ? e1 : (unsigned)kBig) : kNone, red);
-    ok = ok && e1 == m;
-    m = block_min(is_pair ? (ok ? pA : kLargePos) : kNone, red);
-    ok = ok && pA == m;
-    m = block_min(is_pair ? (ok ? pB : kLargePos) : kNone, red);
-    ok = ok && pB == m;
-    m = block_min(is_pair ? (ok ? (unsigned)s : 2u) : kNone, red);
-    ok = ok && (unsigned)s == m;
-    const unsigned first = block_min(ok ? (unsigned)tid : kNone, red);
-    const bool any_pair = first != kNone;
-    if (any_pair && (unsigned)tid == first) {
-        win[wKind] = kind;
-        win[wStart] = startj;
-        win[wEnd] = endj;
-        win[wEdits] = edits;
-        win[wNbp] = n_bp;
-        win[wK] = best_k;
-        win[wS] = s;
-        win[wPA] = pA;
-        win[wPB] = pB;
-        win[wChrom] = chA;
-        win[wCp] = cp_b;
-        win[wCm] = cm_b;
-        win[wI] = i;
-        win[wJ] = j;
-    }
     __syncthreads();
-    const unsigned kind_s = any_pair ? win[wKind] : 0;
-    const unsigned start_s = any_pair ? win[wStart] : 0;
-    const unsigned end_s = any_pair ? win[wEnd] : 0;
+    STAMP(7);
+    if (warp != 0) return;
+
+    // --- 5. the frozen pair tie-break (edits, !c+, !c-, pA, pB, s), then
+    // row-major order, as one lexicographic minimum of the 96-bit key
+    // (pkey_hi, pkey_lo) over the viable pairs. The plain code fills the
+    // other pairs with BIG, so a pair without a split (edits BIG) wins
+    // only when every one of the K x K pairs is viable.
+    unsigned long long bh = ~0ull, bl = ~0ull;
+    int bp = -1, nok = 0;
+    for (int p = lane; p < npairs; p += 32) {
+        const unsigned long long h = pkey_hi[p], l = pkey_lo[p];
+        if (h == ~0ull) continue;
+        ++nok;
+        if (h < bh || (h == bh && l < bl)) {
+            bh = h;
+            bl = l;
+            bp = p;
+        }
+    }
+    nok = __reduce_add_sync(kFull, nok);
+    const unsigned m1 = __reduce_min_sync(kFull, (unsigned)(bh >> 32));
+    bool keep = (unsigned)(bh >> 32) == m1;
+    const unsigned m2 = __reduce_min_sync(kFull, keep ? (unsigned)bh : kFull);
+    keep = keep && (unsigned)bh == m2;
+    const unsigned m3 =
+        __reduce_min_sync(kFull, keep ? (unsigned)(bl >> 32) : kFull);
+    keep = keep && (unsigned)(bl >> 32) == m3;
+    const unsigned m4 = __reduce_min_sync(kFull, keep ? (unsigned)bl : kFull);
+    keep = keep && (unsigned)bl == m4 && bp >= 0;
+    const bool any_pair = nok > 0 && (m1 < (unsigned)kBig || nok == KK);
+    const int owner = __ffs(__ballot_sync(kFull, keep)) - 1;
+    const int wp = __shfl_sync(kFull, bp, owner < 0 ? 0 : owner);
+    unsigned edits_s = 0, k_s = 0, s_s = 0, kind_s = 0, start_s = 0,
+             end_s = 0, nbp_s = 0;
+    uint32_t pA_s = 0, pB_s = 0;
+    bool cp_s = false, cm_s = false;
+    int wi = 0, wj = 0;
+    if (any_pair) {
+        edits_s = m1 >> 2;
+        cp_s = ((m1 >> 1) & 1) == 0;
+        cm_s = (m1 & 1) == 0;
+        pA_s = m2;
+        pB_s = m3;
+        s_s = (m4 >> 16) & 1;
+        wi = (int)(m4 & 0xffff) / K;
+        wj = (int)(m4 & 0xffff) - wi * K;
+        kind_s = pB_s + ua <= pA_s ? kCircular : kLinear;
+        start_s = pstart[wp];
+        end_s = pend[wp];
+        k_s = pkn[wp] & 0xffff;
+        nbp_s = pkn[wp] >> 16;
+    }
     // Pair-margin rescue [FROZEN v4]: min edits over viable pairs at other
     // (kind, start, end) than the winner.
     unsigned alt = kBig;
     if (a.pair_rescue) {
-        const bool diff =
-            (unsigned)kind != kind_s || startj != start_s || endj != end_s;
-        alt = block_min(
-            is_pair ? (pair_ok && diff ? (unsigned)edits : (unsigned)kBig)
-                    : kNone,
-            red);
+        for (int p = lane; p < npairs; p += 32) {
+            const unsigned long long h = pkey_hi[p];
+            if (h == ~0ull) continue;
+            const uint32_t pA = (uint32_t)h;
+            const uint32_t pB = (uint32_t)(pkey_lo[p] >> 32);
+            const unsigned kind = pB + ua <= pA ? kCircular : kLinear;
+            const unsigned e = (unsigned)(h >> 32) >> 2;
+            if ((kind != kind_s || pstart[p] != start_s || pend[p] != end_s)
+                && e < alt)
+                alt = e;
+        }
+        alt = __reduce_min_sync(kFull, alt);
     }
-    if (tid != 0) return;
+    if (lane != 0) return;
+    STAMP(kStamps - 1);
 
     // --- the epilogue: signal, overlap, status chain, qual, the row ------
-    const ExploreAnchor& ha = a.anchor[0];
-    const ExploreAnchor& hb = a.anchor[1];
-    const unsigned edits_s = any_pair ? win[wEdits] : 0;
-    const unsigned k_s = any_pair ? win[wK] : 0;
-    const unsigned s_s = any_pair ? win[wS] : 0;
-    const uint32_t pA_s = any_pair ? win[wPA] : 0;
-    const uint32_t pB_s = any_pair ? win[wPB] : 0;
-    const bool cp_s = any_pair && win[wCp];
-    const bool cm_s = any_pair && win[wCm];
+    const int* ha = hit;
+    const int* hb = hit + kHitFields;
     int d0 = 0, d1 = 0, a0 = 0, a1 = 0;
     if (any_pair) {
-        const uint8_t* wa = windows + (size_t)win[wI] * (Lp + 2);
-        const uint8_t* wb = windows + (size_t)(K + win[wJ]) * (Lp + 2);
-        const uint8_t* wl = s_s == 0 ? wa : wb;
-        const uint8_t* wr = s_s == 0 ? wb : wa;
+        const int cl = s_s == 0 ? wi : K + wj;
+        const int cr = s_s == 0 ? K + wj : wi;
         const int k0 = (int)k_s < Lp + 1 ? (int)k_s : Lp + 1;
         const int k1 = (int)k_s + 1 < Lp + 1 ? (int)k_s + 1 : Lp + 1;
-        d0 = wl[k0];
-        d1 = wl[k1];
-        a0 = wr[k0];
-        a1 = wr[k1];
+        d0 = window_base(wsm + cl * nw, cs0[cl], k0);
+        d1 = window_base(wsm + cl * nw, cs0[cl], k1);
+        a0 = window_base(wsm + cr * nw, cs0[cr], k0);
+        a1 = window_base(wsm + cr * nw, cs0[cr], k1);
     }
     const int sense = cp_s ? 0 : (cm_s ? kSenseMinus : (int)s_s);
     int sig[4] = {d0, d1, a0, a1};
@@ -526,28 +760,27 @@ explore_kernel(const ExploreArgs a) {
 
     // Status [FROZEN §2b priority]: prefiltered > unaligned_A >
     // unaligned_B > junction > the v2 single-best fallback chain.
-    const uint32_t posa = (uint32_t)ha.pos[b], posb = (uint32_t)hb.pos[b];
-    const int sa = ha.strand[b], sb = hb.strand[b];
+    const uint32_t posa = (uint32_t)hpos[0], posb = (uint32_t)hpos[1];
+    const int sa = ha[hStrand], sb = hb[hStrand];
     const bool minus1 = sa == 1;
     const uint32_t pA1 = minus1 ? posb : posa, pB1 = minus1 ? posa : posb;
     const bool geom1 = pA1 + ua <= pB1 || pB1 + ua <= pA1;
-    int status =
-        sa != sb ? kDiffStrand
-        : upper(a.chrom_offsets, a.n_chroms, posa) !=
-                upper(a.chrom_offsets, a.n_chroms, posb)
-            ? kDiffChrom
-            : (geom1 ? kNoJunction : kAnchorOverlap);
+    int status = sa != sb ? kDiffStrand
+                 : upper(offs, a.n_chroms, posa) !=
+                         upper(offs, a.n_chroms, posb)
+                     ? kDiffChrom
+                     : (geom1 ? kNoJunction : kAnchorOverlap);
     if (any_pair) status = kJunction;
-    if (!hb.aligned[b]) status = kUnalignedB;
-    if (!ha.aligned[b]) status = kUnalignedA;
-    if (a.prefilter && counter[2]) status = kPrefiltered;
+    if (!hb[hAligned]) status = kUnalignedB;
+    if (!ha[hAligned]) status = kUnalignedA;
+    if (a.prefilter && misc[0]) status = kPrefiltered;
 
-    int ql = s_s == 0 ? ha.qual[b] : hb.qual[b];
-    int qr = s_s == 0 ? hb.qual[b] : ha.qual[b];
+    int ql = s_s == 0 ? ha[hQual] : hb[hQual];
+    int qr = s_s == 0 ? hb[hQual] : ha[hQual];
     if (a.pair_rescue) {
         const int margin =
             alt >= (unsigned)kBig ? al + 1 : (int)alt - (int)edits_s;
-        const bool multi = ha.n_best[b] > 1 || hb.n_best[b] > 1;
+        const bool multi = ha[hNbest] > 1 || hb[hNbest] > 1;
         const int rq = any_pair && multi && margin > 0
                            ? (10 * margin < 40 ? 10 * margin : 40)
                            : 0;
@@ -557,13 +790,13 @@ explore_kernel(const ExploreArgs a) {
     int32_t* o = a.out + (size_t)b * kPackFields;
     o[0] = status;
     o[1] = (int)kind_s;
-    o[2] = any_pair ? (int)win[wChrom] : 0;
+    o[2] = any_pair ? cch[wi] : 0;
     o[3] = (int)start_s;
     o[4] = (int)end_s;
     o[5] = sense;
     o[6] = (int)s_s;
     o[7] = (int)edits_s;
-    o[8] = any_pair ? (int)win[wNbp] : 0;
+    o[8] = (int)nbp_s;
     o[9] = (int)overlap;
     o[10] = ql;
     o[11] = qr;
@@ -578,14 +811,16 @@ explore_kernel(const ExploreArgs a) {
 // out[b] = the §2b packed row of read b, for every read of the chunk.
 extern "C" int fc2t_explore(const ExploreArgs* a) {
     if (a->B <= 0) return 0;
-    if (a->K < 1 || a->K > kMaxK || a->Lp < 1 || a->V < 1 ||
-        a->V * a->K > 32 * kThreads)
+    // int16 split rows hold up to 4 * Lp + 3.
+    if (a->K < 1 || a->K > kMaxK || a->Lp < 1 || a->Lp > 4096 ||
+        a->V < 1 || a->V * a->K > kMaxListLanes || a->n_chroms < 1)
         return -(int)cudaErrorInvalidValue;
     int dev = -1;
     cudaError_t err = cudaGetDevice(&dev);
     if (err != cudaSuccess) return -(int)err;
     if (dev != a->device) return -(int)cudaErrorInvalidDevice;
-    const size_t smem_bytes = layout(a->Lp, a->K, a->V).total;
+    const int n_offs = a->n_chroms <= kChromShared ? a->n_chroms : 0;
+    const size_t smem_bytes = layout(a->Lp, a->K, a->V, n_offs).total;
     if (smem_bytes > 48 * 1024) {
         err = cudaFuncSetAttribute(explore_kernel,
                                    cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -593,7 +828,46 @@ extern "C" int fc2t_explore(const ExploreArgs* a) {
         if (err != cudaSuccess) return -(int)err;
     }
     explore_kernel<<<(unsigned)a->B, kThreads, smem_bytes,
-                     static_cast<cudaStream_t>(a->stream)>>>(*a);
+                     static_cast<cudaStream_t>(a->stream)>>>(*a, n_offs);
     err = cudaGetLastError();
     return err == cudaSuccess ? 1 : -(int)err;
 }
+
+// What the compiled kernel takes on the current device for reads of
+// Lp bases, K hits, V variants and n_chroms chromosomes: out[0] registers
+// a thread, out[1] local (spilled) bytes a thread, out[2] shared bytes a
+// block, out[3] resident blocks an SM, out[4] threads a block. Returns 0
+// or minus a CUDA error.
+extern "C" int fc2t_explore_resources(int Lp, int K, int V, int n_chroms,
+                                      int* out) {
+    cudaFuncAttributes fa;
+    cudaError_t err = cudaFuncGetAttributes(&fa, explore_kernel);
+    if (err != cudaSuccess) return -(int)err;
+    const int n_offs = n_chroms <= kChromShared ? n_chroms : 0;
+    const size_t smem_bytes = layout(Lp, K, V, n_offs).total;
+    if (smem_bytes > 48 * 1024) {
+        err = cudaFuncSetAttribute(explore_kernel,
+                                   cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                   (int)smem_bytes);
+        if (err != cudaSuccess) return -(int)err;
+    }
+    int blocks = 0;
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &blocks, explore_kernel, kThreads, smem_bytes);
+    if (err != cudaSuccess) return -(int)err;
+    out[0] = fa.numRegs;
+    out[1] = (int)fa.localSizeBytes;
+    out[2] = (int)(smem_bytes + fa.sharedSizeBytes);
+    out[3] = blocks;
+    out[4] = kThreads;
+    return 0;
+}
+
+#ifdef FC2T_EXPLORE_STAMPS
+// Where the next launches record their stage clocks (null: nowhere).
+extern "C" int fc2t_explore_stamps(void* stamps) {
+    unsigned long long* p = static_cast<unsigned long long*>(stamps);
+    const cudaError_t err = cudaMemcpyToSymbol(fc2t_stamps, &p, sizeof p);
+    return err == cudaSuccess ? 0 : -(int)err;
+}
+#endif

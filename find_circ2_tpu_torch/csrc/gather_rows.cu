@@ -301,6 +301,12 @@ extern "C" int fc2t_gather_rows(const GatherArgs* a) {
         return 0;
     if (a->device < 0 || a->device >= kMaxDevices)
         return -(int)cudaErrorInvalidDevice;
+    // The stream may be the null handle of the default stream, which
+    // launches on the current device: refuse any other device's pointers.
+    int current = -1;
+    const cudaError_t got = cudaGetDevice(&current);
+    if (got != cudaSuccess) return -(int)got;
+    if (current != a->device) return -(int)cudaErrorInvalidDevice;
     if (g_sms[a->device] == 0) {
         int sms = 0;
         const cudaError_t err = cudaDeviceGetAttribute(

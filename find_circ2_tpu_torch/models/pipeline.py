@@ -440,7 +440,7 @@ class HostCopy:
                                     pin_memory=True)
             self.host.copy_(packed, non_blocking=True)
             self.event = torch.cuda.Event()
-            self.event.record()
+            self.event.record(torch.cuda.current_stream(packed.device))
         else:
             self.host, self.event = packed, None
 
@@ -455,8 +455,10 @@ class DeviceExplorer:
     (ops/explore.explore_batch_packed) for routed reads.
 
     Reads go in chunks of at most BUCKETS[-1] rows, each padded to the
-    smallest bucket that holds it, which bounds the [B, K, K, Lp+1]
-    split grid's memory. Each chunk's packed rows come back through a
+    smallest bucket that holds it, so a chunk takes one of three shapes.
+    On the card the pair kernel keeps no split grid (one block per read);
+    a CPU chunk's plain version holds a [B, K, K, Lp+1] grid, which the
+    buckets bound. Each chunk's packed rows come back through a
     HostCopy, so a streaming loop can enqueue later detect batches
     before it fetches the results. A failure raises: there is no host
     fallback."""

@@ -11,7 +11,8 @@ right piece), so one (Lp+2)-wide genome window per candidate serves its
 prefix sums, its full-read prefilter count and its splice dinucleotides.
 
 Everything after K1 (`explore_pairs`) is one hand-written CUDA kernel
-per chunk on the card (csrc/explore.cu, one thread block per read); a CPU
+per chunk on the card (csrc/explore.cu, one thread block per read, its
+stages at warp level: csrc/explore.cu's header says why); a CPU
 tensor takes the plain version, `explore_pairs_ref`. In the plain version
 the reference's bf16 triangular-ones matmul prefix sums are an int32
 `cumsum`, which is exact. Global positions are int64 holding the
@@ -22,6 +23,8 @@ in place.
 """
 
 from __future__ import annotations
+
+import ctypes
 
 import torch
 
@@ -51,8 +54,12 @@ from find_circ2_tpu_torch.ops.packed import gather_window
 
 _A, _C, _G, _T = 0, 1, 2, 3
 BIG = 1 << 20
-# The pair kernel's block holds one (i, j) pair a thread, 256 threads.
+# The kernel's limits: its block flags one (i, j) pair a thread, 256
+# threads; a warp pair holds one strand's V * K list lanes in registers,
+# 16 a lane; its split rows are int16.
 MAX_PAIR_HITS = 16
+MAX_LIST_LANES = 1024
+MAX_READ_LEN = 4096
 
 # Kernel launches of explore_pairs since the last reset (set to 0 to
 # reset).
@@ -369,11 +376,13 @@ def _check(words, nbases: int, chrom_offsets, reads, lens, stats_a,
         raise ValueError(f"explore_pairs: tensors on {dev}; the kernel "
                          "takes one CUDA device (CPU tensors take the "
                          "plain version)")
-    if (not 1 <= K <= MAX_PAIR_HITS or V2 % 2 or V2 // 2 * K > 8192
+    if (not 1 <= K <= MAX_PAIR_HITS or V2 % 2
+            or V2 // 2 * K > MAX_LIST_LANES or Lp > MAX_READ_LEN
             or chrom_offsets.shape[0] < 1):
         raise ValueError(f"explore_pairs: max_pair_hits {K} (kernel: 1..."
-                         f"{MAX_PAIR_HITS}), 2V = {V2} (V * K <= 8192), "
-                         f"{chrom_offsets.shape[0]} chromosomes")
+                         f"{MAX_PAIR_HITS}), 2V = {V2} (V * K <= "
+                         f"{MAX_LIST_LANES}), Lp = {Lp} (<= {MAX_READ_LEN}),"
+                         f" {chrom_offsets.shape[0]} chromosomes")
     if not Lp + 2 <= nbases < 2 ** 32:
         raise ValueError(f"explore_pairs: genome of {nbases} bases; the "
                          f"kernel needs {Lp + 2} <= n < 2^32")
@@ -390,28 +399,83 @@ def explore_pairs(words, nbases: int, chrom_offsets, reads, lens, stats_a,
     finalize_hits, `mm_v` int32 [2V]. CPU tensors take the plain version;
     CUDA tensors launch csrc/explore.cu on the current stream (one launch,
     no wait) or raise."""
-    global launches
     args = (words, nbases, chrom_offsets, reads, lens, stats_a, stats_b,
             hits_a, hits_b, mm_v)
     if all(t.is_cpu for t in (words, chrom_offsets, reads, lens, mm_v,
                               *stats_a, *stats_b, *hits_a, *hits_b)):
         return explore_pairs_ref(*args, cfg, prefilter)
+    return _launch(args, cfg, prefilter)
+
+
+def _launch(args: tuple, cfg: Config, prefilter: bool,
+            lib=None) -> torch.Tensor:
+    """explore_pairs on CUDA tensors: one C call into `lib` (default: the
+    kernel library), made with the tensors' device current (the C entry
+    refuses any other, and the default stream's null handle launches on
+    the current device)."""
+    global launches
     ptrs = [t.data_ptr() for t in _check(*args, cfg)]
+    words, nbases, chrom_offsets, reads, lens, *_, mm_v = args
     B, Lp = reads.shape
     out = torch.empty((B, 14), dtype=torch.int32, device=reads.device)
     if B == 0:
         return out
     dev = reads.get_device()
-    got = _build.load().fc2t_explore(_build.EXPLORE_ARGS.pack(
-        *ptrs[:5], out.data_ptr(), *ptrs[5:],
-        torch._C._cuda_getCurrentRawStream(dev), nbases, B, Lp,
-        mm_v.shape[0] // 2, cfg.max_pair_hits, chrom_offsets.shape[0],
-        cfg.anchor_len, cfg.prefilter_mm, int(cfg.pair_rescue),
-        int(prefilter), dev))
+    lib = lib or _build.load()
+    with torch.cuda.device(dev):
+        got = lib.fc2t_explore(_build.EXPLORE_ARGS.pack(
+            *ptrs[:5], out.data_ptr(), *ptrs[5:],
+            torch._C._cuda_getCurrentRawStream(dev), nbases, B, Lp,
+            mm_v.shape[0] // 2, cfg.max_pair_hits, chrom_offsets.shape[0],
+            cfg.anchor_len, cfg.prefilter_mm, int(cfg.pair_rescue),
+            int(prefilter), dev))
     if got < 0:
         _build.check(-got, "explore_pairs launch")
     launches += got
     return out
+
+
+# The stages of csrc/explore.cu between its stage clocks (STAMP).
+STAGES = ("prologue", "merge", "rank", "windows", "candidate sides",
+          "compaction", "pairs", "tie-break and row")
+
+
+def stage_cycles(args: tuple, cfg: Config, prefilter: bool = True
+                 ) -> tuple[torch.Tensor, torch.Tensor]:
+    """explore_pairs(*args, cfg, prefilter) on CUDA tensors through the
+    measurement build of the kernel (_build.load_stamped): its rows, and
+    int64 [B, len(STAGES)] SM clock cycles of each block's stages (thread
+    0's clock64 at the start, at the barrier that ends each stage and
+    before the row). One launch, counted on `launches`."""
+    reads = args[3]
+    B = reads.shape[0]
+    lib = _build.load_stamped()
+    stamps = torch.zeros((B, len(STAGES) + 1), dtype=torch.int64,
+                         device=reads.device)
+    with torch.cuda.device(reads.device):
+        _build.check(-lib.fc2t_explore_stamps(stamps.data_ptr()),
+                     "explore_pairs stamps")
+        try:
+            rows = _launch(args, cfg, prefilter, lib)
+            torch.cuda.synchronize()
+        finally:
+            _build.check(-lib.fc2t_explore_stamps(None),
+                         "explore_pairs stamps")
+    return rows, stamps.diff(dim=1)
+
+
+def resources(cfg: Config, n_chroms: int, device) -> dict:
+    """What csrc/explore.cu's kernel takes on CUDA `device` at `cfg`'s
+    widths: registers and spilled bytes a thread, shared bytes a block,
+    resident blocks an SM, threads a block."""
+    out = (ctypes.c_int * 5)()
+    with torch.cuda.device(device):
+        got = _build.load().fc2t_explore_resources(
+            cfg.max_read_len, cfg.max_pair_hits, 1 + 3 * cfg.anchor_len,
+            n_chroms, out)
+    _build.check(-got, "explore_pairs resources")
+    return dict(zip(("registers", "local_bytes", "shared_bytes",
+                     "blocks_per_sm", "threads"), out))
 
 
 def explore_k1(words, nbases: int, table, meta, ext, ext_id, chrom_offsets,

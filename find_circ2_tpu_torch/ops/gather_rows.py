@@ -59,7 +59,9 @@ def _check(tables, idx: torch.Tensor) -> int:
 
 def _launch(dev: int, idx, n: int, a, oa, b=None, ob=None) -> int:
     """One C call for table `a` and, unless None, table `b`: the kernels
-    it launched (one for the main path's pairs, else one per table)."""
+    it launched (one for the main path's pairs, else one per table). The
+    call runs with `dev` current: the default stream's handle is null,
+    and a launch on it runs on the current device."""
     rows, wa = a.shape
     if b is None:
         b_ptr = ob_ptr = wb = 0
@@ -67,10 +69,12 @@ def _launch(dev: int, idx, n: int, a, oa, b=None, ob=None) -> int:
         b_rows, wb = b.shape
         rows = min(rows, b_rows)
         b_ptr, ob_ptr = b.data_ptr(), ob.data_ptr()
-    got = _build.load().fc2t_gather_rows(_build.GATHER_ARGS.pack(
-        a.data_ptr(), oa.data_ptr(), b_ptr, ob_ptr, idx.data_ptr(), n, rows,
-        torch._C._cuda_getCurrentRawStream(dev), wa, wb,
-        idx.dtype == torch.int64, dev))
+    lib = _build.load()
+    with torch.cuda.device(dev):
+        got = lib.fc2t_gather_rows(_build.GATHER_ARGS.pack(
+            a.data_ptr(), oa.data_ptr(), b_ptr, ob_ptr, idx.data_ptr(), n,
+            rows, torch._C._cuda_getCurrentRawStream(dev), wa, wb,
+            idx.dtype == torch.int64, dev))
     if got < 0:
         _build.check(-got, "gather_rows launch")
     return got

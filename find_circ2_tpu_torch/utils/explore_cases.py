@@ -50,7 +50,20 @@ PINNED = (
     "one slot with count above K",
     "a padding row: length 0, no candidate",
     "K candidates in each of the 60 1-mismatch slots of both strands",
+    "a strand list of exactly K lanes (one exact slot), 16 viable pairs",
+    "strand lists of 128 lanes, equal positions in both warps of a list",
+    "strand lists of 129 lanes, the 129th the smallest position",
+    "0 viable pairs: one strand and chromosome, the anchors overlap",
+    "1 viable pair",
+    "32 viable pairs",
+    "33 viable pairs",
+    "256 viable pairs",
+    "a tie on the whole pair key, decided only by row-major order",
 )
+# The viable pairs (i, j) of each pinned row that pins their number.
+PINNED_PAIRS = {11: 16, 14: 0, 15: 1, 16: 32, 17: 33, 18: 256}
+# The lanes at the best level of anchor A's '+' list, where pinned.
+PINNED_LANES = {11: 16, 12: 128, 13: 129}
 
 
 @dataclass
@@ -239,6 +252,45 @@ def explore_case(seed: int, B: int, cfg: Config = Config()) -> ExploreCase:
             if slot == 7:
                 pos[0] = true
             rows.slot(anchor, 10, slot, pos, count=int(rng.integers(K, 40)))
+    # 11-19: positions on the first chromosome, the two anchors' at least
+    # 50 apart unless pinned otherwise (so every pair on one strand is
+    # viable), under junction reads of length 100.
+    for b in range(11, 20):
+        set_read(b, _junction(rng, codes, 100, a, circular=False)[0])
+
+    def run(start, n):
+        return [start + 100 * i for i in range(n)]
+    # 11: an exact slot of K lanes.
+    rows.slot(0, 11, 0, run(1000, K))
+    rows.slot(1, 11, 0, [1050])
+    # 12: 8 one-mismatch slots of K lanes per list. A list's entries go
+    # to its two warps 32 at a time (two slots), so slots 1 and 3 lie in
+    # different warps; they hold the same, smallest positions.
+    small = run(1000, K)
+    for s in range(1, 9):
+        pos = small if s in (1, 3) else run(5000 + 2000 * s, K)
+        rows.slot(0, 12, s, pos)
+        rows.slot(1, 12, V + s, small if s in (1, 3) else run(
+            25000 - 1000 * s, K))
+    rows.slot(1, 12, 2, run(1050, K))
+    # 13: 8 slots of K lanes and one more lane, the smallest position.
+    for s in range(1, 9):
+        rows.slot(0, 13, s, run(2000 + 2000 * s, K))
+    rows.slot(0, 13, 9, [500])
+    rows.slot(1, 13, 1, [550, 3050, 9050])
+    # 14-18: A's and B's '+' lists of n and m positions at the exact
+    # level: n * m viable pairs, or none where the anchors overlap.
+    rows.slot(0, 14, 0, [3000])
+    rows.slot(1, 14, 0, [3005])
+    for b, (n, m) in zip((15, 16, 17, 18), ((1, 1), (16, 2), (11, 3),
+                                            (16, 16))):
+        rows.slot(0, b, 0, run(4000, n))
+        rows.slot(1, b, 0, run(6050, m))
+    # 19: A's one position in two 1-mismatch slots, B's one: pairs (0, 0)
+    # and (1, 0) tie on (edits, !c+, !c-, pA, pB, s).
+    rows.slot(0, 19, 1, [6000])
+    rows.slot(0, 19, 2, [6000])
+    rows.slot(1, 19, 1, [9000])
 
     for b in range(len(PINNED), B):
         L = int(LENGTHS[b % len(LENGTHS)] if rng.random() < 0.5

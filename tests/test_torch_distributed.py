@@ -350,3 +350,20 @@ def test_journal_sharding_mismatch_rejected(tmp_path):
 if __name__ == "__main__":
     worker(int(sys.argv[1]), int(sys.argv[2]), sys.argv[3], sys.argv[4],
            len(sys.argv) > 5 and sys.argv[5] == "hier")
+
+
+@pytest.mark.parametrize("cards,want", [(1, [0, 0, 0]), (2, [0, 1, 0]),
+                                        (4, [0, 1, 2])])
+def test_nproc_rank_takes_its_own_card(monkeypatch, cards, want):
+    """--nproc rank r detects on cuda:(r mod visible cards): the ranks of
+    a host with several cards each take their own, and with one card they
+    share it. Without --nproc the device stays as --device names it."""
+    import torch
+
+    from find_circ2_tpu_torch.cli.find_circ import resolve_device
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: cards)
+    assert [resolve_device("cuda", r) for r in range(3)] == [
+        torch.device("cuda", i) for i in want]
+    assert resolve_device("cuda") == torch.device("cuda")
+    assert resolve_device("cpu", 1) == torch.device("cpu")

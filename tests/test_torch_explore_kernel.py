@@ -63,6 +63,22 @@ def _jax_pairs(gpacked, nbases, chrom_offsets, reads, lens, stats_a,
     return jnp.stack(cols, axis=1)
 
 
+def _jax_case(case, prefilter):
+    """The reference's rows for an explore_cases batch."""
+    V = case.mm_v.shape[0] // 2
+    stats = [tuple(jnp.asarray(x[i].astype(np.uint32) if x is not case.count
+                               else x[i])
+                   for x in (case.count, case.first_pos, case.extras))
+             for i in (0, 1)]
+    return np.asarray(_jax_pairs(
+        jnp.asarray(pack_nibbles(case.codes)), len(case.codes),
+        jnp.asarray(case.chrom_offsets.astype(np.uint32)),
+        jnp.asarray(case.reads), jnp.asarray(case.lens), *stats,
+        jnp.asarray(case.mm_v),
+        jnp.repeat(jnp.arange(2, dtype=jnp.int32), V), cfg=CFG,
+        prefilter=prefilter))
+
+
 @pytest.fixture(scope="module")
 def case():
     return explore_cases.explore_case(2, CASE_ROWS, CFG)
@@ -77,18 +93,7 @@ def test_explore_pairs_plain_matches_jax_on_edge_cases(case, prefilter):
     wrapped positions next to 2^32, more than K candidates per strand."""
     got = tx.explore_pairs(*explore_cases.pair_args(case, CFG), CFG,
                            prefilter).numpy()
-    V = case.mm_v.shape[0] // 2
-    stats = [tuple(jnp.asarray(x[i].astype(np.uint32) if x is not case.count
-                               else x[i])
-                   for x in (case.count, case.first_pos, case.extras))
-             for i in (0, 1)]
-    want = np.asarray(_jax_pairs(
-        jnp.asarray(pack_nibbles(case.codes)), len(case.codes),
-        jnp.asarray(case.chrom_offsets.astype(np.uint32)),
-        jnp.asarray(case.reads), jnp.asarray(case.lens), *stats,
-        jnp.asarray(case.mm_v),
-        jnp.repeat(jnp.arange(2, dtype=jnp.int32), V), cfg=CFG,
-        prefilter=prefilter))
+    want = _jax_case(case, prefilter)
     assert got.dtype == np.int32 and got.shape == (CASE_ROWS, 14)
     assert np.array_equal(got, want)
     status, kind, strand, n_bp = got[:, 0], got[:, 1], got[:, 6], got[:, 8]
@@ -156,8 +161,77 @@ def test_kernel_constants_match_config():
                 kNoJunction=jconfig.ST_NO_JUNCTION,
                 kLinear=jconfig.KIND_LINEAR, kCircular=jconfig.KIND_CIRCULAR,
                 kSenseMinus=jconfig.SENSE_MINUS, kMaxK=tx.MAX_PAIR_HITS,
-                kPackFields=len(tp.PACK_FIELDS))
+                kPackFields=len(tp.PACK_FIELDS),
+                kThreads=tx.MAX_PAIR_HITS ** 2,
+                kMaxListLanes=tx.MAX_LIST_LANES,
+                kLaneEntries=tx.MAX_LIST_LANES // 64,
+                kRankMax=2 * tx.MAX_PAIR_HITS, kStamps=len(tx.STAGES) + 1)
     assert {k: int(got[k]) for k in want} == want
+    assert re.search(r"a->Lp > (\d+)", src).group(1) == str(tx.MAX_READ_LEN)
+    assert len(re.findall(r"\bSTAMP\(", src)) == len(tx.STAGES) + 3
+    # The kernel's 16-bit split rows hold 4 * Lp + 3; its packed split
+    # keys (score * 4 + 3) * (Lp + 2) + k, score <= 2 * Lp, stay under
+    # the fill 2^30.
+    Lp = tx.MAX_READ_LEN
+    assert 4 * Lp + 3 < 2 ** 15
+    assert (8 * Lp + 3) * (Lp + 2) + Lp + 1 < 2 ** 30
+
+
+def _viable_pairs_and_lanes(args, cfg):
+    """Per row: the pairs the kernel flags viable (valid lanes, one strand
+    and chromosome, linear or circular), anchor A's merged candidates,
+    and the lanes of A's '+' list at the best level."""
+    words, nbases, offsets, reads, lens, sa, sb, ha, hb, mm_v = args
+    K, a = cfg.max_pair_hits, cfg.anchor_len
+    V = mm_v.shape[0] // 2
+    (pa, sta, va), (pb, stb, vb) = (
+        tx.merged_candidates(*st, mm_v, h.mm, cfg)
+        for st, h in ((sa, ha), (sb, hb)))
+    s0 = (sta == 0)[:, :, None]
+    pA = torch.where(s0, pa[:, :, None], pb[:, None, :])
+    pB = torch.where(s0, pb[:, None, :], pa[:, :, None])
+    m32 = 0xFFFFFFFF
+    geom = (((pA + a) & m32) <= pB) | (((pB + a) & m32) <= pA)
+    same = (torch.searchsorted(offsets, pA, right=True)
+            == torch.searchsorted(offsets, pB, right=True))
+    viable = ((sta[:, :, None] == stb[:, None, :]) & va[:, :, None]
+              & vb[:, None, :] & geom & same).sum((1, 2))
+    count = sa[0]
+    at_best = (mm_v[None, :] == ha.mm[:, None]) & (count > 0)
+    lanes = torch.where(at_best, torch.clamp(count, max=K), 0)[:, :V].sum(1)
+    return viable, pa, va, lanes
+
+
+def test_pinned_rows_pin_what_they_say(case):
+    """The explore_cases rows added for the warp-level kernel pin what
+    PINNED says: lists of exactly K, 128 and 129 lanes; equal positions in
+    the two warps of a list kept twice, in `sort`'s order; the 129th lane
+    the smallest; 0, 1, 32, 33 and 256 viable pairs; a two-pair tie on the
+    whole pair key."""
+    args = explore_cases.pair_args(case, CFG)
+    viable, pa, va, lanes = _viable_pairs_and_lanes(args, CFG)
+    K = CFG.max_pair_hits
+    for row, n in explore_cases.PINNED_PAIRS.items():
+        assert int(viable[row]) == n, (row, explore_cases.PINNED[row])
+    for row, n in explore_cases.PINNED_LANES.items():
+        assert int(lanes[row]) == n, (row, explore_cases.PINNED[row])
+    small = [1000 + 100 * i for i in range(K)]
+    assert pa[12].tolist() == sorted(small * 2)[:K]
+    assert int(pa[13, 0]) == 500 and bool(va[13].all())
+    assert pa[19, :2].tolist() == [6000, 6000] and int(viable[19]) == 2
+    got = tx.explore_pairs(*args, CFG, False).numpy()
+    assert (got[[11, 15, 16, 17, 18, 19], 0] == jconfig.ST_JUNCTION).all()
+    assert got[14, 0] == jconfig.ST_ANCHOR_OVERLAP
+
+
+@pytest.mark.parametrize("prefilter", [True, False])
+def test_explore_pairs_plain_matches_jax_on_second_seed(prefilter):
+    """The plain version equals the reference on another explore_cases
+    batch: the same pinned rows, other random rows."""
+    case = explore_cases.explore_case(4, CASE_ROWS, CFG)
+    got = tx.explore_pairs(*explore_cases.pair_args(case, CFG), CFG,
+                           prefilter).numpy()
+    assert np.array_equal(got, _jax_case(case, prefilter))
 
 
 def test_candidate_stats_out_of_range_extras_row():
@@ -241,3 +315,55 @@ def test_explore_kernel_matches_plain_on_card(cuda_device):
                                   CFG, True)
     assert tx.launches == before + 1
     assert torch.equal(got, tx.explore_pairs_ref(*lib_args, CFG, True))
+
+
+def test_explore_c_call_runs_on_the_tensors_device(case, monkeypatch):
+    """explore_pairs' C call runs with its tensors' device current (the
+    C entry refuses any other device)."""
+    from find_circ2_tpu_torch import _build
+    args = explore_cases.pair_args(case, CFG)
+    seen, current = [], [0]
+
+    class Device:
+        def __init__(self, dev):
+            self.dev = dev
+
+        def __enter__(self):
+            self.prev, current[0] = current[0], self.dev
+
+        def __exit__(self, *exc):
+            current[0] = self.prev
+
+    class Lib:
+        def fc2t_explore(self, buf):
+            seen.append((current[0], _build.EXPLORE_ARGS.unpack(buf)[-1]))
+            return 1
+
+    monkeypatch.setattr(_build, "load", lambda: Lib())
+    monkeypatch.setattr(torch.cuda, "device", Device)
+    monkeypatch.setattr(torch._C, "_cuda_getCurrentRawStream",
+                        lambda dev: 0, raising=False)
+    monkeypatch.setattr(tx, "_check", lambda *a: [args[3]] * 23)
+    monkeypatch.setattr(torch.Tensor, "get_device", lambda self: 2)
+    before = tx.launches
+    out = tx._launch(args, CFG, True)
+    assert out.shape == (CASE_ROWS, 14) and tx.launches == before + 1
+    assert seen == [(2, 2)] and current == [0]
+
+
+@pytest.mark.cuda
+def test_explore_kernel_on_second_card():
+    """With cuda:0 current, the kernel explores an explore_cases batch on
+    cuda:1 and equals its plain version there."""
+    if not torch.cuda.is_available() or torch.cuda.device_count() < 2:
+        pytest.skip("needs two CUDA cards")
+    torch.cuda.set_device(0)
+    args = explore_cases.pair_args(explore_cases.explore_case(6, 256, CFG),
+                                   CFG, "cuda:1")
+    before = tx.launches
+    for prefilter in (True, False):
+        got = tx.explore_pairs(*args, CFG, prefilter)
+        torch.cuda.synchronize("cuda:1")
+        assert got.device == torch.device("cuda", 1)
+        assert torch.equal(got, tx.explore_pairs_ref(*args, CFG, prefilter))
+    assert tx.launches == before + 2 and torch.cuda.current_device() == 0
