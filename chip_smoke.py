@@ -10,12 +10,16 @@ Phases, each fatal on failure:
      at every vector path and at the main path's shapes (detect's 32-byte
      rows, §2b explore's 8- and 120-byte rows, on tables larger than the
      L2), each timed as called (CUDA events) and on the device alone
-     (CUDA-graph replay) beside its bytes bound;
+     (CUDA-graph replay) beside its bytes bound; detect's core
+     (`detect_core_packed`) and exact-first probe (`exact_anchor_stats`)
+     against their plain versions on a `detect_cases` batch;
   4. the port's `find_circ` CLI on test_data/ must reproduce the golden
      BED and stats byte for byte;
   5. the main path at real size: `run --filter` on the 16 Mbp RNase-R
      filter-stack library (~95k reads), with the kernels' launch counts
-     (the explore kernel once per explore chunk), precision and recall
+     (the explore kernel once per explore chunk, detect's core once per
+     detect program and its probe once per exact-first one), precision
+     and recall
      against the planted circles, and a stage table that shows §2b
      explore on the device and no host multi-hit stage;
   6. §2b explore on the card, on the index the CLI built in phase 5: the
@@ -34,13 +38,21 @@ Phases, each fatal on failure:
      device's busy share;
      500 reads through `run_reads`, routed ones among them, equal the CPU
      oracle read for read;
+     detect's two kernels (check_detect) equal their plain versions on
+     every batch of phase 5's stream, on a `detect_cases` batch and on a
+     batch forced through the classic redo, and are timed beside them and
+     their bounds; one batch's device activities and host enqueue are
+     split by the profiler labels with the kernels and with the plain
+     versions; `run_fastq` runs with the kernels and with the plain
+     versions in turn (equal BED, `device_dispatch` and reads/s);
   7. the sharded engine on the card: a 2x2 mesh (two data rows, four
      index shards, all four slots on cuda:0) over phase 5's index streams
      phase 5's FASTQ through `run_fastq` and must give phase 6's BED and
      stats byte for byte, the filter stack's precision and recall, §2b on
      the host twin and the row-gather kernels launched on every shard;
      `detect_merged` equals the single device's detect and merge on every
-     batch; `find_circ --mesh 2x2` and `--nproc 2` (two processes over
+     batch, and the engine's packed rows equal those of the plain detect
+     core; `find_circ --mesh 2x2` and `--nproc 2` (two processes over
      gloo on the one card) reproduce the golden bytes.
 
 Prints the kernel table as one JSON line, the card line, and as its last
@@ -89,6 +101,23 @@ EXPLORE_OPS_PER_SPLIT = 12
 EXPLORE_RANK_MAX = 32
 # The smaller chunk sizes of DeviceExplorer.BUCKETS, timed beside 1024.
 EXPLORE_BUCKETS = (32, 256)
+# The int32 operations of one valid split in csrc/detect.cu, and of one
+# anchor in csrc/exact_stats.cu (its key's digits, two hashes, four slot
+# compares and the finish), counted from the sources.
+DETECT_OPS_PER_SPLIT = 12
+EXACT_OPS_PER_ANCHOR = 220
+# The detect_cases batch (seed, rows), the fallback slice of the forced
+# classic redo, and the anchor sets drawn from the genome for the probe's
+# device-alone time (their rows exceed the L2 four times).
+DETECT_CASE_SEED, DETECT_CASE_ROWS = 4, 1024
+REDO_SLOTS = 16
+EXACT_TIMING_SETS = 200
+# The profiler labels of a detect batch (models/pipeline,
+# ops/anchor_align), in program order, and of an explore chunk
+# (ops/explore).
+DETECT_LABELS = ("read_anchors", "k1_exact", "k1_fallback", "k1_classic",
+                 "detect_core")
+EXPLORE_LABELS = ("explore_k1", "explore_pairs")
 L2_BYTES = 50 << 20
 GRAPH_REPLAYS = 5
 
@@ -198,12 +227,14 @@ def check_gather_rows(device, card: str) -> dict:
     """gather_rows and gather_rows_multi against their plain versions,
     exactly, at every call shape of the main path, on tables larger than
     the 50 MB L2: [2^24, 8] (two of them: table and neighbour table),
-    [2^24, 2] (ext_id) and [2^21, 30] (ext). Per detect batch: the exact
-    statistics gather both tables' rows at 2 probes x 2B anchors
-    (multi, W = 8 and 8) and the enumeration fallback the table's (one
-    table, gather_rows) at 2 probes x min(slots, 2B) anchors x V variants.
-    Per 1024-read explore chunk and anchor side: table and ext_id rows at
-    2 x 1024 x V (multi, W = 8 and 2), ext rows at 1024 x V. The
+    [2^24, 2] (ext_id) and [2^21, 30] (ext). Per detect batch: the
+    enumeration fallback gathers the table's rows (one table,
+    gather_rows) at 2 probes x min(slots, 2B) anchors x V variants. Per
+    1024-read explore chunk and anchor side: table and ext_id rows at
+    2 x 1024 x V (multi, W = 8 and 2), ext rows at 1024 x V. Both tables'
+    rows at 2 probes x 2B anchors (multi, W = 8 and 8: the exact
+    statistics of the sharded engine, whose shards keep the plain probe;
+    on one table csrc/exact_stats.cu fetches them itself), the
     single-table W = 8 and W = 2 calls at the old design's shapes, and
     W = 8 at 2^20 rows (where the launch floor no longer counts), are
     timed too, outside the sums. Each shape is timed as called and
@@ -230,7 +261,7 @@ def check_gather_rows(device, card: str) -> dict:
     tables = {"table": table(1 << 24, 8), "ntable": table(1 << 24, 8),
               "ext_id": table(1 << 24, 2), "ext": table(1 << 21, 30)}
     # (wrapper, tables, n, calls per detect batch + one explore chunk)
-    shapes = [("gather_rows_multi", ("table", "ntable"), exact_n, 1),
+    shapes = [("gather_rows_multi", ("table", "ntable"), exact_n, 0),
               ("gather_rows", ("table",), fallback_n, 1),
               ("gather_rows_multi", ("table", "ext_id"), side_n, 2),
               ("gather_rows", ("ext",), ext_n, 2),
@@ -295,6 +326,32 @@ def check_gather_rows(device, card: str) -> dict:
             f"{s['plain_device_ms']:.5f} ms, bound {s['bound_ms']:.5f} ms; "
             f"as called {s['called_ms']:.5f} ms vs plain "
             f"{s['plain_called_ms']:.5f} ms on {card}")
+    return out
+
+
+def check_detect_cases(device, card: str) -> dict:
+    """Detect's two kernels against their plain versions on a
+    detect_cases batch, before the main path: the core with the
+    prefilter on and off and each overflow flag, the probe with
+    positions past 2^31 too. Returns the largest differences (0)."""
+    from find_circ2_tpu_torch.config import Config
+    from find_circ2_tpu_torch.utils import detect_cases
+    cfg = Config()
+    case = detect_cases.detect_case(DETECT_CASE_SEED, DETECT_CASE_ROWS, cfg)
+    out = {}
+    for prefilter in (True, False):
+        for overflow in (None, False, True):
+            hold_core(detect_cases.core_args(case, device, overflow), cfg,
+                      prefilter, f"the detect_cases batch (overflow "
+                      f"{overflow})", out)
+    for shift in (0, 3_000_000_000):
+        hold_exact(detect_cases.exact_args(case, device, shift), cfg,
+                   f"the detect_cases anchors (positions + {shift})", out)
+    log(f"detect_core_packed and exact_anchor_stats equal their plain "
+        f"versions on {DETECT_CASE_ROWS} detect_cases rows (seed "
+        f"{DETECT_CASE_SEED}; {case.anchors.shape[0]} anchors, "
+        f"{case.coincident} of keys whose two buckets coincide), prefilter "
+        f"on and off, exactly, on {card}")
     return out
 
 
@@ -430,6 +487,16 @@ def watch_explorer():
         tstream.run_fastq = run_fastq
 
 
+def _device_events(prof) -> list:
+    """A profile's device activities (kernels, copies, fills), without the
+    device-side spans the profiler draws for record_function labels."""
+    import torch
+    return [e for e in prof.events()
+            if e.device_type == torch.autograd.DeviceType.CUDA
+            and not getattr(e, "is_user_annotation", False)
+            and e.name not in DETECT_LABELS + EXPLORE_LABELS]
+
+
 def device_profile(fn) -> dict:
     """Run fn once under torch.profiler. Its device activities (kernels,
     copies, fills): how many, the milliseconds the device was busy (the
@@ -441,8 +508,7 @@ def device_profile(fn) -> dict:
         fn()
         torch.cuda.synchronize()
     spans = sorted((e.time_range.start, e.time_range.end)
-                   for e in prof.events()
-                   if e.device_type == torch.autograd.DeviceType.CUDA)
+                   for e in _device_events(prof))
     if not spans:
         fail("torch.profiler recorded no device activity")
     busy, (lo, hi) = 0, spans[0]
@@ -727,6 +793,384 @@ def check_explore(dindex, arr, lens, cfg, card) -> dict:
     return out
 
 
+@contextlib.contextmanager
+def plain_detect():
+    """While the block runs, CUDA tensors take the plain versions of the
+    two detect kernels: each wrapper's launch (ops/detect._launch,
+    ops/anchor_align._launch_exact) is swapped for its plain version, so
+    the same program runs without those kernels and their counts stay.
+    For the comparisons and the plain timings of this script only."""
+    from find_circ2_tpu_torch.ops import anchor_align as ta
+    from find_circ2_tpu_torch.ops import detect as td
+    launch, launch_exact = td._launch, ta._launch_exact
+    td._launch = (lambda args, cfg, prefilter, lib=None:
+                  td.detect_core_packed_ref(*args, cfg, prefilter))
+    ta._launch_exact = (lambda args, cfg, lib=None:
+                        ta.exact_anchor_stats_ref(*args, cfg))
+    try:
+        yield
+    finally:
+        td._launch, ta._launch_exact = launch, launch_exact
+
+
+@contextlib.contextmanager
+def watch_detect():
+    """While the block runs, keep every batch the streaming loop sends to
+    the single device's detect step (uint8 codes, int32 lengths and the
+    prefilter flag) and count the exact-first and classic detect programs
+    run. Yields the dict it fills."""
+    import numpy as np
+    from find_circ2_tpu_torch.models import pipeline as tpipe
+    from find_circ2_tpu_torch.models import stream as tstream
+    seen = dict(batches=[], fast=0, classic=0)
+    saved = (tstream.dispatch_packed, tpipe.detect_batch_packed_fast,
+             tpipe.detect_batch_packed)
+    dispatch, fast, classic = saved
+
+    def kept(dindex, arr, lens, cfg, prefilter=True):
+        seen["batches"].append((np.array(arr), np.array(lens), prefilter))
+        return dispatch(dindex, arr, lens, cfg, prefilter)
+
+    def counted(name, fn):
+        def call(*args, **kw):
+            seen[name] += 1
+            return fn(*args, **kw)
+        return call
+
+    tstream.dispatch_packed = kept
+    tpipe.detect_batch_packed_fast = counted("fast", fast)
+    tpipe.detect_batch_packed = counted("classic", classic)
+    try:
+        yield seen
+    finally:
+        (tstream.dispatch_packed, tpipe.detect_batch_packed_fast,
+         tpipe.detect_batch_packed) = saved
+
+
+def detect_inputs(d, arr, lens, cfg) -> tuple:
+    """One batch's inputs of both detect kernels on the device, as
+    detect_batch_packed_fast makes them: exact_anchor_stats' (table,
+    ntable, meta, stacked anchors) and detect_core_packed's arguments
+    before `cfg`, with K1 v4's hits and overflow flag."""
+    import torch
+    from find_circ2_tpu_torch.models.pipeline import revcomp_batch
+    from find_circ2_tpu_torch.ops.anchor_align import (
+        align_anchor_pair_fast, read_anchors)
+    dev = d.device
+    reads = torch.from_numpy(arr).to(dev)
+    lens_t = torch.from_numpy(lens).to(dev)
+    rc = torch.from_numpy(revcomp_batch(arr, lens)).to(dev)
+    anchors_a, anchors_b = read_anchors(reads, lens_t, cfg)
+    hits_a, hits_b, overflow = align_anchor_pair_fast(
+        d.table, d.ntable, d.meta, anchors_a, anchors_b, cfg)
+    return ((d.table, d.ntable, d.meta, torch.cat([anchors_a, anchors_b])),
+            (d.words, d.nbases, d.chrom_offsets, reads, lens_t, rc, hits_a,
+             hits_b, overflow))
+
+
+def _max_err(pairs) -> int:
+    import torch
+    return max((int((a.to(torch.int64) - b.to(torch.int64)).abs().max())
+                for a, b in pairs if a.numel()), default=0)
+
+
+def hold_core(args, cfg, prefilter: bool, what: str, out: dict) -> None:
+    """detect_core_packed (the kernel) against its plain version on the
+    same CUDA tensors, every column of every row."""
+    import torch
+    from find_circ2_tpu_torch.ops import detect as td
+    got = td.detect_core_packed(*args, cfg, prefilter)
+    want = td.detect_core_packed_ref(*args, cfg, prefilter)
+    torch.cuda.synchronize()
+    out["core_err"] = max(out.get("core_err", 0), _max_err([(got, want)]))
+    if not torch.equal(got, want):
+        bad = (got != want).any(1).nonzero()[:5, 0].tolist()
+        fail(f"detect_core_packed differs from its plain version on {what},"
+             f" prefilter {prefilter} (rows {bad})")
+
+
+def hold_exact(args, cfg, what: str, out: dict) -> None:
+    """exact_anchor_stats (the kernel) against its plain version on the
+    same CUDA tensors: every AnchorHits field and `resolved`."""
+    import torch
+    from find_circ2_tpu_torch.ops import anchor_align as ta
+    hits, resolved = ta.exact_anchor_stats(*args, cfg)
+    whits, wres = ta.exact_anchor_stats_ref(*args, cfg)
+    torch.cuda.synchronize()
+    pairs = list(zip((*hits, resolved), (*whits, wres)))
+    out["exact_err"] = max(out.get("exact_err", 0), _max_err(pairs))
+    for name, (a, b) in zip((*hits._fields, "resolved"), pairs):
+        if a.dtype != b.dtype or not torch.equal(a, b):
+            bad = (a != b).nonzero()[:5, 0].tolist()
+            fail(f"exact_anchor_stats differs from its plain version on "
+                 f"{what}: {name} (anchors {bad})")
+
+
+def detect_bounds(exact_args, core_args, cfg, prefilter: bool) -> dict:
+    """The least time the card could take for each detect kernel on one
+    batch's inputs: the larger of its bytes over the HBM rate (each input
+    read once, each output written once) and its int32 operations over
+    the SMs' 32-bit rate. Probe: the anchors, four 32-byte rows an anchor,
+    meta, 30 output bytes an anchor; EXACT_OPS_PER_ANCHOR an anchor. Core:
+    the bases [0, len) of each read and of its reverse complement, the
+    lengths, both anchors' five hit fields, each read's two K2 windows of
+    len + 2 bases and (prefilter on) two prefilter windows of len bases,
+    half a byte a base (rows of length 0 need none), the chromosome
+    offsets, the overflow flag, the [B, 14] rows; DETECT_OPS_PER_SPLIT for
+    every valid split."""
+    import torch
+    table, ntable, meta, anchors = exact_args
+    n, a = anchors.shape
+    words, nbases, offsets, reads, lens, rc, ha, hb, overflow = core_args
+    B, Lp = reads.shape
+    row = 4 * table.shape[1]
+    out = {}
+    ebytes = n * (a + 4 * row + 30) + 4 * meta.numel()
+    out["exact"] = dict(bytes=ebytes, ops=EXACT_OPS_PER_ANCHOR * n)
+    hit_bytes = sum(getattr(ha, f).element_size()
+                    for f in ("pos", "strand", "aligned", "n_best", "qual"))
+    bases = torch.clamp(lens.to(torch.int64), 0, Lp)
+    k2_windows = 2 * ((bases + 3) // 2)[bases > 0]
+    windows = int(k2_windows.sum()) + (
+        2 * int(((bases + 1) // 2).sum()) if prefilter else 0)
+    cbytes = (2 * int(bases.sum()) + 4 * B + 2 * B * hit_bytes + windows
+              + 8 * offsets.numel() + 1 + 4 * 14 * B)
+    splits = torch.clamp(bases - 2 * cfg.anchor_len + 1, min=0)
+    out["core"] = dict(bytes=cbytes,
+                       ops=DETECT_OPS_PER_SPLIT * int(splits.sum()))
+    for rec in out.values():
+        ops_ms = 1e3 * rec["ops"] / INT32_OPS_PER_S
+        bytes_ms = 1e3 * rec["bytes"] / HBM_BYTES_PER_S
+        rec.update(bound_ms=max(ops_ms, bytes_ms),
+                   bound_by="operations" if ops_ms >= bytes_ms else "bytes")
+    return out
+
+
+def label_split(fn, labels) -> dict:
+    """Run fn once under torch.profiler. Its device activities (kernels,
+    copies, fills), with their device milliseconds, by the innermost of
+    the record_function `labels` around the host call that enqueued each
+    (matched by correlation id); each label's host milliseconds. An
+    activity whose host call lies in no label, or was not matched, counts
+    under "other"; "total" counts all."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    cpu = torch.autograd.DeviceType.CPU
+    events = list(prof.events())
+    spans = sorted((e.time_range.start, e.time_range.end, e.name)
+                   for e in events
+                   if e.device_type == cpu and e.name in labels)
+    enqueued = {e.id: e.time_range.start for e in events
+                if e.device_type == cpu and e.name.startswith("cu")}
+    out = {name: dict(activities=0, device_ms=0.0, host_ms=0.0)
+           for name in (*labels, "other", "total")}
+    for lo, hi, name in spans:
+        out[name]["host_ms"] += (hi - lo) / 1e3
+    for e in _device_events(prof):
+        t = enqueued.get(e.id)
+        inner = [sp for sp in spans if t is not None and sp[0] <= t <= sp[1]]
+        name = max(inner)[2] if inner else "other"
+        for key in (name, "total"):
+            out[key]["activities"] += 1
+            out[key]["device_ms"] += (e.time_range.end
+                                      - e.time_range.start) / 1e3
+    return {k: v for k, v in out.items()
+            if v["activities"] or v["host_ms"] or k == "total"}
+
+
+def check_detect(dindex, batches, genome, cfg, card) -> dict:
+    """Detect's two kernels on the card (phase 6), on the main path's
+    index and the batches phase 5's stream sent to the single device:
+    - exact_anchor_stats and detect_core_packed against their plain
+      versions on the same CUDA tensors, every field, column and row, on
+      every batch of the stream (the detect_cases batch is phase 3's);
+    - the first batch forced through the classic redo (a fallback slice
+      of REDO_SLOTS): detect_batch_packed_fast and detect_batch_packed
+      with the kernels against the plain versions, every row flagged
+      (multi bit 3), and the classic rows equal to the unforced ones but
+      for that bit;
+    - each kernel's times in the order plain, kernel, kernel, plain: as
+      called (CUDA events) over the stream's batches, on the device alone
+      (CUDA-graph replay; the probe on EXACT_TIMING_SETS anchor sets drawn
+      from the genome, whose rows exceed the L2), the plain version's
+      torch.profiler busy time, beside the bound of detect_bounds;
+    - one batch of detect_batch_packed_fast with the kernels and with the
+      plain versions: device activities, device ms and host enqueue ms
+      split by the profiler labels (label_split).
+    Returns those numbers."""
+    import dataclasses
+    import numpy as np
+    import torch
+    from find_circ2_tpu_torch.models import pipeline as tpipe
+    from find_circ2_tpu_torch.ops import anchor_align as ta
+    from find_circ2_tpu_torch.ops import detect as td
+    dev = dindex.device
+    d = dindex
+    out = {}
+    inputs = []
+    for i, (arr, lens, prefilter) in enumerate(batches):
+        ex, core = detect_inputs(d, arr, lens, cfg)
+        hold_exact(ex, cfg, f"stream batch {i}", out)
+        hold_core(core, cfg, prefilter, f"stream batch {i}", out)
+        inputs.append((ex, core))
+    log(f"exact_anchor_stats and detect_core_packed equal their plain "
+        f"versions on the card on all {len(batches)} stream batches, "
+        f"exactly")
+
+    # The classic redo, forced.
+    arr, lens, prefilter = batches[0]
+    small = dataclasses.replace(cfg, exact_fallback_slots=REDO_SLOTS)
+    reads, lens_t = (torch.from_numpy(x).to(dev) for x in (arr, lens))
+    rc = torch.from_numpy(tpipe.revcomp_batch(arr, lens)).to(dev)
+
+    def fast(c):
+        return tpipe.detect_batch_packed_fast(
+            d.words, d.nbases, d.table, d.ntable, d.meta, d.chrom_offsets,
+            reads, lens_t, c, prefilter, rc)
+
+    def classic():
+        return tpipe.detect_batch_packed(
+            d.words, d.nbases, d.table, d.meta, d.chrom_offsets, reads,
+            lens_t, cfg, prefilter, rc)
+
+    before = td.launches
+    rows = {"forced": fast(small), "classic": classic(), "fast": fast(cfg)}
+    with plain_detect():
+        plain = {"forced": fast(small), "classic": classic()}
+    torch.cuda.synchronize()
+    if dev.type == "cuda" and td.launches - before != 3:
+        fail(f"the redo check launched detect_core_packed "
+             f"{td.launches - before} times, not 3")
+    for name in plain:
+        if not torch.equal(rows[name], plain[name]):
+            fail(f"detect ({name}) differs from the plain versions on the "
+                 f"forced classic redo")
+    forced, cl, fa = (rows[k].cpu().numpy() for k in ("forced", "classic",
+                                                      "fast"))
+    if not (forced[:, 12] & 8).all() or (fa[:, 12] & 8).any() or \
+            not np.array_equal(cl, fa):
+        fail("the forced redo: multi bit 3 not on every row, or the "
+             "classic rows differ from the exact-first ones")
+    log(f"forced classic redo (exact_fallback_slots {REDO_SLOTS}) of a "
+        f"{arr.shape[0]}-read batch: every row flagged; exact-first and "
+        "classic rows equal the plain versions' and each other")
+
+    # Times, beside the bounds.
+    n = len(inputs)
+    ex0, core0 = inputs[0]
+    bounds = detect_bounds(ex0, core0, cfg, prefilter)
+    rng = np.random.default_rng(0)
+    a = cfg.anchor_len
+    codes = torch.from_numpy(genome.codes).to(dev)
+    pos = torch.from_numpy(rng.integers(
+        0, len(genome) - a, (EXACT_TIMING_SETS, ex0[3].shape[0]))).to(dev)
+    sets = codes[pos[..., None] + torch.arange(a, device=dev)]
+    flip = torch.from_numpy(rng.random(pos.shape) < 0.5).to(dev)[..., None]
+    sets = torch.where(flip, torch.where(sets < 4, 3 - sets, sets).flip(-1),
+                       sets).contiguous()
+
+    def kernels(name):
+        if name == "core":
+            return (lambda i: td.detect_core_packed(*inputs[i][1], cfg,
+                                                    prefilter),
+                    lambda i: td.detect_core_packed_ref(*inputs[i][1], cfg,
+                                                        prefilter),
+                    lambda i: td.detect_core_packed(*inputs[i][1], cfg,
+                                                    prefilter), n)
+        return (lambda i: ta.exact_anchor_stats(*inputs[i][0], cfg),
+                lambda i: ta.exact_anchor_stats_ref(*inputs[i][0], cfg),
+                lambda i: ta.exact_anchor_stats(*ex0[:3], sets[i], cfg),
+                EXACT_TIMING_SETS)
+
+    for name in ("exact", "core"):
+        kernel, plainf, alone, n_alone = kernels(name)
+        p1, k1 = called_ms(plainf, range(n)), called_ms(kernel, range(n))
+        k2, p2 = called_ms(kernel, range(n)), called_ms(plainf, range(n))
+        gp1 = device_profile(lambda: plainf(0))["busy_ms"]
+        gk1 = graph_ms(alone, range(n_alone))
+        gk2 = graph_ms(alone, range(n_alone))
+        gp2 = device_profile(lambda: plainf(0))["busy_ms"]
+        rec = dict(called_ms=min(k1, k2), plain_called_ms=min(p1, p2),
+                   ms=min(gk1, gk2), plain_ms=min(gp1, gp2), **bounds[name])
+        out[name] = rec
+        log(f"{name} kernel on a {ex0[3].shape[0] // 2}-read batch: device "
+            f"alone {rec['ms']:.5f} ms (graph, {n_alone} input sets) vs "
+            f"plain {rec['plain_ms']:.5f} ms (torch.profiler busy); as "
+            f"called {rec['called_ms']:.5f} ms vs plain "
+            f"{rec['plain_called_ms']:.5f} ms; bound {rec['bound_ms']:.5f} "
+            f"ms by {rec['bound_by']} ({rec['bytes']:,} bytes, "
+            f"{rec['ops']:,} int32 operations), "
+            f"{100 * rec['bound_ms'] / rec['ms']:.1f}% of it; on {card}")
+
+    # One batch's device activities and host enqueue by label, the plain
+    # versions and the kernels in turn.
+    labels = DETECT_LABELS + EXPLORE_LABELS
+    split = {}
+    for name in ("plain", "kernel", "kernel", "plain"):
+        ctx = plain_detect() if name == "plain" else contextlib.nullcontext()
+        with ctx:
+            fast(cfg)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fast(cfg)
+            enqueue = 1e3 * (time.perf_counter() - t0)
+            torch.cuda.synchronize()
+            got = label_split(lambda: fast(cfg), labels)
+        got["enqueue_ms"] = enqueue
+        split[name] = got
+    out["split"] = split
+    for name, got in split.items():
+        log(f"one {arr.shape[0]}-read detect batch with the {name} "
+            f"versions: {got['total']['activities']} device activities, "
+            f"{got['total']['device_ms']:.3f} device ms, host enqueue "
+            f"{got['enqueue_ms']:.3f} ms; by label (activities / device ms "
+            f"/ host ms): " + "; ".join(
+                f"{k} {v['activities']} / {v['device_ms']:.3f} / "
+                f"{v['host_ms']:.3f}" for k, v in got.items()
+                if isinstance(v, dict) and k != "total") + f"; on {card}")
+    out["max_abs_err"] = max(out["core_err"], out["exact_err"])
+    return out
+
+
+def compare_detect_streams(dindex, fq, genome, index, cfg, card,
+                           bed) -> dict:
+    """run_fastq with device explore, the detect kernels against their
+    plain versions (plain_detect), in the order kernel, plain, plain,
+    kernel: equal BED and stats (`bed`, phase 6's), and per version the
+    least stream seconds and `device_dispatch` seconds."""
+    from find_circ2_tpu_torch.models.aggregate import Aggregator
+    from find_circ2_tpu_torch.models.stream import run_fastq
+    from find_circ2_tpu_torch.utils.profiling import StageTimes
+    out = {}
+    for name in ("kernel", "plain", "plain", "kernel"):
+        agg = Aggregator(genome, cfg)
+        times = StageTimes()
+        ctx = plain_detect() if name == "plain" else contextlib.nullcontext()
+        with ctx:
+            t0 = time.perf_counter()
+            run_fastq(dindex, fq, agg, cfg, times=times,
+                      slowpath=(genome, index))
+            wall = time.perf_counter() - t0
+        if _render(agg) != bed:
+            fail(f"run_fastq with the {name} detect versions gives another "
+                 "BED or stats")
+        rec = dict(seconds=wall, reads=times.n_reads,
+                   device_dispatch=times.totals["device_dispatch"])
+        old = out.get(name)
+        out[name] = rec if old is None else {k: min(old[k], rec[k])
+                                             for k in rec}
+    for name, rec in out.items():
+        log(f"run_fastq, detect with the {name} versions: "
+            f"{rec['seconds']:.3f} s, {rec['reads'] / rec['seconds']:,.1f} "
+            f"reads/s, device_dispatch {rec['device_dispatch']:.3f} s "
+            f"(least of two; equal BED and stats) on {card}")
+    return out
+
+
 def compare_streams(dindex, fq, genome, index, cfg, card) -> dict:
     """run_fastq with device explore (None: the index has extras) and
     with the host twin (explore=False) on the same FASTQ and index: equal
@@ -874,6 +1318,8 @@ def check_sharded(fq, sim, genome, index, dindex, cfg, streams, truth,
                                                       encode_batch,
                                                       unpack_results)
     from find_circ2_tpu_torch.models.stream import run_fastq
+    from find_circ2_tpu_torch.ops import anchor_align as ta
+    from find_circ2_tpu_torch.ops import detect as td
     from find_circ2_tpu_torch.ops import explore as tx
     from find_circ2_tpu_torch.ops import gather_rows as gr
     from find_circ2_tpu_torch.ops.merge import merge_junctions
@@ -900,12 +1346,15 @@ def check_sharded(fq, sim, genome, index, dindex, cfg, streams, truth,
     agg = Aggregator(genome, cfg)
     times = StageTimes()
     gr.launches = gr.multi_launches = tx.launches = 0
+    td.launches = ta.exact_launches = 0
     t0 = time.perf_counter()
     run_fastq(None, fq, agg, cfg, times=times, slowpath=(genome, index),
               dispatch=eng.dispatch_packed, redo=eng.redo_packed)
     wall = time.perf_counter() - t0
     out["launches"] = {"gather_rows": gr.launches,
-                       "gather_rows_multi": gr.multi_launches}
+                       "gather_rows_multi": gr.multi_launches,
+                       "detect_core_packed": td.launches,
+                       "exact_anchor_stats": ta.exact_launches}
     out["explore_launches"] = tx.launches
     out.update(seconds=wall, reads=times.n_reads,
                peak_bytes=torch.cuda.max_memory_allocated())
@@ -918,10 +1367,13 @@ def check_sharded(fq, sim, genome, index, dindex, cfg, streams, truth,
         + times.report(wall=wall))
     log(f"kernel launches on the sharded path: gather_rows "
         f"{gr.launches}, gather_rows_multi {gr.multi_launches}, "
-        f"explore_pairs {tx.launches} (§2b on the host twin)")
+        f"detect_core_packed {td.launches}, exact_anchor_stats "
+        f"{ta.exact_launches} (the shards' plain partials), explore_pairs "
+        f"{tx.launches} (§2b on the host twin)")
     for name, count in out["launches"].items():
-        if count <= 0:
-            fail(f"kernel {name} was not launched on the sharded path")
+        if (count <= 0) != (name == "exact_anchor_stats"):
+            fail(f"kernel {name} was launched {count} times on the sharded "
+                 "path")
     ran = set(times.counts)
     if "slowpath_multihit" not in ran or "explore_dispatch" in ran:
         fail(f"the sharded stream ran stages {sorted(ran)}: §2b must run "
@@ -954,7 +1406,15 @@ def check_sharded(fq, sim, genome, index, dindex, cfg, streams, truth,
             dindex.chrom_offsets, torch.from_numpy(arr).to(dindex.device),
             torch.from_numpy(lens).to(dindex.device), cfg)
         one = {k: v.cpu().numpy() for k, v in single.items()}
-        many = unpack_results(eng.redo_packed(arr, lens).cpu().numpy())
+        packed = [eng.dispatch_packed(arr, lens), eng.redo_packed(arr, lens)]
+        with plain_detect():
+            plain = [eng.dispatch_packed(arr, lens),
+                     eng.redo_packed(arr, lens)]
+        if not all(torch.equal(a, b) for a, b in zip(packed, plain)):
+            fail(f"the sharded engine's packed rows with detect_core_packed "
+                 f"differ from the plain version's on the batch at read "
+                 f"{lo}")
+        many = unpack_results(packed[1].cpu().numpy())
         differ = np.flatnonzero((lens > 0) & np.any(
             [(one[k] != many[k]).reshape(bs, -1).any(axis=1) for k in one],
             axis=0))
@@ -986,7 +1446,9 @@ def check_sharded(fq, sim, genome, index, dindex, cfg, streams, truth,
     out["merged_batches"] = -(-len(reads) // bs)
     out["probe_faults"] = faults
     log(f"detect_merged equals detect_batch + merge_junctions on all "
-        f"{out['merged_batches']} batches ({n_rows} junction rows); "
+        f"{out['merged_batches']} batches ({n_rows} junction rows); the "
+        f"engine's packed rows (exact-first and classic) equal the plain "
+        f"detect core's on every batch; "
         f"classic rows equal read for read but for {len(faults)} reads "
         f"{faults}, where the single table counts a key whose two probe "
         f"buckets coincide twice and the engine gives the oracle's call")
@@ -1009,6 +1471,8 @@ def main_path(device: str, library: dict, card: str) -> dict:
     from find_circ2_tpu_torch.utils.simulate import rnase_r_library
     from find_circ2_tpu_torch.cli import main as cli
     from find_circ2_tpu_torch.models.pipeline import run_reads
+    from find_circ2_tpu_torch.ops import anchor_align as ta
+    from find_circ2_tpu_torch.ops import detect as td
     from find_circ2_tpu_torch.ops import explore as tx
     from find_circ2_tpu_torch.ops import gather_rows as gr
 
@@ -1032,13 +1496,17 @@ def main_path(device: str, library: dict, card: str) -> dict:
             torch.cuda.synchronize()
             torch.cuda.reset_peak_memory_stats()
         err = io.StringIO()
-        with contextlib.redirect_stderr(err), watch_explorer() as seen:
+        with contextlib.redirect_stderr(err), watch_explorer() as seen, \
+                watch_detect() as batches:
             gr.launches = gr.multi_launches = tx.launches = 0
+            td.launches = ta.exact_launches = 0
             rc = cli.main(["run", fq, "-G", fa, "-o", outdir, "--filter",
                            "--device", device, "--profile"])
             out["launches"] = {"gather_rows": gr.launches,
                                "gather_rows_multi": gr.multi_launches,
-                               "explore_pairs": tx.launches}
+                               "explore_pairs": tx.launches,
+                               "detect_core_packed": td.launches,
+                               "exact_anchor_stats": ta.exact_launches}
         out["explore_launches"] = seen["launches"]
         report = err.getvalue()
         print(report, end="")
@@ -1058,12 +1526,25 @@ def main_path(device: str, library: dict, card: str) -> dict:
             f"{out['launches']['gather_rows']}, gather_rows_multi "
             f"{out['launches']['gather_rows_multi']} "
             f"({out['explore_launches']} of them inside §2b explore), "
-            f"explore_pairs {out['launches']['explore_pairs']}; "
+            f"explore_pairs {out['launches']['explore_pairs']}, "
+            f"detect_core_packed {out['launches']['detect_core_packed']}, "
+            f"exact_anchor_stats {out['launches']['exact_anchor_stats']}; "
             f"{seen['reads']} routed reads in {seen['calls']} explore "
-            f"dispatches, {seen['chunks']} chunks")
+            f"dispatches, {seen['chunks']} chunks; "
+            f"{len(batches['batches'])} detect batches, "
+            f"{batches['fast']} exact-first and {batches['classic']} "
+            f"classic (overflow redo)")
         for name, count in out["launches"].items():
             if count <= 0:
                 fail(f"kernel {name} was not launched on the main path")
+        if on_card and (
+                out["launches"]["detect_core_packed"]
+                != batches["fast"] + batches["classic"]
+                or out["launches"]["exact_anchor_stats"] != batches["fast"]
+                or batches["fast"] != len(batches["batches"])):
+            fail("the detect kernels' launches do not match the detect "
+                 "programs run: one core launch per program, one probe "
+                 "launch per exact-first program")
         if out["launches"]["explore_pairs"] != seen["chunks"] and on_card:
             fail(f"explore_pairs launched {out['launches']['explore_pairs']}"
                  f" times for {seen['chunks']} explore chunks")
@@ -1093,7 +1574,11 @@ def main_path(device: str, library: dict, card: str) -> dict:
         out["explore"] = check_explore(
             dindex, np.concatenate(seen["arr"]), np.concatenate(seen["lens"]),
             cfg, card)
+        out["detect"] = check_detect(dindex, batches["batches"], g, cfg,
+                                     card)
         out["streams"] = compare_streams(dindex, fq, g, index, cfg, card)
+        out["detect_streams"] = compare_detect_streams(
+            dindex, fq, g, index, cfg, card, out["streams"]["beds"]["device"])
         out["sharded"] = check_sharded(fq, sim, g, index, dindex, cfg,
                                        out["streams"], truth, card)
 
@@ -1137,6 +1622,7 @@ def main() -> int:
         f"({_build.library_path()})")
 
     gather = check_gather_rows("cuda", card)
+    cases = check_detect_cases("cuda", card)
     check_golden("cuda")
     path = main_path("cuda", LIBRARY, card)
     check_golden("cuda", ("--mesh", "2x2"))
@@ -1185,6 +1671,27 @@ def main() -> int:
         "resources": pairs["resources"],
         "stage_cycles": {str(n): {k: v[0] for k, v in st.items()}
                          for n, st in pairs["stages"].items()}})
+    # Detect's two kernels on the stream's 4096-read batches (the probe
+    # alone on anchor sets drawn from the genome); no one PyTorch call
+    # computes either.
+    det = path["detect"]
+    for name, key, source, replaces in (
+            ("exact_anchor_stats", "exact", "exact_stats.cu",
+             "find_circ2_tpu/ops/anchor_align.py:340"),
+            ("detect_core_packed", "core", "detect.cu",
+             "find_circ2_tpu/models/pipeline.py:427")):
+        rec = det[key]
+        kernels.append({
+            "name": name, "route": "cuda",
+            "source": f"find_circ2_tpu_torch/csrc/{source}",
+            "replaces": replaces, "launches": path["launches"][name],
+            "max_abs_err": max(det[f"{key}_err"], cases[f"{key}_err"]),
+            "ms": rec["ms"],
+            "plain_ms": rec["plain_ms"], "bound_ms": rec["bound_ms"],
+            "bound_by": rec["bound_by"], "library_ms": None,
+            "called_ms": rec["called_ms"],
+            "plain_called_ms": rec["plain_called_ms"],
+            "sharded_launches": path["sharded"]["launches"][name]})
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

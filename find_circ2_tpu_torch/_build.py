@@ -3,7 +3,8 @@
 At first use, every `csrc/*.cu` is compiled with `nvcc` for Hopper
 (`sm_90a`), one `nvcc` per source, all started together, and linked into
 one shared library with a plain C interface under `build/kernels/` at the
-repository root, keyed by a hash of the sources and flags, and loaded
+repository root, keyed by a hash of the flags and of every source and
+header of `csrc/` (an edited `*.cuh` builds a new library), and loaded
 with `ctypes`. A failed build raises: there is no fallback for CUDA
 tensors.
 """
@@ -42,9 +43,14 @@ def _sources() -> list[str]:
     return sorted(glob.glob(os.path.join(CSRC, "*.cu")))
 
 
+def _hashed() -> list[str]:
+    """What the library is built from: the sources and their headers."""
+    return sorted(_sources() + glob.glob(os.path.join(CSRC, "*.cuh")))
+
+
 def library_path(flags: tuple = NVCC_FLAGS) -> str:
     h = hashlib.sha1(" ".join(flags).encode())
-    for s in _sources():
+    for s in _hashed():
         with open(s, "rb") as fh:
             h.update(os.path.basename(s).encode() + b"\0" + fh.read())
     return os.path.join(BUILD_DIR, f"libfc2t_{h.hexdigest()[:16]}.so")
@@ -96,6 +102,12 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.fc2t_explore_resources.argtypes = [ctypes.c_int] * 4 + [
         ctypes.POINTER(ctypes.c_int)]
     lib.fc2t_explore_resources.restype = ctypes.c_int
+    # One DETECT_ARGS / EXACT_ARGS buffer in; the kernels launched, or
+    # minus a CUDA error, out.
+    lib.fc2t_detect.argtypes = [ctypes.c_char_p]
+    lib.fc2t_detect.restype = ctypes.c_int
+    lib.fc2t_exact_stats.argtypes = [ctypes.c_char_p]
+    lib.fc2t_exact_stats.restype = ctypes.c_int
     return lib
 
 
@@ -128,6 +140,18 @@ GATHER_ARGS = struct.Struct("<5Q2qQ4i")
 # aligned, mm, n_best, qual; stream, nbases; then B, Lp, V, K, n_chroms,
 # anchor_len, prefilter_mm, pair_rescue, prefilter, device.
 EXPLORE_ARGS = struct.Struct("<25Qq10i")
+
+# csrc/detect.cu's DetectArgs: words, chrom_offsets, reads, rc, lens, out,
+# overflow, then per anchor (A, B) pos, strand, aligned, n_best, qual;
+# stream, nbases; then B, Lp, n_chroms, anchor_len, prefilter_mm,
+# prefilter, device, reserved.
+DETECT_ARGS = struct.Struct("<18Qq8i")
+
+# csrc/exact_stats.cu's ExactArgs: anchors, table, ntable, meta, then the
+# outputs aligned, pos, strand, mm, n_best, second_mm, qual, resolved;
+# stream, rows; then n, anchor_len, prefix_len, max_bucket, max_anchor_mm,
+# device.
+EXACT_ARGS = struct.Struct("<13Qq6i")
 
 
 def check(err: int, what: str) -> None:

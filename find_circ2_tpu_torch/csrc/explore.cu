@@ -4,7 +4,7 @@
 // Replaces, after K1 (candidate_stats, finalize_hits), everything of the
 // plain explore_batch_packed in find_circ2_tpu_torch/ops/explore.py:
 // merged_candidates for both anchors, _candidate_side for both,
-// explore_core and models/pipeline._pack. The reference computes the same
+// explore_core and ops/detect._pack. The reference computes the same
 // as XLA programs, not Pallas (find_circ2_tpu/ops/explore.py:61
 // merged_candidates, :101 _candidate_side, :147 explore_core), with the
 // prefix sums as a bf16 triangular-ones matmul and an int32
@@ -80,6 +80,8 @@
 #include <cuda_pipeline.h>
 #include <cuda_runtime.h>
 
+#include "nibbles.cuh"
+
 // One anchor's K1 outputs, rows of [B, ...] int tensors.
 struct ExploreAnchor {
     const int32_t* count;      // [B, 2V] candidate_stats
@@ -131,6 +133,14 @@ __device__ unsigned long long* fc2t_stamps = nullptr;
 #endif
 
 namespace {
+
+using fc2t::comp;
+using fc2t::mismatches;
+using fc2t::nibbles;
+using fc2t::same;
+using fc2t::upper;
+using fc2t::window_base;
+using fc2t::window_start;
 
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;     // 4 lists x 2 halves
@@ -202,67 +212,10 @@ __host__ __device__ inline Layout layout(int Lp, int K, int V,
     return L;
 }
 
-__device__ __forceinline__ int comp(int x) { return x < 4 ? 3 - x : x; }
-
-// searchsorted(offsets, x, right=True): the offsets <= x.
-__device__ __forceinline__ int upper(const int64_t* off, int n,
-                                     long long x) {
-    int lo = 0, hi = n;
-    while (lo < hi) {
-        const int mid = (lo + hi) >> 1;
-        if (off[mid] <= x)
-            lo = mid + 1;
-        else
-            hi = mid;
-    }
-    return lo;
-}
-
 // 4- or 8-byte asynchronous copy, global to shared.
 __device__ __forceinline__ void copy_async(void* dst, const void* src,
                                            size_t bytes) {
     __pipeline_memcpy_async(dst, src, bytes);
-}
-
-// Base t of candidate c's window: its nibble words hold bases s0 .. s0 +
-// Lp + 1 from word s0 / 8 on.
-__device__ __forceinline__ int window_base(const uint32_t* w, uint32_t s0,
-                                           int t) {
-    const uint32_t g = s0 + (uint32_t)t;
-    return (int)((w[(g >> 3) - (s0 >> 3)] >> (4 * (g & 7))) & 7u);
-}
-
-// Bases t .. t+7 of a candidate's window as nibbles, base t lowest.
-__device__ __forceinline__ uint32_t nibbles(const uint32_t* w, uint32_t s0,
-                                            int t) {
-    const uint32_t g = s0 + (uint32_t)t;
-    const uint32_t i = (g >> 3) - (s0 >> 3);
-    return __funnelshift_r(w[i], w[i + 1], 4 * (g & 7)) & 0x77777777u;
-}
-
-// Bit 0 of each nibble: the read's base and the window's differ, or
-// either is not A, C, G or T (code >= 4); bases at or past n (of 8): 0.
-__device__ __forceinline__ uint32_t mismatches(uint32_t q, uint32_t g,
-                                               int n) {
-    const uint32_t x = q ^ g;
-    const uint32_t m = (x | x >> 1 | x >> 2 | (q | g) >> 2) & 0x11111111u;
-    return n >= 8 ? m : (n <= 0 ? 0u : m & ((1u << (4 * n)) - 1u));
-}
-
-// Bit 0 of each nibble: that base is `code`.
-__device__ __forceinline__ uint32_t same(uint32_t w, int code) {
-    const uint32_t y = w ^ ((uint32_t)code * 0x11111111u);
-    return ~(y | y >> 1 | y >> 2) & 0x11111111u;
-}
-
-// The clamped window start of a valid candidate at `pos` on strand `st`
-// (as _candidate_side): a left piece reads G[pos : pos+Lp+2], a right
-// piece G[pos+a-len-2 : ...].
-__device__ __forceinline__ uint32_t window_start(bool left, uint32_t pos,
-                                                 uint32_t al, int len,
-                                                 uint32_t max_start) {
-    const uint32_t start = left ? pos : pos + al - (uint32_t)len - 2u;
-    return start < max_start ? start : max_start;
 }
 
 __global__ void __launch_bounds__(kThreads)

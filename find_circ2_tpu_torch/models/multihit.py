@@ -2,7 +2,7 @@
 `models.oracle.call_read`.
 
 The device flags reads whose anchors tie at the best mismatch level
-(`multi`, models/pipeline.detect_core); those route to a host pair
+(`multi`, ops/detect.detect_core); those route to a host pair
 exploration. Round-2 measurement: the per-candidate oracle costs ~32 ms
 per multi read (repeat-rich libraries are ~15-20% multi), dominating
 end-to-end throughput. This module reimplements the same frozen

@@ -3,7 +3,11 @@
 One batch goes through K1 (ops/anchor_align: exact-first with the
 enumeration fallback), pair canonicalization, the pass-1 contiguous
 prefilter (SPEC.md §6) and K2 (ops/breakpoint), and comes back as one
-packed int32 row per read. Reads whose anchors tie at the best hit go
+packed int32 row per read. On the card the exact-first probe and
+everything after K1 are hand-written CUDA kernels
+(ops/anchor_align.exact_anchor_stats, ops/detect.detect_core_packed);
+ops/detect.detect_core is the core's plain version, which CPU tensors
+and the unpacked entries take. Reads whose anchors tie at the best hit go
 through the §2b explore program (ops/explore, `DeviceExplorer`) one
 stage later. Host code (`run_reads`) batches reads, streams them through
 the device steps and yields the oracle's ReadCalls, so the CPU oracle
@@ -19,17 +23,12 @@ from dataclasses import dataclass
 
 import numpy as np
 import torch
+from torch.profiler import record_function
 
 from find_circ2_tpu_torch.config import (
     RPAD_CODE,
     Config,
-    KIND_CIRCULAR,
-    KIND_LINEAR,
-    ST_ANCHOR_OVERLAP,
-    ST_DIFF_CHROM,
-    ST_DIFF_STRAND,
     ST_JUNCTION,
-    ST_NO_JUNCTION,
     ST_PREFILTERED,
     ST_TOO_LONG,
     ST_TOO_SHORT,
@@ -37,7 +36,7 @@ from find_circ2_tpu_torch.config import (
     ST_UNALIGNED_B,
 )
 from find_circ2_tpu_torch.index.build import SeedIndex, build_index
-from find_circ2_tpu_torch.index.hashtable import (M32, build_neighbor_table,
+from find_circ2_tpu_torch.index.hashtable import (build_neighbor_table,
                                                   build_query_table)
 from find_circ2_tpu_torch.io.genome import Genome
 from find_circ2_tpu_torch.io.twobit import codes_to_seq, seq_to_codes
@@ -46,8 +45,9 @@ from find_circ2_tpu_torch.models.multihit import (call_read_multi,
 from find_circ2_tpu_torch.models.oracle import ReadCall
 from find_circ2_tpu_torch.ops.anchor_align import (
     AnchorHits, align_anchor_pair, align_anchor_pair_fast, read_anchors)
-from find_circ2_tpu_torch.ops.breakpoint import as_int32, breakpoint_search
-from find_circ2_tpu_torch.ops.packed import gather_window, pack_words
+from find_circ2_tpu_torch.ops.detect import (PACK_FIELDS, detect_core,
+                                            detect_core_packed)
+from find_circ2_tpu_torch.ops.packed import pack_words
 
 # Largest table (buckets) for which DeviceIndex.build makes the K1 v4
 # neighbour table itself; beyond it the one-time build is a deliberate
@@ -160,121 +160,6 @@ def revcomp_batch(arr: np.ndarray, lens: np.ndarray) -> np.ndarray:
     return np.where(pos < lens[:, None], r, RPAD_CODE).astype(np.uint8)
 
 
-def _revcomp_device(reads: torch.Tensor, lens: torch.Tensor) -> torch.Tensor:
-    """revcomp_batch on the device, for callers without a host batch."""
-    Lp = reads.shape[1]
-    pos = torch.arange(Lp, device=reads.device)[None, :]
-    lens = lens.to(torch.int64)[:, None]
-    r = torch.gather(reads, 1, torch.clamp(lens - 1 - pos, 0, Lp - 1))
-    r = torch.where(r < 4, 3 - r, r)
-    return torch.where(pos < lens, r, RPAD_CODE).to(torch.uint8)
-
-
-def _full_read_mm(words, nbases: int, query, start, lens) -> torch.Tensor:
-    """Hamming(query[:l], genome[start:start+l]) per row (SPEC.md §6)."""
-    Lp = query.shape[1]
-    pos = torch.arange(Lp, device=query.device)[None, :]
-    win = gather_window(words, torch.clamp(start, 0, nbases - Lp), Lp)
-    q = query.to(torch.int32)
-    neq = ((q != win) | (q >= 4) | (win >= 4)) & (pos < lens[:, None])
-    return neq.sum(1, dtype=torch.int32)
-
-
-def detect_core(words, nbases: int, chrom_offsets, reads, lens, hits_a,
-                hits_b, cfg: Config, prefilter: bool, rc=None) -> dict:
-    """Pairing, prefilter, K2 and status resolution given anchor hits.
-
-    Row status follows the oracle's priority order exactly [FROZEN]:
-    prefiltered > unaligned_A > unaligned_B > diff_strand > diff_chrom >
-    anchors_overlap > no_junction > junction. `rc` is each read's
-    left-aligned reverse complement: revcomp_batch, computed on the host,
-    on the streaming paths; None builds it on the device.
-    """
-    if rc is None:
-        rc = _revcomp_device(reads, lens)
-    B = reads.shape[0]
-    a = cfg.anchor_len
-    dev = reads.device
-    lens_u = lens.to(torch.int64)
-
-    # Pass-1 contiguous prefilter (SPEC.md §6).
-    if prefilter:
-        fwd_a = (hits_a.strand == 0)
-        qa = torch.where(fwd_a[:, None], reads, rc)
-        sa = torch.where(fwd_a, hits_a.pos, (hits_a.pos + a - lens_u) & M32)
-        mma = _full_read_mm(words, nbases, qa, sa, lens)
-        fwd_b = (hits_b.strand == 0)
-        qb = torch.where(fwd_b[:, None], reads, rc)
-        sb = torch.where(fwd_b, (hits_b.pos + a - lens_u) & M32, hits_b.pos)
-        mmb = _full_read_mm(words, nbases, qb, sb, lens)
-        contig = ((hits_a.aligned & (mma <= cfg.prefilter_mm))
-                  | (hits_b.aligned & (mmb <= cfg.prefilter_mm)))
-    else:
-        contig = torch.zeros(B, dtype=torch.bool, device=dev)
-
-    # Pairing + canonicalization (SPEC.md §3).
-    chrom_a = torch.searchsorted(chrom_offsets, hits_a.pos, right=True) - 1
-    chrom_b = torch.searchsorted(chrom_offsets, hits_b.pos, right=True) - 1
-    same_strand = hits_a.strand == hits_b.strand
-    same_chrom = chrom_a == chrom_b
-    s = hits_a.strand
-    minus = s == 1
-    R = torch.where(minus[:, None], rc, reads)
-    pA = torch.where(minus, hits_b.pos, hits_a.pos)
-    pB = torch.where(minus, hits_a.pos, hits_b.pos)
-    qual_left = torch.where(minus, hits_b.qual, hits_a.qual)
-    qual_right = torch.where(minus, hits_a.qual, hits_b.qual)
-    endB = (pB + a) & M32
-    linear = ((pA + a) & M32) <= pB
-    circular = endB <= pA
-    kind = torch.where(circular, KIND_CIRCULAR, KIND_LINEAR).to(torch.int32)
-
-    bp = breakpoint_search(words, nbases, R, lens, pA, endB, kind, s, cfg)
-
-    # Status resolution [FROZEN priority].
-    status = torch.full((B,), ST_JUNCTION, dtype=torch.int32, device=dev)
-    for cond, st in ((bp["no_junction"], ST_NO_JUNCTION),
-                     (~(linear | circular), ST_ANCHOR_OVERLAP),
-                     (~same_chrom, ST_DIFF_CHROM),
-                     (~same_strand, ST_DIFF_STRAND),
-                     (~hits_b.aligned, ST_UNALIGNED_B),
-                     (~hits_a.aligned, ST_UNALIGNED_A),
-                     (contig, ST_PREFILTERED)):
-        status = torch.where(cond, st, status)
-
-    i32 = torch.int32
-    return dict(
-        status=status, kind=kind, chrom=chrom_a.to(i32),
-        start=bp["start"], end=bp["end"], sense=bp["sense"],
-        align_strand=s.to(i32), edits=bp["edits"], n_bp=bp["n_bp"],
-        overlap=bp["overlap"], qual_left=qual_left, qual_right=qual_right,
-        # Bit 0 (SPEC §2b): anchor best-hit tie -> host multi-hit
-        # re-call. Bit 1: rescuable — exactly one anchor unaligned, the
-        # §2 2-mm rescue's mate gate.
-        multi=(((hits_a.n_best > 1) | (hits_b.n_best > 1)).to(i32)
-               | ((hits_a.aligned ^ hits_b.aligned).to(i32) << 1)),
-        signal=bp["signal"],
-    )
-
-
-# Column order of the packed per-read result row (host readback format).
-PACK_FIELDS = ("status", "kind", "chrom", "start", "end", "sense",
-               "align_strand", "edits", "n_bp", "overlap", "qual_left",
-               "qual_right", "multi", "signal")
-
-
-def _pack(res: dict) -> torch.Tensor:
-    """One int32 [B, 14] row per read in PACK_FIELDS order: start/end as
-    their uint32 bit patterns, the 4 signal codes (each < 8) as
-    s0 | s1<<3 | s2<<6 | s3<<9."""
-    sig = res["signal"]
-    sig_packed = (sig[:, 0] | (sig[:, 1] << 3) | (sig[:, 2] << 6)
-                  | (sig[:, 3] << 9))
-    cols = [as_int32(res[k]) if k in ("start", "end")
-            else res[k].to(torch.int32) for k in PACK_FIELDS[:-1]]
-    return torch.stack(cols + [sig_packed.to(torch.int32)], dim=1)
-
-
 def detect_batch(words, nbases: int, table, meta, chrom_offsets, reads,
                  lens, cfg: Config, prefilter: bool = True,
                  rc=None) -> dict:
@@ -324,11 +209,14 @@ def detect_batch_packed(words, nbases: int, table, meta, chrom_offsets,
                         reads, lens, cfg: Config, prefilter: bool,
                         rc) -> torch.Tensor:
     """Full classic detection step (enumeration K1) -> int32 [B, 14]."""
-    anchors_a, anchors_b = read_anchors(reads, lens, cfg)
-    hits_a, hits_b = align_anchor_pair(table, meta, anchors_a, anchors_b,
-                                       cfg)
-    return _pack(detect_core(words, nbases, chrom_offsets, reads, lens,
-                             hits_a, hits_b, cfg, prefilter, rc))
+    with record_function("read_anchors"):
+        anchors_a, anchors_b = read_anchors(reads, lens, cfg)
+    with record_function("k1_classic"):
+        hits_a, hits_b = align_anchor_pair(table, meta, anchors_a,
+                                           anchors_b, cfg)
+    with record_function("detect_core"):
+        return detect_core_packed(words, nbases, chrom_offsets, reads, lens,
+                                  rc, hits_a, hits_b, None, cfg, prefilter)
 
 
 def detect_batch_packed_fast(words, nbases: int, table, ntable, meta,
@@ -337,14 +225,17 @@ def detect_batch_packed_fast(words, nbases: int, table, ntable, meta,
     """detect_batch_packed on the K1 v4 exact-first path. Identical rows,
     except that `multi` bit 3 carries the batch-wide fallback-overflow
     flag: when set, the batch's fast-path statistics are not to be
-    trusted and the caller redoes it (`redo_if_overflow`)."""
-    anchors_a, anchors_b = read_anchors(reads, lens, cfg)
+    trusted and the caller redoes it (`redo_if_overflow`). Its phases
+    carry the profiler labels read_anchors, k1_exact, k1_fallback and
+    detect_core."""
+    with record_function("read_anchors"):
+        anchors_a, anchors_b = read_anchors(reads, lens, cfg)
     hits_a, hits_b, overflow = align_anchor_pair_fast(
         table, ntable, meta, anchors_a, anchors_b, cfg)
-    res = detect_core(words, nbases, chrom_offsets, reads, lens, hits_a,
-                      hits_b, cfg, prefilter, rc)
-    res["multi"] = res["multi"] | (overflow.to(torch.int32) << 3)
-    return _pack(res)
+    with record_function("detect_core"):
+        return detect_core_packed(words, nbases, chrom_offsets, reads, lens,
+                                  rc, hits_a, hits_b, overflow, cfg,
+                                  prefilter)
 
 
 def _to_device(dindex: DeviceIndex, arr: np.ndarray, lens: np.ndarray):

@@ -5,8 +5,11 @@ The classic path enumerates every <=1-mismatch variant of each 20-mer
 anchor (1 + 3a = 61) and resolves it exactly in the cuckoo k-mer table;
 the K1 v4 fast path resolves an anchor whose exact key is present from
 4 row gathers (table and 1-mm neighbour table, two probes each) and
-falls back to the enumeration on a static slice for the rest. Every
-table row fetch goes through `ops.gather_rows`.
+falls back to the enumeration on a static slice for the rest. On one
+table on the card the exact-first probe is one hand-written CUDA kernel
+(`exact_anchor_stats`, csrc/exact_stats.cu, which fetches its own rows;
+a CPU tensor takes the plain version, `exact_anchor_stats_ref`); every
+other table row fetch goes through `ops.gather_rows`.
 
 The `*_sharded` forms take the index as prefix-range shards (the
 sharded engine, parallel/sharded.py), each a list of per-shard tables
@@ -28,7 +31,9 @@ from __future__ import annotations
 from typing import NamedTuple
 
 import torch
+from torch.profiler import record_function
 
+from find_circ2_tpu_torch import _build
 from find_circ2_tpu_torch.config import Config
 from find_circ2_tpu_torch.index.hashtable import (CNT_BITS, CNT_MASK, LANES,
                                                   M32, NBR_LANES, S8_MASK,
@@ -38,6 +43,12 @@ from find_circ2_tpu_torch.ops.gather_rows import (gather_rows,
 
 LARGE_MM = 255
 LARGE_POS = M32
+# csrc/exact_stats.cu's limit on the anchor length (its keys are 64-bit).
+MAX_ANCHOR_LEN = 32
+
+# Kernel launches of exact_anchor_stats since the last reset (set to 0 to
+# reset).
+exact_launches = 0
 
 
 def read_anchors(reads: torch.Tensor, lens: torch.Tensor, cfg: Config):
@@ -373,13 +384,90 @@ def exact_anchor_stats_sharded(shards, anchors, cfg: Config):
     return exact_finish(_combine(parts, EXACT_OPS), clean, swap, cfg)
 
 
+def exact_anchor_stats_ref(table, ntable, meta, anchors, cfg: Config):
+    """Plain version of exact_anchor_stats: the sharded form on one
+    shard."""
+    return exact_anchor_stats_sharded([(table, ntable, meta)], anchors, cfg)
+
+
 def exact_anchor_stats(table, ntable, meta, anchors, cfg: Config):
     """K1 v4 fast path: the frozen SPEC §2 statistics from the exact
     canonical key alone (table row + neighbour-table row, two probes).
     Returns (AnchorHits [B], resolved bool [B]); resolved=False means the
     key is absent in both orientations and the anchor needs the
-    enumeration. Dirty anchors (code >= 4) resolve to empty statistics."""
-    return exact_anchor_stats_sharded([(table, ntable, meta)], anchors, cfg)
+    enumeration. Dirty anchors (code >= 4) resolve to empty statistics.
+    CPU tensors take the plain version; CUDA tensors launch
+    csrc/exact_stats.cu on the current stream (one launch, no wait) or
+    raise."""
+    if all(t.is_cpu for t in (table, ntable, meta, anchors)):
+        return exact_anchor_stats_ref(table, ntable, meta, anchors, cfg)
+    return _launch_exact((table, ntable, meta, anchors), cfg)
+
+
+def _check_exact(table, ntable, meta, anchors, cfg: Config) -> None:
+    """Raise unless the kernel takes these tensors and `cfg`."""
+    dev = anchors.device
+    for t in (table, ntable, meta, anchors):
+        if t.device != dev:
+            raise ValueError(f"exact_anchor_stats: a tensor on {t.device}, "
+                             f"anchors on {dev}; all must be on one CUDA "
+                             "device")
+        if not t.is_contiguous():
+            raise ValueError("exact_anchor_stats: tensors must be "
+                             "contiguous")
+    if dev.type != "cuda":
+        raise ValueError(f"exact_anchor_stats: tensors on {dev}; the kernel "
+                         "takes one CUDA device (CPU tensors take the plain "
+                         "version)")
+    a = cfg.anchor_len
+    if (anchors.dtype != torch.uint8 or anchors.dim() != 2
+            or anchors.shape[1] != a or not a <= MAX_ANCHOR_LEN):
+        raise ValueError(f"exact_anchor_stats: anchors must be uint8 [n, "
+                         f"{a}] (anchor_len <= {MAX_ANCHOR_LEN}), got "
+                         f"{anchors.dtype} {list(anchors.shape)}")
+    if (table.dtype != torch.int32 or ntable.dtype != torch.int32
+            or table.dim() != 2 or table.shape[1] != SLOTS * LANES
+            or tuple(ntable.shape) != (table.shape[0], SLOTS * NBR_LANES)
+            or meta.dtype != torch.int32 or meta.dim() != 1
+            or meta.shape[0] < 3):
+        raise ValueError(f"exact_anchor_stats: want int32 table [T, "
+                         f"{SLOTS * LANES}], ntable [T, {SLOTS * NBR_LANES}]"
+                         f" and meta [>= 3], got {list(table.shape)}, "
+                         f"{list(ntable.shape)}, {list(meta.shape)}")
+
+
+def _launch_exact(args: tuple, cfg: Config, lib=None):
+    """exact_anchor_stats on CUDA tensors: one C call into `lib` (default:
+    the kernel library), made with the tensors' device current."""
+    global exact_launches
+    table, ntable, meta, anchors = args
+    _check_exact(*args, cfg)
+    n = anchors.shape[0]
+    dev = anchors.device
+
+    def empty(dtype):
+        return torch.empty(n, dtype=dtype, device=dev)
+
+    hits = AnchorHits(aligned=empty(torch.bool), pos=empty(torch.int64),
+                      strand=empty(torch.int32), mm=empty(torch.int32),
+                      n_best=empty(torch.int32),
+                      second_mm=empty(torch.int32), qual=empty(torch.int32))
+    resolved = empty(torch.bool)
+    if n == 0:
+        return hits, resolved
+    lib = lib or _build.load()
+    index = anchors.get_device()
+    with torch.cuda.device(index):
+        got = lib.fc2t_exact_stats(_build.EXACT_ARGS.pack(
+            anchors.data_ptr(), table.data_ptr(), ntable.data_ptr(),
+            meta.data_ptr(), *(x.data_ptr() for x in hits),
+            resolved.data_ptr(), torch._C._cuda_getCurrentRawStream(index),
+            table.shape[0], n, cfg.anchor_len, cfg.prefix_len,
+            cfg.max_bucket, cfg.max_anchor_mm, index))
+    if got < 0:
+        _build.check(-got, "exact_anchor_stats launch")
+    exact_launches += got
+    return hits, resolved
 
 
 def align_anchors_sharded(shards, anchors, cfg: Config) -> AnchorHits:
@@ -423,33 +511,47 @@ def align_anchor_pair(table, meta, anchors_a, anchors_b, cfg: Config
                                      cfg)
 
 
-def align_anchor_pair_fast_sharded(shards, anchors_a, anchors_b,
-                                   cfg: Config):
-    """align_anchor_pair_fast over index shards [(table, ntable, meta)].
-    The fallback slice is compacted on the combined `resolved`, so every
-    shard enumerates the same anchors, and its statistics combine as the
-    classic path's."""
+def _fast_pair(exact, classic, anchors_a, anchors_b, cfg: Config):
+    """The exact-first pair on `exact(anchors) -> (hits, resolved)`, with
+    the enumeration fallback over index shards `classic` [(table,
+    meta)]. The phases carry the profiler labels k1_exact and
+    k1_fallback."""
     B = anchors_a.shape[0]
     both = torch.cat([anchors_a, anchors_b])
-    hits, resolved = exact_anchor_stats_sharded(shards, both, cfg)
-    k = min(cfg.exact_fallback_slots, 2 * B)
-    idx = torch.argsort(resolved.to(torch.int8), stable=True)[:k]
-    sub_hits = align_anchors_sharded([(t, m) for t, _, m in shards],
-                                     both[idx], cfg)
-    merged = [f.index_copy(0, idx, s) for f, s in zip(hits, sub_hits)]
-    overflow = (~resolved).sum() > k
+    with record_function("k1_exact"):
+        hits, resolved = exact(both)
+    with record_function("k1_fallback"):
+        k = min(cfg.exact_fallback_slots, 2 * B)
+        idx = torch.argsort(resolved.to(torch.int8), stable=True)[:k]
+        sub_hits = align_anchors_sharded(classic, both[idx], cfg)
+        merged = [f.index_copy(0, idx, s) for f, s in zip(hits, sub_hits)]
+        overflow = (~resolved).sum() > k
     return (*_split(merged, B), overflow)
+
+
+def align_anchor_pair_fast_sharded(shards, anchors_a, anchors_b,
+                                   cfg: Config):
+    """align_anchor_pair_fast over index shards [(table, ntable, meta)]
+    (plain per-shard partials, combined). The fallback slice is compacted
+    on the combined `resolved`, so every shard enumerates the same
+    anchors, and its statistics combine as the classic path's."""
+    return _fast_pair(lambda both: exact_anchor_stats_sharded(shards, both,
+                                                              cfg),
+                      [(t, m) for t, _, m in shards], anchors_a, anchors_b,
+                      cfg)
 
 
 def align_anchor_pair_fast(table, ntable, meta, anchors_a, anchors_b,
                            cfg: Config):
-    """K1 v4: exact-first alignment with the enumeration fallback on a
-    STATIC slice of k = min(exact_fallback_slots, 2B) anchors, the
-    unresolved ones first (stable sort of `resolved`). Re-enumerated
-    resolved anchors give identical statistics, so the scatter back is
-    unconditional. Returns (hits_a, hits_b, overflow): `overflow` is a
-    0-d bool tensor, True when more anchors were unresolved than the
-    slice holds — the caller must then redo the batch on the classic
-    path. Nothing here waits for the device."""
-    return align_anchor_pair_fast_sharded([(table, ntable, meta)],
-                                          anchors_a, anchors_b, cfg)
+    """K1 v4: exact-first alignment (exact_anchor_stats, the kernel on the
+    card) with the enumeration fallback on a STATIC slice of k =
+    min(exact_fallback_slots, 2B) anchors, the unresolved ones first
+    (stable sort of `resolved`). Re-enumerated resolved anchors give
+    identical statistics, so the scatter back is unconditional. Returns
+    (hits_a, hits_b, overflow): `overflow` is a 0-d bool tensor, True
+    when more anchors were unresolved than the slice holds — the caller
+    must then redo the batch on the classic path. Nothing here waits for
+    the device."""
+    return _fast_pair(lambda both: exact_anchor_stats(table, ntable, meta,
+                                                      both, cfg),
+                      [(table, meta)], anchors_a, anchors_b, cfg)

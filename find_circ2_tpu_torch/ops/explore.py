@@ -27,6 +27,7 @@ from __future__ import annotations
 import ctypes
 
 import torch
+from torch.profiler import record_function
 
 from find_circ2_tpu_torch import _build
 from find_circ2_tpu_torch.config import (
@@ -50,6 +51,7 @@ from find_circ2_tpu_torch.ops.anchor_align import (LARGE_POS, candidate_stats,
                                                    finalize_hits,
                                                    read_anchors)
 from find_circ2_tpu_torch.ops.breakpoint import as_int32
+from find_circ2_tpu_torch.ops.detect import _pack
 from find_circ2_tpu_torch.ops.packed import gather_window
 
 _A, _C, _G, _T = 0, 1, 2, 3
@@ -140,7 +142,7 @@ def explore_core(words, nbases: int, chrom_offsets, reads, lens, hits_a,
     """§2b per-read resolution given merged candidate lists: prefilter
     over all candidates, the K x K pair grid with the frozen tie-breaks,
     the v2 single-best fallback chain and the pair-margin rescue qual.
-    Output dict as models/pipeline.detect_core (multi == 0: final)."""
+    Output dict as ops/detect.detect_core (multi == 0: final)."""
     B, Lp = reads.shape
     a = cfg.anchor_len
     K = cfg.max_pair_hits
@@ -329,8 +331,6 @@ def explore_pairs_ref(words, nbases: int, chrom_offsets, reads, lens,
                       prefilter: bool = True) -> torch.Tensor:
     """Plain version of explore_pairs: merged_candidates for both
     anchors, explore_core and the packing."""
-    from find_circ2_tpu_torch.models.pipeline import _pack
-
     posA, strA, valA = merged_candidates(*stats_a, mm_v, hits_a.mm, cfg)
     posB, strB, valB = merged_candidates(*stats_b, mm_v, hits_b.mm, cfg)
     return _pack(explore_core(words, nbases, chrom_offsets, reads, lens,
@@ -392,7 +392,7 @@ def _check(words, nbases: int, chrom_offsets, reads, lens, stats_a,
 def explore_pairs(words, nbases: int, chrom_offsets, reads, lens, stats_a,
                   stats_b, hits_a, hits_b, mm_v, cfg: Config,
                   prefilter: bool = True) -> torch.Tensor:
-    """§2b after K1, packed: int32 [B, 14] rows in models/pipeline
+    """§2b after K1, packed: int32 [B, 14] rows in ops/detect
     PACK_FIELDS order (multi 0: final). `stats_a`/`stats_b` are each
     anchor's (count int32 [B, 2V], first_pos int64 [B, 2V], extras int64
     [B, 2V, K-1]) from candidate_stats, `hits_a`/`hits_b` their
@@ -497,8 +497,11 @@ def explore_batch_packed(words, nbases: int, table, meta, ext, ext_id,
                          prefilter: bool = True) -> torch.Tensor:
     """Full §2b multi-hit re-call of a batch of routed reads (uint8
     [B, Lp], int32 [B]), packed as int32 [B, 14] in
-    models/pipeline.PACK_FIELDS order (multi 0: the rows are final): K1
-    with the §2b extras, then explore_pairs."""
-    return explore_pairs(*explore_k1(words, nbases, table, meta, ext, ext_id,
-                                     chrom_offsets, reads, lens, cfg),
-                         cfg, prefilter)
+    ops/detect.PACK_FIELDS order (multi 0: the rows are final): K1
+    with the §2b extras, then explore_pairs, under the profiler labels
+    explore_k1 and explore_pairs."""
+    with record_function("explore_k1"):
+        args = explore_k1(words, nbases, table, meta, ext, ext_id,
+                          chrom_offsets, reads, lens, cfg)
+    with record_function("explore_pairs"):
+        return explore_pairs(*args, cfg, prefilter)

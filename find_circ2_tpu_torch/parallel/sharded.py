@@ -35,11 +35,11 @@ from find_circ2_tpu_torch.index.hashtable import (build_neighbor_table,
                                                   shard_neighbor_tables,
                                                   shard_query_table)
 from find_circ2_tpu_torch.io.genome import Genome
-from find_circ2_tpu_torch.models.pipeline import (_pack, detect_core,
-                                                  revcomp_batch,
+from find_circ2_tpu_torch.models.pipeline import (revcomp_batch,
                                                   unpack_results)
 from find_circ2_tpu_torch.ops.anchor_align import (
     align_anchor_pair_fast_sharded, align_anchor_pair_sharded, read_anchors)
+from find_circ2_tpu_torch.ops.detect import detect_core, detect_core_packed
 from find_circ2_tpu_torch.ops.merge import (ALL_FIELDS, merge_junctions,
                                             merge_tables)
 from find_circ2_tpu_torch.ops.packed import pack_words
@@ -133,29 +133,41 @@ class ShardedEngine:
                         for x in (reads, lens, rc)))
                 for r, row in enumerate(self.rows)]
 
+    def _align_row(self, row: _Row, reads, lens, classic: bool):
+        """One data row's K1 over its index shards: (hits_a, hits_b,
+        overflow), overflow None on the classic path."""
+        cfg = self.cfg
+        anchors_a, anchors_b = read_anchors(reads, lens, cfg)
+        if self.fast and not classic:
+            return align_anchor_pair_fast_sharded(row.shards, anchors_a,
+                                                  anchors_b, cfg)
+        return (*align_anchor_pair_sharded(
+            [(t, m) for t, _, m in row.shards], anchors_a, anchors_b, cfg),
+            None)
+
     def _detect_row(self, row: _Row, reads, lens, rc,
                     classic: bool = False) -> dict:
         """One data row's detect_core result dict; on the exact-first
         path `multi` bit 3 carries the row's fallback-overflow flag."""
-        cfg = self.cfg
-        anchors_a, anchors_b = read_anchors(reads, lens, cfg)
-        overflow = None
-        if self.fast and not classic:
-            hits_a, hits_b, overflow = align_anchor_pair_fast_sharded(
-                row.shards, anchors_a, anchors_b, cfg)
-        else:
-            hits_a, hits_b = align_anchor_pair_sharded(
-                [(t, m) for t, _, m in row.shards], anchors_a, anchors_b,
-                cfg)
+        hits_a, hits_b, overflow = self._align_row(row, reads, lens, classic)
         res = detect_core(row.words, self.nbases, row.chrom_offsets, reads,
-                          lens, hits_a, hits_b, cfg, self.prefilter, rc)
+                          lens, hits_a, hits_b, self.cfg, self.prefilter, rc)
         if overflow is not None:
             res["multi"] = res["multi"] | (overflow.to(torch.int32) << 3)
         return res
 
+    def _packed_row(self, row: _Row, reads, lens, rc,
+                    classic: bool) -> torch.Tensor:
+        """One data row's packed rows: K1, then detect_core_packed (the
+        kernel on the card)."""
+        hits_a, hits_b, overflow = self._align_row(row, reads, lens, classic)
+        return detect_core_packed(row.words, self.nbases, row.chrom_offsets,
+                                  reads, lens, rc, hits_a, hits_b, overflow,
+                                  self.cfg, self.prefilter)
+
     def _packed(self, reads, lens, classic: bool) -> torch.Tensor:
         dev = self.rows[0].device
-        return torch.cat([_pack(self._detect_row(*part, classic=classic))
+        return torch.cat([self._packed_row(*part, classic=classic)
                           .to(dev, non_blocking=True)
                           for part in self._split(reads, lens)])
 

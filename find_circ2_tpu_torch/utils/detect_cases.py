@@ -1,0 +1,318 @@
+"""Synthetic inputs of detect's core (ops/detect.detect_core_packed) and of
+K1 v4's exact-first probe (ops/anchor_align.exact_anchor_stats) at their
+edges, made with numpy from a seed.
+
+A case is a two-chromosome genome with its query and neighbour tables
+(the port's numpy builders), a batch of reads with their reverse
+complements, each anchor's hits, and a set of anchors for the probe.
+The hits are K1 v4's (the plain exact_anchor_stats with its enumeration
+fallback) except on the first rows, which pin one edge each (see
+`PINNED`), with hits written out where K1 could not give them. The other
+rows mix junction reads cut from the genome on either strand (with
+mismatches and N), contiguous reads (the §6 prefilter), random reads
+(unaligned anchors), reads anchored in a 20-mer planted more often than
+max_bucket, lengths 2a to Lp, and padding rows (length 0). The probe's
+anchors are the reads' anchors followed by `PINNED_ANCHORS`. `core_args`
+and `exact_args` turn a case into the two functions' arguments.
+`chip_smoke.py` holds the CUDA kernels against their plain versions on a
+case; the tests hold the plain versions against the reference.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+
+import numpy as np
+import torch
+
+from find_circ2_tpu_torch.config import RPAD_CODE, Config
+from find_circ2_tpu_torch.index.build import build_index
+from find_circ2_tpu_torch.index.hashtable import (EMPTY_KEY, LANES,
+                                                  S8_MASK,
+                                                  build_neighbor_table,
+                                                  build_query_table,
+                                                  mix_hash)
+from find_circ2_tpu_torch.io.genome import Genome
+from find_circ2_tpu_torch.models.pipeline import revcomp_batch
+from find_circ2_tpu_torch.ops.anchor_align import (AnchorHits,
+                                                   align_anchor_pair_fast,
+                                                   read_anchors)
+from find_circ2_tpu_torch.ops.packed import pack_words
+
+LARGE_POS = 0xFFFFFFFF
+CHROM_BASES = 60_000
+# A 20-mer planted more often than Config.max_bucket.
+REPEAT_COPIES = 80
+_A, _C, _G, _T, _N = 0, 1, 2, 3, 4
+
+# What each of the first rows of the batch pins.
+PINNED = (
+    "a padding row: length 0, every split invalid",
+    "both anchors unaligned: position 2^32 - 1, the last chromosome",
+    "anchor B '+' at position 5: its prefilter start and K2's right "
+    "window start wrap below 0 and clamp to the top; chromosome -1",
+    "a '+' linear junction at a planted GT..AG site: sense '+'",
+    "a '-' circular junction at a planted CT..AC site: sense '-'",
+    "a '+' junction read with N and mismatches",
+    "anchor A unaligned with strand 2, B aligned: sense falls back to 2",
+    "a contiguous read: prefiltered when the prefilter is on",
+    "anchors on different strands",
+    "anchors on different chromosomes",
+    "anchors overlapping on the genome: neither geometry",
+    "a linear pair whose junction ends before it starts",
+    "positions next to 2^32: pB + a wraps, windows clamp to the top",
+    "anchor A with n_best 3 (multi bit 0), anchor B unaligned (bit 1)",
+    "a junction whose flanks repeat: several splits tie in score",
+    "length 2a: one valid split",
+    "length Lp at the genome's end: both windows clamp",
+)
+# What each of the pinned anchors appended after the reads' anchors
+# pins.
+PINNED_ANCHORS = (
+    "present, with an A turned into N: not clean, found on its zeroed "
+    "codes, resolved with empty statistics",
+    "absent, with an N: not clean, not found, resolved",
+    "the 20-mer planted more often than max_bucket: its exact count is "
+    "guarded to 0",
+    "the reverse complement of a present 20-mer: the canonical key swaps",
+    "one substitution away from a present 20-mer: not found, unresolved",
+    "random: absent, unresolved",
+    "all N",
+)
+
+
+@dataclass
+class DetectCase:
+    genome: Genome
+    table: np.ndarray      # int32 [T, 8] cuckoo table
+    ntable: np.ndarray     # int32 [T, 8] neighbour table
+    meta: np.ndarray       # int32 [3]
+    reads: np.ndarray      # uint8 [B, Lp], RPAD past each length
+    lens: np.ndarray       # int32 [B]
+    rc: np.ndarray         # uint8 [B, Lp] left-aligned reverse complements
+    hits: list             # per anchor, {AnchorHits field: numpy [B]}
+    anchors: np.ndarray    # uint8 [n, a] for the probe
+    coincident: int        # anchors of keys whose two buckets coincide
+
+
+def _revcomp(seq: np.ndarray) -> np.ndarray:
+    r = seq[::-1].copy()
+    return np.where(r < 4, 3 - r, r).astype(np.uint8)
+
+
+def _hit(a, pos, strand, aligned=True, mm=0, n_best=1):
+    """One anchor's hit fields as finalize_hits would give them for
+    anchors of length a: a hit at the best level of n_best (or none)."""
+    if not aligned:
+        return dict(aligned=False, pos=LARGE_POS, strand=2, mm=255,
+                    n_best=0, second_mm=a + 1, qual=10 * (a + 1 - 255))
+    second = mm if n_best > 1 else a + 1
+    return dict(aligned=True, pos=pos, strand=strand, mm=mm, n_best=n_best,
+                second_mm=second,
+                qual=0 if n_best > 1 else min(10 * (second - mm), 40))
+
+
+def detect_case(seed: int, B: int, cfg: Config = Config()) -> DetectCase:
+    """B >= len(PINNED) reads: the pinned rows, then random ones."""
+    if B < len(PINNED):
+        raise ValueError(f"detect_case needs B >= {len(PINNED)}")
+    rng = np.random.default_rng(seed)
+    a, Lp = cfg.anchor_len, cfg.max_read_len
+    chroms = [rng.integers(0, 4, CHROM_BASES).astype(np.uint8)
+              for _ in range(2)]
+    repeat = rng.integers(0, 4, a).astype(np.uint8)
+    for p in rng.choice(CHROM_BASES // 100, REPEAT_COPIES,
+                        replace=False) * 100 + 50:
+        chroms[1][p:p + a] = repeat
+    off = cfg.chrom_gap                       # chromosome 0's first base
+
+    def cut(chrom, pA, k, pB, L):
+        """A junction read G[pA : pA+k] + G[pB+a-(L-k) : pB+a] of
+        chromosome-local positions; returns it and the global (pA, pB)."""
+        c = chroms[chrom]
+        read = np.concatenate([c[pA:pA + k], c[pB + a - (L - k):pB + a]])
+        g = off + chrom * (CHROM_BASES + cfg.chrom_gap)
+        return read, g + pA, g + pB
+
+    # Planted splice sites (rows 3 and 4), before the index is built.
+    c0 = chroms[0]
+    c0[1000 + 50:1000 + 52] = (_G, _T)        # donor after G[1000:1050]
+    c0[5000 + a - 50 - 2:5000 + a - 50] = (_A, _G)
+    c0[20000 + 60:20000 + 62] = (_C, _T)
+    c0[9000 + a - 100 - 2:9000 + a - 100] = (_A, _C)
+    # Row 14: the right piece's first bases repeat after the left piece.
+    c0[30000 + 40:30000 + 46] = c0[36000 + a - 60:36000 + a - 54]
+    genome = Genome.from_records([("chrA", chroms[0]), ("chrB", chroms[1])],
+                                 cfg)
+    index = build_index(genome, cfg)
+    qt = index.qtable = build_query_table(index, cfg, extras=False)
+    ntable = build_neighbor_table(index, cfg)
+    nbases = len(genome)
+
+    reads = np.full((B, Lp), RPAD_CODE, np.uint8)
+    lens = np.zeros(B, np.int32)
+    pinned_hits: dict[int, tuple[dict, dict]] = {}
+
+    def set_read(b, seq):
+        reads[b, :len(seq)] = seq
+        lens[b] = len(seq)
+
+    # 0: padding. 1: random read, both anchors unaligned (written out).
+    set_read(1, rng.integers(0, 4, 100).astype(np.uint8))
+    pinned_hits[1] = (_hit(a, 0, 0, False), _hit(a, 0, 0, False))
+    # 2: anchor B '+' at position 5 (before chromosome 0).
+    seq, pA, _ = cut(0, 2000, 50, 2500, 100)
+    set_read(2, seq)
+    pinned_hits[2] = (_hit(a, pA, 0), _hit(a, 5, 0))
+    # 3, 4: the planted splice sites, on '+' and (reverse complement) '-'.
+    set_read(3, cut(0, 1000, 50, 5000, 100)[0])
+    set_read(4, _revcomp(cut(0, 20000, 60, 9000, 160)[0]))
+    # 5: N and mismatches in a '+' junction read.
+    seq = cut(0, 12000, 70, 14000, 120)[0].copy()
+    seq[[30, 75]] = _N
+    seq[90] = (seq[90] + 1) % 4
+    set_read(5, seq)
+    # 6: A unaligned with strand 2, B aligned.
+    seq, _, pB = cut(0, 3000, 50, 3600, 100)
+    set_read(6, seq)
+    pinned_hits[6] = (_hit(a, 0, 0, False), _hit(a, pB, 0))
+    # 7: contiguous.
+    set_read(7, c0[4000:4120].copy())
+    # 8: different strands; 9: different chromosomes.
+    seq, pA, pB = cut(0, 6000, 50, 6500, 100)
+    set_read(8, seq)
+    pinned_hits[8] = (_hit(a, pA, 0), _hit(a, pB, 1))
+    seq, pA, _ = cut(0, 7000, 50, 7500, 100)
+    set_read(9, seq)
+    pinned_hits[9] = (_hit(a, pA, 0),
+                      _hit(a, off + CHROM_BASES + cfg.chrom_gap + 700, 0))
+    # 10: overlapping anchors; 11: a linear pair ending before it starts.
+    seq, pA, _ = cut(0, 8000, 50, 8500, 100)
+    set_read(10, seq)
+    pinned_hits[10] = (_hit(a, pA, 0), _hit(a, pA + 5, 0))
+    set_read(11, seq)
+    pinned_hits[11] = (_hit(a, pA, 0), _hit(a, pA + a + 5, 0))
+    # 12: next to 2^32.
+    set_read(12, seq)
+    pinned_hits[12] = (_hit(a, 2 ** 32 - 50, 0), _hit(a, 2 ** 32 - 10, 0))
+    # 13: A multi, B unaligned.
+    seq, pA, _ = cut(0, 10000, 50, 10600, 100)
+    set_read(13, seq)
+    pinned_hits[13] = (_hit(a, pA, 0, mm=0, n_best=3), _hit(a, 0, 0, False))
+    # 14: repeated flanks; 15: length 2a; 16: length Lp at the end.
+    set_read(14, cut(0, 30000, 40, 36000, 100)[0])
+    set_read(15, cut(0, 15000, a, 16000, 2 * a)[0])
+    seq, pA, pB = cut(1, CHROM_BASES - 150, 100, CHROM_BASES - 400, Lp)
+    set_read(16, seq)
+    pinned_hits[16] = (_hit(a, nbases - 60, 0), _hit(a, nbases - 30, 0))
+
+    lengths = (2 * a, 2 * a + 1, 100, Lp - 1, Lp)
+    for b in range(len(PINNED), B):
+        L = int(lengths[b % 5] if rng.random() < 0.5
+                else rng.integers(2 * a, Lp + 1))
+        kind = rng.random()
+        chrom = int(rng.integers(2))
+        c = chroms[chrom]
+        if kind < 0.05:
+            continue                          # padding
+        if kind < 0.15:
+            seq = rng.integers(0, 4, L).astype(np.uint8)
+        elif kind < 0.3:
+            p = int(rng.integers(200, CHROM_BASES - 400))
+            seq = c[p:p + L].copy()
+        elif kind < 0.35:
+            seq = np.concatenate([repeat, c[7000:7000 + L - a]])
+        else:
+            k = int(rng.integers(a, L - a + 1))
+            while True:
+                pA, pB = (int(x) for x in rng.integers(300, CHROM_BASES - 400,
+                                                       2))
+                if pB + a <= pA or pB - pA > L + 5:
+                    break
+            seq = np.concatenate([c[pA:pA + k],
+                                  c[pB + a - (L - k):pB + a]])
+        seq = seq.copy()
+        errs = rng.integers(0, L, int(rng.integers(0, 4)))
+        seq[errs] = rng.integers(0, 5, errs.size)
+        set_read(b, _revcomp(seq) if rng.random() < 0.5 else seq)
+
+    # K1 v4 (plain, on the CPU) for every row, then the written-out rows.
+    anchors_a, anchors_b = read_anchors(torch.from_numpy(reads),
+                                        torch.from_numpy(lens), cfg)
+    hits_a, hits_b, _ = align_anchor_pair_fast(
+        torch.from_numpy(qt.table), torch.from_numpy(ntable),
+        torch.from_numpy(qt.meta), anchors_a, anchors_b, cfg)
+    hits = [{f: getattr(h, f).numpy().copy() for f in AnchorHits._fields}
+            for h in (hits_a, hits_b)]
+    for b, pair in pinned_hits.items():
+        for x in (0, 1):
+            for f, v in pair[x].items():
+                hits[x][f][b] = v
+
+    # The probe's anchors: the reads', then the pinned ones, then those
+    # of keys whose two buckets coincide.
+    codes = genome.codes
+    g0 = off + 3000
+    dirty = codes[g0:g0 + a].copy()
+    dirty[int(np.flatnonzero(dirty == _A)[0])] = _N
+    absent = rng.integers(0, 4, a).astype(np.uint8)
+    absent[3] = _N
+    one_off = codes[g0 + 100:g0 + 100 + a].copy()
+    one_off[7] = (one_off[7] + 2) % 4
+    pinned = [dirty, absent, repeat.copy(),
+              _revcomp(codes[g0 + 200:g0 + 200 + a]), one_off,
+              rng.integers(0, 4, a).astype(np.uint8),
+              np.full(a, _N, np.uint8)]
+    tab = qt.table.reshape(-1, LANES)
+    occ = np.flatnonzero(tab[:, 0] != EMPTY_KEY)
+    salts = np.asarray(qt.meta[:2], np.int32).view(np.uint32)
+    h1, h2 = (mix_hash(tab[occ, 0].astype(np.uint32),
+                       (tab[occ, 1] & S8_MASK).astype(np.uint32),
+                       s).astype(np.int64) % int(qt.meta[2]) for s in salts)
+    co = occ[h1 == h2]
+    pos = tab[co, 2:4].view(np.uint32).min(axis=1).astype(np.int64)
+    same = [codes[p:p + a] for p in pos if p + a <= nbases]
+    anchors = np.concatenate([anchors_a.numpy(), anchors_b.numpy(),
+                              np.stack(pinned + same)])
+    return DetectCase(genome=genome, table=qt.table, ntable=ntable,
+                      meta=np.asarray(qt.meta[:3], np.int32), reads=reads,
+                      lens=lens, rc=revcomp_batch(reads, lens), hits=hits,
+                      anchors=np.ascontiguousarray(anchors, np.uint8),
+                      coincident=len(same))
+
+
+def _hits(fields: dict, device) -> AnchorHits:
+    return AnchorHits(*(torch.from_numpy(fields[f]).to(device)
+                        for f in AnchorHits._fields))
+
+
+def core_args(case: DetectCase, device="cpu", overflow=None) -> tuple:
+    """detect_core_packed's arguments before `cfg` for a case, on
+    `device`; `overflow` None or a bool for the 0-d flag."""
+    def dev(x):
+        return torch.from_numpy(np.ascontiguousarray(x)).to(device)
+    flag = None if overflow is None else torch.tensor(overflow,
+                                                      device=device)
+    return (dev(pack_words(case.genome.codes)), len(case.genome),
+            dev(case.genome.chrom_offsets), dev(case.reads), dev(case.lens),
+            dev(case.rc), _hits(case.hits[0], device),
+            _hits(case.hits[1], device), flag)
+
+
+def exact_args(case: DetectCase, device="cpu", shift: int = 0) -> tuple:
+    """exact_anchor_stats' arguments before `cfg` for a case, on `device`:
+    (table, ntable, meta, anchors). `shift` adds to every stored position
+    (the table's and the neighbour table's position lanes, LARGE_POS
+    kept), wrapping mod 2^32, as a genome past 2^31 would store them."""
+    table, ntable = case.table.copy(), case.ntable.copy()
+    if shift:
+        for t, lanes in ((table, (2, 3)), (ntable, (1, 3))):
+            v = t.reshape(-1, 4)[:, lanes].view(np.uint32)
+            moved = np.where(v == LARGE_POS, v,
+                             (v.astype(np.uint64) + shift) % 2 ** 32)
+            t.reshape(-1, 4)[:, lanes] = moved.astype(np.uint32).view(
+                np.int32)
+
+    def dev(x):
+        return torch.from_numpy(np.ascontiguousarray(x)).to(device)
+    return dev(table), dev(ntable), dev(case.meta), dev(case.anchors)

@@ -1,0 +1,169 @@
+"""The PyTorch port's CUDA kernels against their plain versions on the
+card, on one card and on a second one. Nothing here imports JAX or the
+JAX package (the card's machine has neither), so on that machine the
+file runs without tests/conftest.py:
+
+    python -m pytest --noconftest -q -m cuda tests/test_torch_cards.py
+
+Without a card every test skips; the one-card tests need one, the
+second-card tests two (cuda:1 with cuda:0 current). Tolerance 0: every
+output is an integer."""
+
+import dataclasses
+
+import numpy as np
+import pytest
+import torch
+
+from find_circ2_tpu_torch.config import Config
+from find_circ2_tpu_torch.models import pipeline as tp
+from find_circ2_tpu_torch.ops import anchor_align as ta
+from find_circ2_tpu_torch.ops import detect as td
+from find_circ2_tpu_torch.ops import explore as tx
+from find_circ2_tpu_torch.ops import gather_rows as gr
+from find_circ2_tpu_torch.utils import detect_cases, explore_cases
+
+CFG = Config()
+CASE_ROWS = 96
+
+
+@pytest.fixture
+def cuda_device():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels have no CPU mode")
+    return torch.device("cuda")
+
+
+@pytest.fixture
+def two_cards():
+    if not torch.cuda.is_available() or torch.cuda.device_count() < 2:
+        pytest.skip("needs two CUDA cards")
+    return torch.device("cuda", 1)
+
+
+@pytest.fixture(scope="module")
+def case():
+    return detect_cases.detect_case(2, CASE_ROWS, CFG)
+
+
+def _card_table(g, rows, width, offset):
+    """A contiguous int32 [rows, width] table on the card whose base lies
+    `offset` 4-byte words past an allocation (a view)."""
+    flat = torch.randint(-2 ** 31, 2 ** 31 - 1, (rows * width + offset,),
+                         dtype=torch.int32, device=g.device, generator=g)
+    return flat[offset:].view(rows, width)
+
+
+def _same_hits(got, want):
+    (hits, resolved), (whits, wres) = got, want
+    return (all(torch.equal(x, y) for x, y in zip(hits, whits))
+            and torch.equal(resolved, wres))
+
+
+def _sharded_rows(case, device):
+    """A 1x2 sharded engine's packed rows (exact-first and the classic
+    redo) on the case's reads, its two index shards on `device`."""
+    from find_circ2_tpu_torch.index.build import build_index
+    from find_circ2_tpu_torch.parallel.mesh import make_mesh
+    from find_circ2_tpu_torch.parallel.sharded import ShardedEngine
+    index = build_index(case.genome, CFG)
+    eng = ShardedEngine(case.genome, index, make_mesh(
+        2, (1, 2), [torch.device(device)] * 2), CFG)
+    return [eng.dispatch_packed(case.reads, case.lens),
+            eng.redo_packed(case.reads, case.lens)]
+
+
+@pytest.mark.cuda
+def test_detect_kernels_match_plain_on_card(case, cuda_device):
+    """On the card, each kernel launches once a call and equals its plain
+    version on the same inputs: the core on the detect_cases batch with
+    the prefilter on and off and each overflow flag, the probe on the
+    case's anchors (positions past 2^31 too), detect_batch_packed_fast
+    with and without an overflowing fallback slice against the CPU, and
+    the sharded engine's rows against the CPU's."""
+    for prefilter in (True, False):
+        for overflow in (None, False, True):
+            args = detect_cases.core_args(case, cuda_device, overflow)
+            before = td.launches
+            got = td.detect_core_packed(*args, CFG, prefilter)
+            torch.cuda.synchronize()
+            assert td.launches == before + 1
+            assert torch.equal(got, td.detect_core_packed_ref(*args, CFG,
+                                                              prefilter))
+    for shift in (0, 3_000_000_000):
+        args = detect_cases.exact_args(case, cuda_device, shift)
+        before = ta.exact_launches
+        got = ta.exact_anchor_stats(*args, CFG)
+        torch.cuda.synchronize()
+        assert ta.exact_launches == before + 1
+        assert _same_hits(got, ta.exact_anchor_stats_ref(*args, CFG))
+    g = case.genome
+    for cfg in (CFG, dataclasses.replace(CFG, exact_fallback_slots=4)):
+        def run(dev):
+            words = detect_cases.core_args(case, dev)[0]
+            return tp.detect_batch_packed_fast(
+                words, len(g), *(torch.from_numpy(x).to(dev) for x in (
+                    case.table, case.ntable, case.meta, g.chrom_offsets,
+                    case.reads, case.lens)), cfg, True,
+                torch.from_numpy(case.rc).to(dev))
+        assert torch.equal(run(cuda_device).cpu(), run("cpu"))
+    for got, want in zip(_sharded_rows(case, cuda_device),
+                         _sharded_rows(case, "cpu")):
+        assert torch.equal(got.cpu(), want)
+
+
+@pytest.mark.cuda
+def test_gather_rows_on_second_card(two_cards):
+    """With cuda:0 current, both wrappers gather tables on cuda:1 exactly,
+    and a packed result on cuda:1 comes back through HostCopy."""
+    torch.cuda.set_device(0)
+    g = torch.Generator(device=two_cards).manual_seed(7)
+    tables = [_card_table(g, 1 << 14, w, 0) for w in (8, 2)]
+    idx = torch.randint(0, 1 << 14, (4097,), device=two_cards, generator=g)
+    got = gr.gather_rows(tables[0], idx)
+    multi = gr.gather_rows_multi(tables, idx)
+    torch.cuda.synchronize(two_cards)
+    assert torch.cuda.current_device() == 0
+    assert torch.equal(got, gr.gather_rows_ref(tables[0], idx))
+    for t, x in zip(tables, multi):
+        assert torch.equal(x, gr.gather_rows_ref(t, idx))
+    assert np.array_equal(tp.HostCopy(got).numpy(), got.cpu().numpy())
+
+
+@pytest.mark.cuda
+def test_explore_kernel_on_second_card(two_cards):
+    """With cuda:0 current, the kernel explores an explore_cases batch on
+    cuda:1 and equals its plain version there."""
+    torch.cuda.set_device(0)
+    args = explore_cases.pair_args(explore_cases.explore_case(6, 256, CFG),
+                                   CFG, two_cards)
+    before = tx.launches
+    for prefilter in (True, False):
+        got = tx.explore_pairs(*args, CFG, prefilter)
+        torch.cuda.synchronize(two_cards)
+        assert got.device == two_cards
+        assert torch.equal(got, tx.explore_pairs_ref(*args, CFG, prefilter))
+    assert tx.launches == before + 2 and torch.cuda.current_device() == 0
+
+
+@pytest.mark.cuda
+def test_detect_kernels_on_second_card(case, two_cards):
+    """With cuda:0 current, both detect kernels run on tensors on cuda:1
+    and equal their plain versions there."""
+    torch.cuda.set_device(0)
+    before = (td.launches, ta.exact_launches)
+    for prefilter in (True, False):
+        args = detect_cases.core_args(case, two_cards, True)
+        got = td.detect_core_packed(*args, CFG, prefilter)
+        torch.cuda.synchronize(two_cards)
+        assert got.device == two_cards
+        assert torch.equal(got, td.detect_core_packed_ref(*args, CFG,
+                                                          prefilter))
+    args = detect_cases.exact_args(case, two_cards)
+    got = ta.exact_anchor_stats(*args, CFG)
+    torch.cuda.synchronize(two_cards)
+    assert got[0].pos.device == two_cards
+    assert _same_hits(got, ta.exact_anchor_stats_ref(*args, CFG))
+    assert (td.launches, ta.exact_launches) == (before[0] + 2,
+                                                before[1] + 1)
+    assert torch.cuda.current_device() == 0

@@ -349,21 +349,3 @@ def test_explore_c_call_runs_on_the_tensors_device(case, monkeypatch):
     out = tx._launch(args, CFG, True)
     assert out.shape == (CASE_ROWS, 14) and tx.launches == before + 1
     assert seen == [(2, 2)] and current == [0]
-
-
-@pytest.mark.cuda
-def test_explore_kernel_on_second_card():
-    """With cuda:0 current, the kernel explores an explore_cases batch on
-    cuda:1 and equals its plain version there."""
-    if not torch.cuda.is_available() or torch.cuda.device_count() < 2:
-        pytest.skip("needs two CUDA cards")
-    torch.cuda.set_device(0)
-    args = explore_cases.pair_args(explore_cases.explore_case(6, 256, CFG),
-                                   CFG, "cuda:1")
-    before = tx.launches
-    for prefilter in (True, False):
-        got = tx.explore_pairs(*args, CFG, prefilter)
-        torch.cuda.synchronize("cuda:1")
-        assert got.device == torch.device("cuda", 1)
-        assert torch.equal(got, tx.explore_pairs_ref(*args, CFG, prefilter))
-    assert tx.launches == before + 2 and torch.cuda.current_device() == 0

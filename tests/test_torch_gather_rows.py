@@ -229,29 +229,3 @@ def test_gather_rows_c_call_runs_on_the_tables_device(monkeypatch):
                                                           dtype=torch.int32),
                           table, torch.empty(8, 8, dtype=torch.int32)) == 1
     assert seen == [(1, 1), (3, 3)] and _CurrentDevice.current == 0
-
-
-@pytest.fixture
-def two_cards():
-    if not torch.cuda.is_available() or torch.cuda.device_count() < 2:
-        pytest.skip("needs two CUDA cards")
-    return torch.device("cuda", 1)
-
-
-@pytest.mark.cuda
-def test_gather_rows_on_second_card(two_cards):
-    """With cuda:0 current, both wrappers gather tables on cuda:1 exactly,
-    and a packed result on cuda:1 comes back through HostCopy."""
-    from find_circ2_tpu_torch.models.pipeline import HostCopy
-    torch.cuda.set_device(0)
-    g = torch.Generator(device=two_cards).manual_seed(7)
-    tables = [_card_table(g, 1 << 14, w, 0) for w in (8, 2)]
-    idx = torch.randint(0, 1 << 14, (4097,), device=two_cards, generator=g)
-    got = gr.gather_rows(tables[0], idx)
-    multi = gr.gather_rows_multi(tables, idx)
-    torch.cuda.synchronize(two_cards)
-    assert torch.cuda.current_device() == 0
-    assert torch.equal(got, gr.gather_rows_ref(tables[0], idx))
-    for t, x in zip(tables, multi):
-        assert torch.equal(x, gr.gather_rows_ref(t, idx))
-    assert np.array_equal(HostCopy(got).numpy(), got.cpu().numpy())
