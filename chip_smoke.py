@@ -6,22 +6,27 @@ Run from the root of a checkout:  python3 chip_smoke.py
 Phases, each fatal on failure:
   1. the card (name and power limit from nvidia-smi), torch and CUDA;
   2. build the CUDA kernels from find_circ2_tpu_torch/csrc/;
-  3. every kernel against its plain PyTorch version on the card, exactly,
-     at every vector path and at the main path's shapes (detect's 32-byte
-     rows, §2b explore's 8- and 120-byte rows, on tables larger than the
-     L2), each timed as called (CUDA events) and on the device alone
-     (CUDA-graph replay) beside its bytes bound; detect's core
-     (`detect_core_packed`) and exact-first probe (`exact_anchor_stats`)
-     against their plain versions on a `detect_cases` batch;
+  3. every kernel against its plain PyTorch version on the card, exactly:
+     the row gather at every vector path and at the shapes it had on the
+     main path (detect's 32-byte rows, §2b explore's 8- and 120-byte
+     rows, on tables larger than the L2), timed as called (CUDA events)
+     and on the device alone (CUDA-graph replay) beside its bytes bound;
+     detect's core (`detect_core_packed`) and exact-first probe
+     (`exact_anchor_stats`), K1's enumeration (`classic_anchor_stats`:
+     hits, statistics, §2b extras) and fallback slice (`fallback_slice`,
+     `refill_slice`, one slice that overflows and two that cannot) on a
+     `detect_cases` batch and its pinned anchors;
   4. the port's `find_circ` CLI on test_data/ must reproduce the golden
      BED and stats byte for byte;
   5. the main path at real size: `run --filter` on the 16 Mbp RNase-R
      filter-stack library (~95k reads), with the kernels' launch counts
      (the explore kernel once per explore chunk, detect's core once per
-     detect program and its probe once per exact-first one), precision
-     and recall
-     against the planted circles, and a stage table that shows §2b
-     explore on the device and no host multi-hit stage;
+     detect program, its probe and the fallback slice's compaction once
+     per exact-first one, K1's enumeration once per exact-first or
+     classic program and per explore chunk, the row gather never: K1's
+     kernels fetch their own rows), precision and recall against the
+     planted circles, and a stage table that shows §2b explore on the
+     device and no host multi-hit stage;
   6. §2b explore on the card, on the index the CLI built in phase 5: the
      explore kernel (`explore_pairs`) equals its plain version on the
      card row for row on every read phase 5 routed to the explorer and on
@@ -32,24 +37,30 @@ Phases, each fatal on failure:
      build, each stage's SM clock cycles a block; `explore_batch_packed`
      on the first 1024 routed reads equals the port on the CPU;
      torch.profiler counts one chunk's device activities and host enqueue
-     with the kernel and with the plain version; `run_fastq` with device
+     with the kernels (K1's and the pairs') and with the plain versions;
+     `run_fastq` with device
      explore and with the host twin (`explore=False`) give equal BEDs,
      timed in the same run, and a profiled device-explore stream gives the
      device's busy share;
      500 reads through `run_reads`, routed ones among them, equal the CPU
      oracle read for read;
-     detect's two kernels (check_detect) equal their plain versions on
-     every batch of phase 5's stream, on a `detect_cases` batch and on a
-     batch forced through the classic redo, and are timed beside them and
-     their bounds; one batch's device activities and host enqueue are
-     split by the profiler labels with the kernels and with the plain
-     versions; `run_fastq` runs with the kernels and with the plain
-     versions in turn (equal BED, `device_dispatch` and reads/s);
+     detect's kernels (check_detect) equal their plain versions on every
+     batch of phase 5's stream (the probe, the core, the fallback slice
+     and the redo's enumeration) and on a batch forced through the
+     classic redo, and are timed beside them and their bounds; K1's two
+     new kernels (time_classic) at the fallback slice, the compaction,
+     the 8192-anchor redo and the explore chunk; one batch's device
+     activities and host enqueue are split by the profiler labels with
+     the kernels and with the plain versions; `run_fastq` runs with the
+     kernels and with the plain versions in turn (equal BED,
+     `device_dispatch` and reads/s); explore's K1 equals its plain
+     version on every chunk of routed reads;
   7. the sharded engine on the card: a 2x2 mesh (two data rows, four
      index shards, all four slots on cuda:0) over phase 5's index streams
      phase 5's FASTQ through `run_fastq` and must give phase 6's BED and
      stats byte for byte, the filter stack's precision and recall, §2b on
-     the host twin and the row-gather kernels launched on every shard;
+     the host twin, the row-gather kernels launched on every shard and
+     K1's single-table kernels never (the shards keep the plain K1);
      `detect_merged` equals the single device's detect and merge on every
      batch, and the engine's packed rows equal those of the plain detect
      core; `find_circ --mesh 2x2` and `--nproc 2` (two processes over
@@ -106,6 +117,12 @@ EXPLORE_BUCKETS = (32, 256)
 # compares and the finish), counted from the sources.
 DETECT_OPS_PER_SPLIT = 12
 EXACT_OPS_PER_ANCHOR = 220
+# The int32 operations of one canonical variant in csrc/classic_k1.cu (its
+# key, the swap, two hashes and bucket remainders, four slot compares and
+# the folds), and of one anchor of the compaction, counted from the
+# source.
+CLASSIC_OPS_PER_VARIANT = 150
+COMPACT_OPS_PER_ANCHOR = 30
 # The detect_cases batch (seed, rows), the fallback slice of the forced
 # classic redo, and the anchor sets drawn from the genome for the probe's
 # device-alone time (their rows exceed the L2 four times).
@@ -225,23 +242,23 @@ def check_vector_paths(device) -> None:
 
 def check_gather_rows(device, card: str) -> dict:
     """gather_rows and gather_rows_multi against their plain versions,
-    exactly, at every call shape of the main path, on tables larger than
-    the 50 MB L2: [2^24, 8] (two of them: table and neighbour table),
-    [2^24, 2] (ext_id) and [2^21, 30] (ext). Per detect batch: the
-    enumeration fallback gathers the table's rows (one table,
-    gather_rows) at 2 probes x min(slots, 2B) anchors x V variants. Per
-    1024-read explore chunk and anchor side: table and ext_id rows at
-    2 x 1024 x V (multi, W = 8 and 2), ext rows at 1024 x V. Both tables'
+    exactly, at every call shape they had on the main path, on tables
+    larger than the 50 MB L2: [2^24, 8] (two of them: table and neighbour
+    table), [2^24, 2] (ext_id) and [2^21, 30] (ext). On one table K1's
+    kernels fetch their own rows; the sharded engine's shards keep the
+    plain K1, which gathers, per detect batch and shard, both tables'
     rows at 2 probes x 2B anchors (multi, W = 8 and 8: the exact
-    statistics of the sharded engine, whose shards keep the plain probe;
-    on one table csrc/exact_stats.cu fetches them itself), the
-    single-table W = 8 and W = 2 calls at the old design's shapes, and
-    W = 8 at 2^20 rows (where the launch floor no longer counts), are
-    timed too, outside the sums. Each shape is timed as called and
-    on the device alone (graph_ms), the kernel and its plain version in
-    turn, over enough distinct index sets that their rows exceed the L2
-    four times; the bound is its bytes (each index read once, each row
-    read once and written once) over HBM_BYTES_PER_S."""
+    statistics) and the table's rows at 2 probes x min(slots, 2B) anchors
+    x V variants (one table, gather_rows: the fallback slice). Also
+    timed, outside the sums: the old explore chunk's calls (table and
+    ext_id rows at 2 x 1024 x V, multi, W = 8 and 2; ext rows at 1024 x
+    V), the single-table W = 8 and W = 2 calls at the old design's
+    shapes, and W = 8 at 2^20 rows (where the launch floor no longer
+    counts). Each shape is timed as called and on the device alone
+    (graph_ms), the kernel and its plain version in turn, over enough
+    distinct index sets that their rows exceed the L2 four times; the
+    bound is its bytes (each index read once, each row read once and
+    written once) over HBM_BYTES_PER_S."""
     import torch
     from find_circ2_tpu_torch.config import Config
     from find_circ2_tpu_torch.ops import gather_rows as gr
@@ -260,11 +277,11 @@ def check_gather_rows(device, card: str) -> dict:
 
     tables = {"table": table(1 << 24, 8), "ntable": table(1 << 24, 8),
               "ext_id": table(1 << 24, 2), "ext": table(1 << 21, 30)}
-    # (wrapper, tables, n, calls per detect batch + one explore chunk)
-    shapes = [("gather_rows_multi", ("table", "ntable"), exact_n, 0),
+    # (wrapper, tables, n, calls per sharded detect batch on one shard)
+    shapes = [("gather_rows_multi", ("table", "ntable"), exact_n, 1),
               ("gather_rows", ("table",), fallback_n, 1),
-              ("gather_rows_multi", ("table", "ext_id"), side_n, 2),
-              ("gather_rows", ("ext",), ext_n, 2),
+              ("gather_rows_multi", ("table", "ext_id"), side_n, 0),
+              ("gather_rows", ("ext",), ext_n, 0),
               ("gather_rows", ("table",), exact_n, 0),
               ("gather_rows", ("ext_id",), side_n, 0),
               ("gather_rows", ("table",), 1 << 20, 0)]
@@ -321,7 +338,7 @@ def check_gather_rows(device, card: str) -> dict:
                      for k in ("called_ms", "plain_called_ms", "device_ms",
                                "plain_device_ms", "bound_ms")}
         s = out[name]
-        log(f"{name}, one detect batch's and one explore chunk's calls: "
+        log(f"{name}, one sharded detect batch's calls on a shard: "
             f"device alone {s['device_ms']:.5f} ms vs plain "
             f"{s['plain_device_ms']:.5f} ms, bound {s['bound_ms']:.5f} ms; "
             f"as called {s['called_ms']:.5f} ms vs plain "
@@ -352,6 +369,119 @@ def check_detect_cases(device, card: str) -> dict:
         f"{DETECT_CASE_SEED}; {case.anchors.shape[0]} anchors, "
         f"{case.coincident} of keys whose two buckets coincide), prefilter "
         f"on and off, exactly, on {card}")
+    return out
+
+
+@contextlib.contextmanager
+def plain_classic():
+    """While the block runs, CUDA tensors take the plain versions of K1's
+    enumeration and fallback slice: the wrappers' launches
+    (ops/anchor_align._launch_classic, _launch_compact) are swapped for
+    their plain versions, so the same program runs without those kernels
+    and their counts stay. For the comparisons and the plain timings of
+    this script only."""
+    from find_circ2_tpu_torch.ops import anchor_align as ta
+    launch, compact = ta._launch_classic, ta._launch_compact
+
+    def classic(table, meta, anchors, cfg, ext=None, ext_id=None,
+                stats=False, slots=None, hits=None, lib=None):
+        if slots is not None:
+            return ta.refill_slice_ref(table, meta, anchors, slots, hits,
+                                       cfg), None
+        return ta.classic_anchor_stats_ref(table, meta, anchors, cfg, ext,
+                                           ext_id, stats)
+
+    ta._launch_classic = classic
+    ta._launch_compact = (lambda resolved, k, lib=None:
+                          ta.fallback_slice_ref(resolved, k))
+    try:
+        yield
+    finally:
+        ta._launch_classic, ta._launch_compact = launch, compact
+
+
+def _equal_all(got, want) -> bool:
+    """Every tensor of two (nested) tuples equal, dtype and shape too."""
+    import torch
+    if isinstance(got, tuple) or isinstance(want, tuple):
+        return (isinstance(got, tuple) and isinstance(want, tuple)
+                and len(got) == len(want)
+                and all(_equal_all(a, b) for a, b in zip(got, want)))
+    if got is None or want is None:
+        return got is None and want is None
+    return got.dtype == want.dtype and torch.equal(got, want)
+
+
+def _flat(x) -> list:
+    """The tensors of a (nested) tuple."""
+    if x is None:
+        return []
+    if isinstance(x, tuple):
+        return [t for y in x for t in _flat(y)]
+    return [x]
+
+
+def hold_classic(fn, what: str, out: dict) -> None:
+    """fn() with the enumeration and compaction kernels against fn()
+    under plain_classic, on the same CUDA tensors: every element of every
+    output."""
+    import torch
+    got = fn()
+    with plain_classic():
+        want = fn()
+    torch.cuda.synchronize()
+    out["classic_err"] = max(out.get("classic_err", 0),
+                             _max_err(zip(_flat(got), _flat(want))))
+    if not _equal_all(got, want):
+        fail(f"K1's enumeration or fallback slice differs from its plain "
+             f"version on {what}")
+
+
+def check_classic_cases(device, card: str) -> dict:
+    """K1's enumeration kernel (classic_anchor_stats) and fallback slice
+    (fallback_slice, refill_slice) against their plain versions on a
+    detect_cases batch's anchors (PINNED_ANCHORS among them), exactly: the
+    hits only, the statistics, the §2b extras; the slice of the exact
+    probe's unresolved anchors at REDO_SLOTS (it overflows), at
+    exact_fallback_slots and at every anchor (it cannot). Returns the
+    largest difference (0)."""
+    import torch
+    from find_circ2_tpu_torch.config import Config
+    from find_circ2_tpu_torch.ops import anchor_align as ta
+    from find_circ2_tpu_torch.utils import detect_cases
+    cfg = Config()
+    case = detect_cases.detect_case(DETECT_CASE_SEED, DETECT_CASE_ROWS, cfg)
+    table, meta, anchors, ext, ext_id = detect_cases.classic_args(case,
+                                                                  device)
+    ntable = torch.from_numpy(case.ntable).to(device)
+    out = {}
+    for x, stats, mode in (((), False, "hits"), ((), True, "statistics"),
+                           ((ext, ext_id), True, "extras")):
+        hold_classic(lambda: ta.classic_anchor_stats(
+            table, meta, anchors, cfg, *x, stats=stats),
+            f"the detect_cases anchors ({mode})", out)
+    n = anchors.shape[0]
+    flags = {}
+    for k in (REDO_SLOTS, cfg.exact_fallback_slots, n):
+        def fast(k=k):
+            hits, resolved = ta.exact_anchor_stats(table, ntable, meta,
+                                                   anchors, cfg)
+            idx, over = ta.fallback_slice(resolved, k)
+            return (ta.refill_slice(table, meta, anchors, idx, hits, cfg),
+                    idx, over)
+        hold_classic(fast, f"the detect_cases anchors' fallback slice of "
+                     f"{k}", out)
+        flags[k] = bool(fast()[2])
+    if not flags[REDO_SLOTS] or flags[n]:
+        fail(f"the fallback slice's overflow flags {flags}: want True at "
+             f"{REDO_SLOTS} slots, False at {n}")
+    log(f"classic_anchor_stats (hits, statistics, extras) and the fallback "
+        f"slice (fallback_slice + refill_slice at {REDO_SLOTS}, "
+        f"{cfg.exact_fallback_slots} and {n} slots; overflow {flags}) equal "
+        f"their plain versions on the {n} detect_cases anchors (pinned: "
+        f"more than K hits, a guarded slot, {case.coincident} keys whose "
+        f"buckets coincide, ext row ids doubled past and inside the rows), "
+        f"exactly, on {card}")
     return out
 
 
@@ -452,22 +582,23 @@ def _profile_value(report: str, key: str) -> float:
 def watch_explorer():
     """While the block runs, count what DeviceExplorer.dispatch_arrays
     (every §2b explore chunk of both streaming loops goes through it)
-    does: its calls, chunks, routed reads, the row-gather launches (both
-    wrappers) made inside it, and every routed row (uint8 codes, int32
-    lengths). Also keep the DeviceIndex and slowpath=(genome, index) that
-    run_fastq was given. Yields the dict it fills."""
+    does: its calls, chunks, routed reads, the launches of K1's
+    enumeration kernel (classic_anchor_stats) made inside it, and every
+    routed row (uint8 codes, int32 lengths). Also keep the DeviceIndex
+    and slowpath=(genome, index) that run_fastq was given. Yields the
+    dict it fills."""
     import numpy as np
     from find_circ2_tpu_torch.models import pipeline as tpipe
     from find_circ2_tpu_torch.models import stream as tstream
-    from find_circ2_tpu_torch.ops import gather_rows as gr
+    from find_circ2_tpu_torch.ops import anchor_align as ta
     seen = dict(calls=0, chunks=0, reads=0, launches=0, arr=[], lens=[])
     dispatch_arrays, run_fastq = (tpipe.DeviceExplorer.dispatch_arrays,
                                   tstream.run_fastq)
 
     def counted(self, arr, lens):
-        before = gr.launches + gr.multi_launches
+        before = ta.classic_launches
         handle = dispatch_arrays(self, arr, lens)
-        seen["launches"] += gr.launches + gr.multi_launches - before
+        seen["launches"] += ta.classic_launches - before
         seen["calls"] += 1
         seen["chunks"] += len(handle)
         seen["arr"].append(np.array(arr))
@@ -683,9 +814,12 @@ def check_explore(dindex, arr, lens, cfg, card) -> dict:
       first 1024 routed reads, prefilter on and off;
     - the kernel's times beside the plain version's and its bound
       (time_pairs), on the first chunk;
-    - one chunk of explore_batch_packed (K1 + the kernel) and of K1 + the
-      plain version, each: ms by CUDA events, host enqueue ms, device
-      activities and busy ms (torch.profiler), peak bytes above the index.
+    - explore's K1 (the enumeration kernel with the extras) against its
+      plain version on every chunk of routed reads;
+    - one chunk of explore_batch_packed (K1 and the pairs, kernels) and
+      of the plain K1 and pairs, each: ms by CUDA events, host enqueue
+      ms, device activities and busy ms (torch.profiler), peak bytes
+      above the index.
     Returns those numbers."""
     import dataclasses
     import numpy as np
@@ -714,13 +848,17 @@ def check_explore(dindex, arr, lens, cfg, card) -> dict:
 
     n = arr.shape[0]
     for lo in range(0, n, EXPLORE_READS):
-        hold(explore_k1(dindex, torch.from_numpy(arr[lo:lo + EXPLORE_READS])
-                        .to(dev), torch.from_numpy(lens[lo:lo + EXPLORE_READS])
-                        .to(dev), cfg), f"routed reads {lo}..")
+        chunk = (torch.from_numpy(arr[lo:lo + EXPLORE_READS]).to(dev),
+                 torch.from_numpy(lens[lo:lo + EXPLORE_READS]).to(dev))
+        hold_classic(lambda: explore_k1(dindex, *chunk, cfg)[5:],
+                     f"explore's K1 on routed reads {lo}..", out)
+        hold(explore_k1(dindex, *chunk, cfg), f"routed reads {lo}..")
     case = explore_case(EXPLORE_CASE_SEED, EXPLORE_READS, cfg)
     hold(pair_args(case, cfg, dev), "the explore_cases batch")
-    log(f"explore_pairs equals its plain version on the card on all {n} "
-        f"routed reads ({-(-n // EXPLORE_READS)} chunks) and on "
+    log(f"explore's K1 (classic_anchor_stats with the extras) and "
+        f"explore_pairs equal their plain versions on the card on all {n} "
+        f"routed reads ({-(-n // EXPLORE_READS)} chunks); explore_pairs "
+        f"also on "
         f"{EXPLORE_READS} explore_cases rows (seed {EXPLORE_CASE_SEED}), "
         "prefilter on and off, exactly")
 
@@ -738,8 +876,10 @@ def check_explore(dindex, arr, lens, cfg, card) -> dict:
             prefilter)
 
     def run_plain(d, prefilter):
-        return tx.explore_pairs_ref(*explore_k1(
-            d, reads.to(d.device), rlens.to(d.device), cfg), cfg, prefilter)
+        with plain_classic():
+            return tx.explore_pairs_ref(*explore_k1(
+                d, reads.to(d.device), rlens.to(d.device), cfg), cfg,
+                prefilter)
 
     for prefilter in (True, False):
         got = run(dindex, prefilter).cpu().numpy()
@@ -763,8 +903,8 @@ def check_explore(dindex, arr, lens, cfg, card) -> dict:
         explore_k1(dindex, reads.to(dev), rlens.to(dev), cfg), cfg, card,
         {n: explore_k1(dindex, reads[:n].to(dev), rlens[:n].to(dev), cfg)
          for n in EXPLORE_BUCKETS})
-    # One chunk, K1 included: the plain version (as before the kernel)
-    # and the kernel, each in turn.
+    # One chunk, K1 included: the plain versions (K1's and the pairs') and
+    # the kernels, each in turn.
     for name, fn in (("plain", run_plain), ("kernel", run),
                      ("kernel", run), ("plain", run_plain)):
         torch.cuda.synchronize()
@@ -785,7 +925,7 @@ def check_explore(dindex, arr, lens, cfg, card) -> dict:
             k: min(old[k], rec[k]) for k in rec}
     for name in ("plain", "kernel"):
         r = out[name]
-        log(f"one explore chunk, K1 + {name} (prefilter on): "
+        log(f"one explore chunk, K1 and pairs {name} (prefilter on): "
             f"{r['card_ms']:.3f} ms as called (CUDA events), host enqueue "
             f"{r['enqueue_ms']:.3f} ms, {r['device_ops']} device activities "
             f"busy {r['device_ms']:.3f} ms (torch.profiler), peak "
@@ -795,11 +935,13 @@ def check_explore(dindex, arr, lens, cfg, card) -> dict:
 
 @contextlib.contextmanager
 def plain_detect():
-    """While the block runs, CUDA tensors take the plain versions of the
-    two detect kernels: each wrapper's launch (ops/detect._launch,
-    ops/anchor_align._launch_exact) is swapped for its plain version, so
-    the same program runs without those kernels and their counts stay.
-    For the comparisons and the plain timings of this script only."""
+    """While the block runs, CUDA tensors take the plain versions of all
+    of detect's kernels: each wrapper's launch (ops/detect._launch,
+    ops/anchor_align._launch_exact, and K1's enumeration and fallback
+    slice, plain_classic, which explore's K1 takes too) is swapped for its
+    plain version, so the same program runs without those kernels and
+    their counts stay. For the comparisons and the plain timings of this
+    script only."""
     from find_circ2_tpu_torch.ops import anchor_align as ta
     from find_circ2_tpu_torch.ops import detect as td
     launch, launch_exact = td._launch, ta._launch_exact
@@ -808,7 +950,8 @@ def plain_detect():
     ta._launch_exact = (lambda args, cfg, lib=None:
                         ta.exact_anchor_stats_ref(*args, cfg))
     try:
-        yield
+        with plain_classic():
+            yield
     finally:
         td._launch, ta._launch_exact = launch, launch_exact
 
@@ -1016,10 +1159,19 @@ def check_detect(dindex, batches, genome, cfg, card) -> dict:
         ex, core = detect_inputs(d, arr, lens, cfg)
         hold_exact(ex, cfg, f"stream batch {i}", out)
         hold_core(core, cfg, prefilter, f"stream batch {i}", out)
+        both = ex[3]
+        B = both.shape[0] // 2
+        hold_classic(lambda: ta.align_anchor_pair_fast(
+            d.table, d.ntable, d.meta, both[:B], both[B:], cfg),
+            f"stream batch {i}'s fallback slice", out)
+        hold_classic(lambda: ta.align_anchors(d.table, d.meta, both, cfg),
+                     f"stream batch {i}'s anchors (the redo's "
+                     "enumeration)", out)
         inputs.append((ex, core))
-    log(f"exact_anchor_stats and detect_core_packed equal their plain "
-        f"versions on the card on all {len(batches)} stream batches, "
-        f"exactly")
+    log(f"exact_anchor_stats, detect_core_packed, the fallback slice "
+        f"(fallback_slice + refill_slice) and the redo's enumeration "
+        f"(classic_anchor_stats) equal their plain versions on the card "
+        f"on all {len(batches)} stream batches, exactly")
 
     # The classic redo, forced.
     arr, lens, prefilter = batches[0]
@@ -1133,15 +1285,139 @@ def check_detect(dindex, batches, genome, cfg, card) -> dict:
                 f"{v['host_ms']:.3f}" for k, v in got.items()
                 if isinstance(v, dict) and k != "total") + f"; on {card}")
     out["max_abs_err"] = max(out["core_err"], out["exact_err"])
+    out["anchor_sets"] = [ex[3] for ex, _ in inputs]
+    return out
+
+
+def classic_bound(table, n: int, cfg, slots: bool = False,
+                  stats=None) -> dict:
+    """The least time the card could take for K1's enumeration of n
+    anchors (or fallback slots): the larger of its bytes over the HBM
+    rate and its int32 operations over the SMs' 32-bit rate. Bytes, each
+    read once: the anchors, two 32-byte table rows a canonical variant,
+    meta, the slots (slot mode) and the hit fields written; with `stats`
+    (the call's outputs) the count and first_pos rows written, and with
+    extras two 8-byte ext_id rows a variant, the ext row of each variant
+    that has a real one (some lane of its slots is not LARGE_POS; row 0
+    is the dummy) and the extras written. Operations:
+    CLASSIC_OPS_PER_VARIANT a variant."""
+    a = cfg.anchor_len
+    V = 1 + 3 * a
+    hit_bytes = 1 + 8 + 5 * 4
+    nbytes = (n * (a + 2 * V * 4 * table.shape[1] + hit_bytes) + 4 * 3
+              + (8 * n if slots else 0))
+    if stats is not None:
+        count, first_pos, *extras = stats
+        nbytes += 4 * count.numel() + 8 * first_pos.numel()
+        if extras:
+            x = extras[0]
+            real = (x.view(n, 2, V, -1) != 0xFFFFFFFF).any(-1).any(1)
+            nbytes += (n * 2 * V * 8 + int(real.sum()) * 4 * 2 * x.shape[-1]
+                       + 8 * x.numel())
+    ops = CLASSIC_OPS_PER_VARIANT * V * n
+    return _bound(nbytes, ops)
+
+
+def _bound(nbytes: int, ops: int) -> dict:
+    ops_ms = 1e3 * ops / INT32_OPS_PER_S
+    bytes_ms = 1e3 * nbytes / HBM_BYTES_PER_S
+    return dict(bytes=nbytes, ops=ops, bound_ms=max(ops_ms, bytes_ms),
+                bound_by="operations" if ops_ms >= bytes_ms else "bytes")
+
+
+def time_classic(d, anchor_sets, arr, lens, cfg, card) -> dict:
+    """K1's two new kernels at the main path's shapes, each beside its
+    plain version, in the order plain, kernel, kernel, plain: as called
+    (CUDA events, over all input sets), on the device alone (CUDA-graph
+    replay over the sets, whose table rows exceed the L2), the plain
+    version's torch.profiler busy time, and the bound (classic_bound;
+    the compaction's bytes are `resolved` read, the slice written).
+    Shapes: the stream's fallback slice (refill_slice, slot mode, on each
+    batch's exact probe and compaction), the compaction itself
+    (fallback_slice on each batch's `resolved`), the classic redo
+    (classic_anchor_stats, hits only, on each batch's stacked anchors)
+    and the explore chunk (with the extras, on the stacked anchors of
+    each full chunk of EXPLORE_READS routed reads)."""
+    import torch
+    from find_circ2_tpu_torch.ops import anchor_align as ta
+    dev = d.device
+    n = anchor_sets[0].shape[0]
+    k = min(cfg.exact_fallback_slots, n)
+    slices = []
+    for both in anchor_sets:
+        hits, resolved = ta.exact_anchor_stats(d.table, d.ntable, d.meta,
+                                               both, cfg)
+        slices.append((both, hits, resolved,
+                       ta.fallback_slice(resolved, k)[0]))
+    chunks = [torch.cat(ta.read_anchors(
+        torch.from_numpy(arr[lo:lo + EXPLORE_READS]).to(dev),
+        torch.from_numpy(lens[lo:lo + EXPLORE_READS]).to(dev), cfg))
+        for lo in range(0, arr.shape[0] - EXPLORE_READS + 1, EXPLORE_READS)]
+    t, m = d.table, d.meta
+    shapes = {
+        "fallback": (
+            lambda i: ta.refill_slice(t, m, slices[i][0], slices[i][3],
+                                      slices[i][1], cfg),
+            lambda i: ta.refill_slice_ref(t, m, slices[i][0], slices[i][3],
+                                          slices[i][1], cfg),
+            len(slices), lambda i: classic_bound(t, k, cfg, slots=True)),
+        "compact": (
+            lambda i: ta.fallback_slice(slices[i][2], k),
+            lambda i: ta.fallback_slice_ref(slices[i][2], k),
+            len(slices),
+            lambda i: _bound(n + 8 * k + 1, COMPACT_OPS_PER_ANCHOR * n)),
+        "redo": (
+            lambda i: ta.classic_anchor_stats(t, m, anchor_sets[i], cfg),
+            lambda i: ta.classic_anchor_stats_ref(t, m, anchor_sets[i],
+                                                  cfg),
+            len(anchor_sets), lambda i: classic_bound(t, n, cfg)),
+        "explore": (
+            lambda i: ta.classic_anchor_stats(t, m, chunks[i], cfg, d.ext,
+                                              d.ext_id, stats=True),
+            lambda i: ta.classic_anchor_stats_ref(t, m, chunks[i], cfg,
+                                                  d.ext, d.ext_id,
+                                                  stats=True),
+            len(chunks),
+            lambda i: classic_bound(t, chunks[i].shape[0], cfg, stats=(
+                ta.classic_anchor_stats(t, m, chunks[i], cfg, d.ext,
+                                        d.ext_id, stats=True)[1]))),
+    }
+    out = {}
+    for name, (kernel, plain, sets, bound) in shapes.items():
+        idxs = range(sets)
+        p1, k1 = called_ms(plain, idxs), called_ms(kernel, idxs)
+        k2, p2 = called_ms(kernel, idxs), called_ms(plain, idxs)
+        gp1 = device_profile(lambda: plain(0))["busy_ms"]
+        gk1, gk2 = graph_ms(kernel, idxs), graph_ms(kernel, idxs)
+        gp2 = device_profile(lambda: plain(0))["busy_ms"]
+        bounds = [bound(i) for i in idxs]
+        rec = dict(sets=sets, called_ms=min(k1, k2),
+                   plain_called_ms=min(p1, p2), ms=min(gk1, gk2),
+                   plain_ms=min(gp1, gp2),
+                   bytes=sum(b["bytes"] for b in bounds) / sets,
+                   ops=sum(b["ops"] for b in bounds) / sets,
+                   bound_ms=sum(b["bound_ms"] for b in bounds) / sets,
+                   bound_by=bounds[0]["bound_by"])
+        out[name] = rec
+        log(f"{name} ({'compaction' if name == 'compact' else 'enumeration'}"
+            f" kernel, {sets} input sets): device alone {rec['ms']:.5f} ms "
+            f"(graph) vs plain {rec['plain_ms']:.5f} ms (torch.profiler "
+            f"busy); as called {rec['called_ms']:.5f} ms vs plain "
+            f"{rec['plain_called_ms']:.5f} ms; bound {rec['bound_ms']:.5f} "
+            f"ms by {rec['bound_by']} ({rec['bytes']:,.0f} bytes, "
+            f"{rec['ops']:,.0f} int32 operations), "
+            f"{100 * rec['bound_ms'] / rec['ms']:.1f}% of it; on {card}")
     return out
 
 
 def compare_detect_streams(dindex, fq, genome, index, cfg, card,
                            bed) -> dict:
     """run_fastq with device explore, the detect kernels against their
-    plain versions (plain_detect), in the order kernel, plain, plain,
+    plain versions (plain_detect; K1's enumeration is explore's K1 too, so
+    explore's K1 goes plain with it), in the order kernel, plain, plain,
     kernel: equal BED and stats (`bed`, phase 6's), and per version the
-    least stream seconds and `device_dispatch` seconds."""
+    least stream seconds, `device_dispatch` and `explore_dispatch`
+    seconds."""
     from find_circ2_tpu_torch.models.aggregate import Aggregator
     from find_circ2_tpu_torch.models.stream import run_fastq
     from find_circ2_tpu_torch.utils.profiling import StageTimes
@@ -1158,16 +1434,18 @@ def compare_detect_streams(dindex, fq, genome, index, cfg, card,
         if _render(agg) != bed:
             fail(f"run_fastq with the {name} detect versions gives another "
                  "BED or stats")
-        rec = dict(seconds=wall, reads=times.n_reads,
-                   device_dispatch=times.totals["device_dispatch"])
+        rec = dict(seconds=wall, reads=times.n_reads, **{
+            k: times.totals.get(k, 0.0)
+            for k in ("device_dispatch", "explore_dispatch")})
         old = out.get(name)
         out[name] = rec if old is None else {k: min(old[k], rec[k])
                                              for k in rec}
     for name, rec in out.items():
         log(f"run_fastq, detect with the {name} versions: "
             f"{rec['seconds']:.3f} s, {rec['reads'] / rec['seconds']:,.1f} "
-            f"reads/s, device_dispatch {rec['device_dispatch']:.3f} s "
-            f"(least of two; equal BED and stats) on {card}")
+            f"reads/s, device_dispatch {rec['device_dispatch']:.3f} s, "
+            f"explore_dispatch {rec['explore_dispatch']:.3f} s (least of "
+            f"two; equal BED and stats) on {card}")
     return out
 
 
@@ -1181,6 +1459,7 @@ def compare_streams(dindex, fq, genome, index, cfg, card) -> dict:
     from find_circ2_tpu_torch.models.aggregate import Aggregator
     from find_circ2_tpu_torch.utils.profiling import StageTimes
     from find_circ2_tpu_torch.models.stream import run_fastq
+    from find_circ2_tpu_torch.ops import anchor_align as ta
     from find_circ2_tpu_torch.ops import explore as tx
     from find_circ2_tpu_torch.ops import gather_rows as gr
     out, beds = {}, {}
@@ -1189,6 +1468,7 @@ def compare_streams(dindex, fq, genome, index, cfg, card) -> dict:
         agg = Aggregator(genome, cfg)
         times = StageTimes()
         gr.launches = gr.multi_launches = tx.launches = 0
+        ta.classic_launches = 0
         t0 = time.perf_counter()
         run_fastq(dindex, fq, agg, cfg, times=times, slowpath=(genome, index),
                   explore=explore)
@@ -1196,10 +1476,12 @@ def compare_streams(dindex, fq, genome, index, cfg, card) -> dict:
         launches = gr.launches + gr.multi_launches
         beds[mode] = _render(agg)
         out[mode] = dict(launches=launches, explore_launches=tx.launches,
+                         classic_launches=ta.classic_launches,
                          seconds=wall, reads=times.n_reads)
         log(f"run_fastq explore={explore}: {wall:.3f} s, "
-            f"{times.n_reads / wall:,.1f} reads/s, {launches} row-gather "
-            f"and {tx.launches} explore_pairs launches on {card}; stages:\n"
+            f"{times.n_reads / wall:,.1f} reads/s, {launches} row-gather, "
+            f"{ta.classic_launches} classic_anchor_stats and {tx.launches} "
+            f"explore_pairs launches on {card}; stages:\n"
             + times.report(wall=wall))
         if (tx.launches > 0) != (explore is None):
             fail(f"run_fastq explore={explore} launched explore_pairs "
@@ -1347,6 +1629,7 @@ def check_sharded(fq, sim, genome, index, dindex, cfg, streams, truth,
     times = StageTimes()
     gr.launches = gr.multi_launches = tx.launches = 0
     td.launches = ta.exact_launches = 0
+    ta.classic_launches = ta.compact_launches = 0
     t0 = time.perf_counter()
     run_fastq(None, fq, agg, cfg, times=times, slowpath=(genome, index),
               dispatch=eng.dispatch_packed, redo=eng.redo_packed)
@@ -1354,7 +1637,9 @@ def check_sharded(fq, sim, genome, index, dindex, cfg, streams, truth,
     out["launches"] = {"gather_rows": gr.launches,
                        "gather_rows_multi": gr.multi_launches,
                        "detect_core_packed": td.launches,
-                       "exact_anchor_stats": ta.exact_launches}
+                       "exact_anchor_stats": ta.exact_launches,
+                       "classic_anchor_stats": ta.classic_launches,
+                       "fallback_slice": ta.compact_launches}
     out["explore_launches"] = tx.launches
     out.update(seconds=wall, reads=times.n_reads,
                peak_bytes=torch.cuda.max_memory_allocated())
@@ -1367,11 +1652,14 @@ def check_sharded(fq, sim, genome, index, dindex, cfg, streams, truth,
         + times.report(wall=wall))
     log(f"kernel launches on the sharded path: gather_rows "
         f"{gr.launches}, gather_rows_multi {gr.multi_launches}, "
-        f"detect_core_packed {td.launches}, exact_anchor_stats "
-        f"{ta.exact_launches} (the shards' plain partials), explore_pairs "
-        f"{tx.launches} (§2b on the host twin)")
+        f"detect_core_packed {td.launches}; exact_anchor_stats "
+        f"{ta.exact_launches}, classic_anchor_stats {ta.classic_launches} "
+        f"and fallback_slice {ta.compact_launches} (the shards' plain "
+        f"partials); explore_pairs {tx.launches} (§2b on the host twin)")
+    plain_k1 = ("exact_anchor_stats", "classic_anchor_stats",
+                "fallback_slice")
     for name, count in out["launches"].items():
-        if (count <= 0) != (name == "exact_anchor_stats"):
+        if (count <= 0) != (name in plain_k1):
             fail(f"kernel {name} was launched {count} times on the sharded "
                  "path")
     ran = set(times.counts)
@@ -1500,13 +1788,16 @@ def main_path(device: str, library: dict, card: str) -> dict:
                 watch_detect() as batches:
             gr.launches = gr.multi_launches = tx.launches = 0
             td.launches = ta.exact_launches = 0
+            ta.classic_launches = ta.compact_launches = 0
             rc = cli.main(["run", fq, "-G", fa, "-o", outdir, "--filter",
                            "--device", device, "--profile"])
             out["launches"] = {"gather_rows": gr.launches,
                                "gather_rows_multi": gr.multi_launches,
                                "explore_pairs": tx.launches,
                                "detect_core_packed": td.launches,
-                               "exact_anchor_stats": ta.exact_launches}
+                               "exact_anchor_stats": ta.exact_launches,
+                               "classic_anchor_stats": ta.classic_launches,
+                               "fallback_slice": ta.compact_launches}
         out["explore_launches"] = seen["launches"]
         report = err.getvalue()
         print(report, end="")
@@ -1522,35 +1813,45 @@ def main_path(device: str, library: dict, card: str) -> dict:
         if on_card:
             log(f"peak device memory {torch.cuda.max_memory_allocated():,} "
                 "bytes (explore on)")
-        log(f"kernel launches on the main path: gather_rows "
-            f"{out['launches']['gather_rows']}, gather_rows_multi "
-            f"{out['launches']['gather_rows_multi']} "
-            f"({out['explore_launches']} of them inside §2b explore), "
-            f"explore_pairs {out['launches']['explore_pairs']}, "
-            f"detect_core_packed {out['launches']['detect_core_packed']}, "
-            f"exact_anchor_stats {out['launches']['exact_anchor_stats']}; "
-            f"{seen['reads']} routed reads in {seen['calls']} explore "
-            f"dispatches, {seen['chunks']} chunks; "
+        launched = out["launches"]
+        log(f"kernel launches on the main path: " + ", ".join(
+            f"{k} {v}" for k, v in launched.items())
+            + f" ({out['explore_launches']} classic_anchor_stats launches "
+            f"inside §2b explore); {seen['reads']} routed reads in "
+            f"{seen['calls']} explore dispatches, {seen['chunks']} chunks; "
             f"{len(batches['batches'])} detect batches, "
             f"{batches['fast']} exact-first and {batches['classic']} "
             f"classic (overflow redo)")
-        for name, count in out["launches"].items():
-            if count <= 0:
+        # K1's kernels fetch their own rows: the row gather is off the
+        # single device's main path (phase 7 launches it on every shard).
+        off_path = ("gather_rows", "gather_rows_multi")
+        for name, count in launched.items():
+            if name in off_path and count and on_card:
+                fail(f"kernel {name} was launched {count} times on the "
+                     "single device's main path")
+            if name not in off_path and count <= 0:
                 fail(f"kernel {name} was not launched on the main path")
         if on_card and (
-                out["launches"]["detect_core_packed"]
+                launched["detect_core_packed"]
                 != batches["fast"] + batches["classic"]
-                or out["launches"]["exact_anchor_stats"] != batches["fast"]
+                or launched["exact_anchor_stats"] != batches["fast"]
+                or launched["fallback_slice"] != batches["fast"]
+                or launched["classic_anchor_stats"]
+                != batches["fast"] + batches["classic"] + seen["chunks"]
                 or batches["fast"] != len(batches["batches"])):
             fail("the detect kernels' launches do not match the detect "
-                 "programs run: one core launch per program, one probe "
-                 "launch per exact-first program")
-        if out["launches"]["explore_pairs"] != seen["chunks"] and on_card:
-            fail(f"explore_pairs launched {out['launches']['explore_pairs']}"
-                 f" times for {seen['chunks']} explore chunks")
+                 "programs run: one core launch per program, one probe, "
+                 "one compaction and one enumeration (the slice) per "
+                 "exact-first program, one enumeration per classic "
+                 "program and per explore chunk")
+        if on_card and (launched["explore_pairs"] != seen["chunks"]
+                        or out["explore_launches"] != seen["chunks"]):
+            fail(f"explore_pairs launched {launched['explore_pairs']} and "
+                 f"explore's K1 {out['explore_launches']} times for "
+                 f"{seen['chunks']} explore chunks")
         if seen["reads"] <= 0 or out["explore_launches"] <= 0:
-            fail("§2b explore routed no reads or launched no row gather "
-                 "on the main path")
+            fail("§2b explore routed no reads or launched no K1 "
+                 "enumeration on the main path")
         dispatched = _stage(report, "explore_dispatch")
         if (dispatched is None or dispatched[1] != seen["calls"]
                 or _stage(report, "slowpath_multihit")):
@@ -1576,6 +1877,10 @@ def main_path(device: str, library: dict, card: str) -> dict:
             cfg, card)
         out["detect"] = check_detect(dindex, batches["batches"], g, cfg,
                                      card)
+        out["classic"] = time_classic(
+            dindex, out["detect"].pop("anchor_sets"),
+            np.concatenate(seen["arr"]), np.concatenate(seen["lens"]), cfg,
+            card)
         out["streams"] = compare_streams(dindex, fq, g, index, cfg, card)
         out["detect_streams"] = compare_detect_streams(
             dindex, fq, g, index, cfg, card, out["streams"]["beds"]["device"])
@@ -1623,16 +1928,18 @@ def main() -> int:
 
     gather = check_gather_rows("cuda", card)
     cases = check_detect_cases("cuda", card)
+    cases.update(check_classic_cases("cuda", card))
     check_golden("cuda")
     path = main_path("cuda", LIBRARY, card)
     check_golden("cuda", ("--mesh", "2x2"))
     check_golden_nproc("cuda")
 
-    # Per wrapper, summed over one detect batch's and one explore chunk's
-    # calls: "ms" and "plain_ms" on the device alone (CUDA graphs),
-    # "called_ms" and "plain_called_ms" as called; "bound_ms" the bytes
-    # over the HBM rate. index_select is gather_rows' library call;
-    # no one PyTorch call gathers two tables.
+    # Per wrapper, summed over one sharded detect batch's calls on one
+    # index shard (on one table K1's kernels fetch their own rows): "ms"
+    # and "plain_ms" on the device alone (CUDA graphs), "called_ms" and
+    # "plain_called_ms" as called; "bound_ms" the bytes over the HBM rate.
+    # index_select is gather_rows' library call; no one PyTorch call
+    # gathers two tables.
     kernels = []
     for name in ("gather_rows", "gather_rows_multi"):
         s = gather[name]
@@ -1648,7 +1955,6 @@ def main() -> int:
                            else None),
             "called_ms": s["called_ms"],
             "plain_called_ms": s["plain_called_ms"],
-            "explore_launches": path["explore_launches"],
             "sharded_launches": path["sharded"]["launches"][name]})
     # explore_pairs on one 1024-read chunk's K1 outputs; no one PyTorch
     # call computes it.
@@ -1692,6 +1998,37 @@ def main() -> int:
             "called_ms": rec["called_ms"],
             "plain_called_ms": rec["plain_called_ms"],
             "sharded_launches": path["sharded"]["launches"][name]})
+    # K1's enumeration, summed over the main path's calls (one detect
+    # batch's fallback slice and one explore chunk's K1 with the extras),
+    # each shape beside it; the compaction on one batch's `resolved`. No
+    # one PyTorch call computes either.
+    cl = path["classic"]
+    main_shapes = ("fallback", "explore")
+    keys = ("ms", "plain_ms", "bound_ms", "called_ms", "plain_called_ms")
+    kernels.append({
+        "name": "classic_anchor_stats", "route": "cuda",
+        "source": "find_circ2_tpu_torch/csrc/classic_k1.cu",
+        "replaces": "find_circ2_tpu/ops/anchor_align.py:140",
+        "launches": path["launches"]["classic_anchor_stats"],
+        "max_abs_err": max(cases["classic_err"], det["classic_err"],
+                           x["classic_err"]),
+        **{k: sum(cl[s][k] for s in main_shapes) for k in keys},
+        "bound_by": ("bytes" if all(cl[s]["bound_by"] == "bytes"
+                                    for s in main_shapes) else "operations"),
+        "library_ms": None, "explore_launches": path["explore_launches"],
+        "sharded_launches":
+            path["sharded"]["launches"]["classic_anchor_stats"],
+        "shapes": {s: {k: cl[s][k] for k in keys + ("bound_by", "sets")}
+                   for s in ("fallback", "redo", "explore")}})
+    kernels.append({
+        "name": "fallback_slice", "route": "cuda",
+        "source": "find_circ2_tpu_torch/csrc/classic_k1.cu",
+        "replaces": "find_circ2_tpu/ops/anchor_align.py:496",
+        "launches": path["launches"]["fallback_slice"],
+        "max_abs_err": max(cases["classic_err"], det["classic_err"]),
+        **{k: cl["compact"][k] for k in keys + ("bound_by",)},
+        "library_ms": None,
+        "sharded_launches": path["sharded"]["launches"]["fallback_slice"]})
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

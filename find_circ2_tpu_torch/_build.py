@@ -108,6 +108,12 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.fc2t_detect.restype = ctypes.c_int
     lib.fc2t_exact_stats.argtypes = [ctypes.c_char_p]
     lib.fc2t_exact_stats.restype = ctypes.c_int
+    # One CLASSIC_ARGS / COMPACT_ARGS buffer in; the kernels launched, or
+    # minus a CUDA error, out.
+    lib.fc2t_classic_k1.argtypes = [ctypes.c_char_p]
+    lib.fc2t_classic_k1.restype = ctypes.c_int
+    lib.fc2t_compact.argtypes = [ctypes.c_char_p]
+    lib.fc2t_compact.restype = ctypes.c_int
     return lib
 
 
@@ -152,6 +158,17 @@ DETECT_ARGS = struct.Struct("<18Qq8i")
 # stream, rows; then n, anchor_len, prefix_len, max_bucket, max_anchor_mm,
 # device.
 EXACT_ARGS = struct.Struct("<13Qq6i")
+
+# csrc/classic_k1.cu's ClassicArgs: anchors, table, meta, ext_id, ext,
+# slots, then the outputs aligned, pos, strand, mm, n_best, second_mm,
+# qual, count, first_pos, extras; stream; rows, ext_rows; then n,
+# anchor_len, prefix_len, max_bucket, max_anchor_mm, ext_width, device,
+# reserved.
+CLASSIC_ARGS = struct.Struct("<17Q2q8i")
+
+# csrc/classic_k1.cu's CompactArgs: resolved, slots, overflow, stream; n,
+# k; device, reserved.
+COMPACT_ARGS = struct.Struct("<4Q2q2i")
 
 
 def check(err: int, what: str) -> None:

@@ -35,6 +35,8 @@
 #include <cstdint>
 #include <cuda_runtime.h>
 
+#include "cuckoo.cuh"
+
 // The arguments of one call, packed by ops/anchor_align.py into one
 // buffer.
 struct ExactArgs {
@@ -58,27 +60,20 @@ static_assert(sizeof(ExactArgs) == 136, "layout packed by ops/anchor_align");
 
 namespace {
 
-constexpr int kThreads = 128;
-// index/hashtable.py's table layout and hash constants.
-constexpr int kSlots = 2, kLanes = 4, kNbrLanes = 4;
-static_assert(kLanes == 4 && kNbrLanes == 4, "a slot is one int4 a table");
-constexpr int kCntBits = 7;
-constexpr unsigned kCntMask = (1u << kCntBits) - 1u;
-constexpr unsigned kS8Mask = 0xffffu;
-constexpr uint32_t kC1 = 0x9E3779B1u, kC2 = 0x85EBCA77u, kC3 = 0xC2B2AE3Du;
-constexpr uint32_t kLargePos = 0xffffffffu;
-constexpr int kLargeMm = 255;  // ops/anchor_align.py LARGE_MM
-constexpr int kMaxAnchor = 32;
+using fc2t::holds;
+using fc2t::kCntBits;
+using fc2t::kCntMask;
+using fc2t::kLargeMm;
+using fc2t::kLargePos;
+using fc2t::kSlots;
+using fc2t::mix_hash;
 
-// index/hashtable.mix_hash on uint32 lanes, wrapping mod 2^32.
-__device__ __forceinline__ uint32_t mix_hash(uint32_t p, uint32_t s,
-                                             uint32_t salt) {
-    const uint32_t k1 = (kC1 ^ salt) | 1u;
-    const uint32_t k2 = (kC2 ^ (salt << 1)) | 1u;
-    uint32_t h = (p * k1) ^ (s * k2) ^ salt;
-    h = (h ^ (h >> 15)) * kC3;
-    return h ^ (h >> 13);
-}
+constexpr int kThreads = 128;
+// The neighbour table's lanes (index/hashtable.py NBR_LANES): one int4 a
+// slot, as the table's.
+constexpr int kNbrLanes = 4;
+static_assert(kNbrLanes == fc2t::kLanes, "a slot is one int4 a table");
+constexpr int kMaxAnchor = 32;
 
 // One probe's two slots against the canonical key (cp, cs), folded into
 // the anchor's sums and minima (exact_partials' probe).
@@ -94,7 +89,7 @@ struct Partials {
         for (int t = 0; t < kSlots; ++t) {
             const int4 r = g[t], q = nb[t];
             const unsigned packed = (unsigned)r.y;
-            if ((long long)r.x != cp || (packed & kS8Mask) != cs) continue;
+            if (!holds(r, cp, cs)) continue;
             found = true;
             cf += (packed >> 16) & kCntMask;
             cr += (packed >> (16 + kCntBits)) & kCntMask;

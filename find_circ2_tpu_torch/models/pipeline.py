@@ -3,9 +3,11 @@
 One batch goes through K1 (ops/anchor_align: exact-first with the
 enumeration fallback), pair canonicalization, the pass-1 contiguous
 prefilter (SPEC.md §6) and K2 (ops/breakpoint), and comes back as one
-packed int32 row per read. On the card the exact-first probe and
-everything after K1 are hand-written CUDA kernels
-(ops/anchor_align.exact_anchor_stats, ops/detect.detect_core_packed);
+packed int32 row per read. On the card K1 (the exact-first probe, the
+fallback slice's compaction and enumeration, and the classic redo's
+enumeration) and everything after it are hand-written CUDA kernels
+(ops/anchor_align.exact_anchor_stats, fallback_slice, refill_slice,
+classic_anchor_stats; ops/detect.detect_core_packed);
 ops/detect.detect_core is the core's plain version, which CPU tensors
 and the unpacked entries take. Reads whose anchors tie at the best hit go
 through the §2b explore program (ops/explore, `DeviceExplorer`) one

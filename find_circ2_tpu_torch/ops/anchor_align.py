@@ -6,10 +6,15 @@ anchor (1 + 3a = 61) and resolves it exactly in the cuckoo k-mer table;
 the K1 v4 fast path resolves an anchor whose exact key is present from
 4 row gathers (table and 1-mm neighbour table, two probes each) and
 falls back to the enumeration on a static slice for the rest. On one
-table on the card the exact-first probe is one hand-written CUDA kernel
-(`exact_anchor_stats`, csrc/exact_stats.cu, which fetches its own rows;
-a CPU tensor takes the plain version, `exact_anchor_stats_ref`); every
-other table row fetch goes through `ops.gather_rows`.
+table on the card each of these is a hand-written CUDA kernel that
+fetches its own rows: the exact-first probe (`exact_anchor_stats`,
+csrc/exact_stats.cu), the enumeration with its hits and, for §2b
+explore, its per-slot statistics and extras (`classic_anchor_stats`,
+csrc/classic_k1.cu), and the fallback slice (`fallback_slice`, the
+compaction, and `refill_slice`, the enumeration of the slice written
+over the probe's hits; csrc/classic_k1.cu). A CPU tensor takes each
+one's plain version (`*_ref`); the plain versions fetch rows through
+`ops.gather_rows`.
 
 The `*_sharded` forms take the index as prefix-range shards (the
 sharded engine, parallel/sharded.py), each a list of per-shard tables
@@ -46,9 +51,18 @@ LARGE_POS = M32
 # csrc/exact_stats.cu's limit on the anchor length (its keys are 64-bit).
 MAX_ANCHOR_LEN = 32
 
-# Kernel launches of exact_anchor_stats since the last reset (set to 0 to
-# reset).
-exact_launches = 0
+# csrc/classic_k1.cu's limits: V = 1 + 3a variants, two a lane of a warp;
+# the §2b extras of K <= 16 hits (explore's kernel takes no more).
+MAX_CLASSIC_ANCHOR_LEN = 21
+MAX_EXTRAS_HITS = 16
+# The reference's jnp.take fill for a row past an int32 table: every lane
+# INT32_MIN, so no key matches it.
+_FILL = -2 ** 31
+
+# Kernel launches since the last reset (set to 0 to reset), by wrapper.
+exact_launches = 0      # exact_anchor_stats
+classic_launches = 0    # classic_anchor_stats and refill_slice
+compact_launches = 0    # fallback_slice
 
 
 def read_anchors(reads: torch.Tensor, lens: torch.Tensor, cfg: Config):
@@ -103,16 +117,20 @@ def _bucket_rows(tables, cp, cs, meta):
     """Rows of each table at the two cuckoo probes of keys (cp, cs):
     one gather launch for both probes and every table (`gather_rows` for
     one table, `gather_rows_multi` for two), so each bucket index is
-    loaded once. Returns, per table, the pair (probe-0 rows, probe-1
-    rows), each [*cp.shape, W]."""
+    loaded once. A bucket at or past the tables' rows reads as the
+    reference's jnp.take fill (_FILL), which holds no key. Returns, per
+    table, the pair (probe-0 rows, probe-1 rows), each [*cp.shape, W]."""
     n_buckets = meta[2].to(torch.int64) & M32
     h = torch.cat([mix_hash(cp, cs, meta[s].to(torch.int64) & M32)
                    % n_buckets for s in (0, 1)]).reshape(-1)
+    past = h >= min(t.shape[0] for t in tables)
+    h = torch.where(past, 0, h)
     rows = ([gather_rows(tables[0], h)] if len(tables) == 1
             else gather_rows_multi(tables, h))
     out = []
     for t, g in zip(tables, rows):
-        g = g.reshape(2, *cp.shape, t.shape[1])
+        g = torch.where(past[:, None], _FILL, g).reshape(2, *cp.shape,
+                                                         t.shape[1])
         out.append((g[0], g[1]))
     return out
 
@@ -470,10 +488,224 @@ def _launch_exact(args: tuple, cfg: Config, lib=None):
     return hits, resolved
 
 
+def classic_anchor_stats_ref(table, meta, anchors, cfg: Config, ext=None,
+                             ext_id=None, stats: bool = False):
+    """Plain version of classic_anchor_stats: candidate_stats, then
+    finalize_hits."""
+    got = candidate_stats(table, meta, anchors, cfg, ext, ext_id)
+    count, first_pos, mm_v, strand_v = got[:4]
+    hits = finalize_hits(count, first_pos, mm_v, strand_v, cfg)
+    return hits, ((count, first_pos, *got[4:]) if stats else None)
+
+
+def classic_anchor_stats(table, meta, anchors, cfg: Config, ext=None,
+                         ext_id=None, stats: bool = False):
+    """Classic K1 on one table: (AnchorHits [n], stats) for anchors uint8
+    [n, a]. `stats` None, or with `stats` candidate_stats' (count int32
+    [n, 2V], first_pos int64 [n, 2V]) and, given the §2b `ext` and
+    `ext_id`, its extras int64 [n, 2V, K-1]. CPU tensors take the plain
+    version; CUDA tensors launch csrc/classic_k1.cu on the current stream
+    (one launch, no wait) or raise."""
+    if (ext is None) != (ext_id is None) or (ext is not None and not stats):
+        raise ValueError("classic_anchor_stats: ext and ext_id go together, "
+                         "and only with stats=True")
+    given = [t for t in (table, meta, anchors, ext, ext_id) if t is not None]
+    if all(t.is_cpu for t in given):
+        return classic_anchor_stats_ref(table, meta, anchors, cfg, ext,
+                                        ext_id, stats)
+    return _launch_classic(table, meta, anchors, cfg, ext, ext_id, stats)
+
+
+def _scatter(hits: AnchorHits, slots, sub: AnchorHits) -> AnchorHits:
+    """`hits` with `sub`'s rows at `slots` (new tensors)."""
+    return AnchorHits(*(f.index_copy(0, slots, x) for f, x in zip(hits,
+                                                                   sub)))
+
+
+def refill_slice_ref(table, meta, anchors, slots, hits, cfg: Config
+                     ) -> AnchorHits:
+    """Plain version of refill_slice: new tensors."""
+    return _scatter(hits, slots, classic_anchor_stats_ref(
+        table, meta, anchors[slots], cfg)[0])
+
+
+def refill_slice(table, meta, anchors, slots, hits: AnchorHits,
+                 cfg: Config) -> AnchorHits:
+    """K1 v4's fallback: `hits` [n] with the classic hits of
+    anchors[slots] (slots int64 [k], distinct) written at `slots`. CPU
+    tensors take the plain version, which returns new tensors; on CUDA
+    tensors csrc/classic_k1.cu enumerates each slot's anchor and writes
+    its hits into `hits` in place (one launch, no wait), and returns
+    `hits`: the caller passes fresh outputs that nothing else holds, as
+    exact_anchor_stats' are."""
+    given = [table, meta, anchors, slots, *hits]
+    if all(t.is_cpu for t in given):
+        return refill_slice_ref(table, meta, anchors, slots, hits, cfg)
+    return _launch_classic(table, meta, anchors, cfg, slots=slots,
+                           hits=hits)[0]
+
+
+def _check_classic(table, meta, anchors, cfg: Config, ext, ext_id, slots,
+                   hits) -> None:
+    """Raise unless csrc/classic_k1.cu takes these tensors and `cfg`."""
+    dev = anchors.device
+    given = [t for t in (table, meta, anchors, ext, ext_id, slots)
+             if t is not None] + list(hits or ())
+    for t in given:
+        if t.device != dev:
+            raise ValueError(f"classic_anchor_stats: a tensor on {t.device},"
+                             f" anchors on {dev}; all must be on one CUDA "
+                             "device")
+        if not t.is_contiguous():
+            raise ValueError("classic_anchor_stats: tensors must be "
+                             "contiguous")
+    if dev.type != "cuda":
+        raise ValueError(f"classic_anchor_stats: tensors on {dev}; the "
+                         "kernel takes one CUDA device (CPU tensors take "
+                         "the plain version)")
+    a = cfg.anchor_len
+    if (anchors.dtype != torch.uint8 or anchors.dim() != 2
+            or anchors.shape[1] != a or not a <= MAX_CLASSIC_ANCHOR_LEN):
+        raise ValueError(f"classic_anchor_stats: anchors must be uint8 [n, "
+                         f"{a}] (anchor_len <= {MAX_CLASSIC_ANCHOR_LEN}), "
+                         f"got {anchors.dtype} {list(anchors.shape)}")
+    if (table.dtype != torch.int32 or table.dim() != 2
+            or table.shape[1] != SLOTS * LANES or table.data_ptr() % 16
+            or meta.dtype != torch.int32 or meta.dim() != 1
+            or meta.shape[0] < 3):
+        raise ValueError(f"classic_anchor_stats: want an int32 table [T, "
+                         f"{SLOTS * LANES}] on 16 bytes and meta [>= 3], got "
+                         f"{list(table.shape)}, {list(meta.shape)}")
+    if ext is not None:
+        K = cfg.max_pair_hits
+        if (not 2 <= K <= MAX_EXTRAS_HITS or ext.dtype != torch.int32
+                or ext_id.dtype != torch.int32 or ext.dim() != 2
+                or ext.shape[0] < 1 or ext.shape[1] != 2 * (K - 1)
+                or tuple(ext_id.shape) != (table.shape[0], SLOTS)
+                or ext.data_ptr() % 8 or ext_id.data_ptr() % 8):
+            raise ValueError(f"classic_anchor_stats: want int32 ext [R, "
+                             f"{2 * (K - 1)}] and ext_id [{table.shape[0]}, "
+                             f"{SLOTS}] on 8 bytes, max_pair_hits 2.."
+                             f"{MAX_EXTRAS_HITS}; got {list(ext.shape)}, "
+                             f"{list(ext_id.shape)}, K = {K}")
+    if slots is not None:
+        n = anchors.shape[0]
+        want = (torch.bool, torch.int64) + (torch.int32,) * 5
+        if (slots.dtype != torch.int64 or slots.dim() != 1
+                or slots.shape[0] > n or any(
+                    f.dtype != d or tuple(f.shape) != (n,)
+                    for f, d in zip(hits, want))):
+            raise ValueError(f"refill_slice: want int64 slots [<= {n}] and "
+                             f"AnchorHits fields [{n}] of finalize_hits' "
+                             "dtypes")
+
+
+def _launch_classic(table, meta, anchors, cfg: Config, ext=None,
+                    ext_id=None, stats: bool = False, slots=None, hits=None,
+                    lib=None):
+    """classic_anchor_stats (or, with `slots`, refill_slice into `hits`)
+    on CUDA tensors: one C call into `lib` (default: the kernel library),
+    made with the tensors' device current. Returns (hits, stats)."""
+    global classic_launches
+    _check_classic(table, meta, anchors, cfg, ext, ext_id, slots, hits)
+    dev = anchors.device
+    n = anchors.shape[0] if slots is None else slots.shape[0]
+
+    def empty(*shape, dtype=torch.int32):
+        return torch.empty(shape, dtype=dtype, device=dev)
+
+    if hits is None:
+        hits = AnchorHits(aligned=empty(n, dtype=torch.bool),
+                          pos=empty(n, dtype=torch.int64), strand=empty(n),
+                          mm=empty(n), n_best=empty(n), second_mm=empty(n),
+                          qual=empty(n))
+    V2 = 2 * (1 + 3 * cfg.anchor_len)
+    K1 = cfg.max_pair_hits - 1
+    out = None
+    if stats:
+        out = (empty(n, V2), empty(n, V2, dtype=torch.int64))
+        if ext is not None:
+            out += (empty(n, V2, K1, dtype=torch.int64),)
+    if n == 0:
+        return hits, out
+
+    def ptr(t):
+        return 0 if t is None else t.data_ptr()
+
+    count, first_pos, extras = (*(out or ()), None, None, None)[:3]
+    lib = lib or _build.load()
+    index = anchors.get_device()
+    with torch.cuda.device(index):
+        got = lib.fc2t_classic_k1(_build.CLASSIC_ARGS.pack(
+            anchors.data_ptr(), table.data_ptr(), meta.data_ptr(),
+            ptr(ext_id), ptr(ext), ptr(slots), *(x.data_ptr() for x in hits),
+            ptr(count), ptr(first_pos), ptr(extras),
+            torch._C._cuda_getCurrentRawStream(index), table.shape[0],
+            0 if ext is None else ext.shape[0], n, cfg.anchor_len,
+            cfg.prefix_len, cfg.max_bucket, cfg.max_anchor_mm,
+            0 if ext is None else K1, index, 0))
+    if got < 0:
+        _build.check(-got, "classic_anchor_stats launch")
+    classic_launches += got
+    return hits, out
+
+
+def fallback_slice_ref(resolved, k: int):
+    """Plain version of fallback_slice."""
+    idx = torch.argsort(resolved.to(torch.int8), stable=True)[:k]
+    return idx, (~resolved).sum() > k
+
+
+def fallback_slice(resolved, k: int):
+    """K1 v4's static fallback slice of bool `resolved` [n]: (the first k
+    indices of its stable argsort, int64 [k]: the unresolved anchors
+    first, then the resolved, each in index order; the 0-d bool `overflow`,
+    True when more than k are unresolved). A CPU tensor takes the plain
+    version; a CUDA tensor launches csrc/classic_k1.cu's compaction on the
+    current stream (one launch, no wait) or raises."""
+    if resolved.is_cpu:
+        return fallback_slice_ref(resolved, k)
+    return _launch_compact(resolved, k)
+
+
+def _check_compact(resolved, k: int) -> None:
+    """Raise unless the compaction takes `resolved` and `k`."""
+    if (resolved.device.type != "cuda" or resolved.dtype != torch.bool
+            or resolved.dim() != 1 or not resolved.is_contiguous()
+            or not 0 <= k <= resolved.shape[0]):
+        raise ValueError(f"fallback_slice: want a contiguous bool [n] on a "
+                         f"CUDA device and 0 <= k <= n, got "
+                         f"{resolved.dtype} {list(resolved.shape)} on "
+                         f"{resolved.device}, k = {k}")
+
+
+def _launch_compact(resolved, k: int, lib=None):
+    """fallback_slice on a CUDA tensor: one C call, with its device
+    current."""
+    global compact_launches
+    _check_compact(resolved, k)
+    dev = resolved.device
+    n = resolved.shape[0]
+    idx = torch.empty(k, dtype=torch.int64, device=dev)
+    if n == 0:
+        return idx, torch.zeros((), dtype=torch.bool, device=dev)
+    overflow = torch.empty((), dtype=torch.bool, device=dev)
+    lib = lib or _build.load()
+    index = resolved.get_device()
+    with torch.cuda.device(index):
+        got = lib.fc2t_compact(_build.COMPACT_ARGS.pack(
+            resolved.data_ptr(), idx.data_ptr(), overflow.data_ptr(),
+            torch._C._cuda_getCurrentRawStream(index), n, k, index, 0))
+    if got < 0:
+        _build.check(-got, "fallback_slice launch")
+    compact_launches += got
+    return idx, overflow
+
+
 def align_anchors_sharded(shards, anchors, cfg: Config) -> AnchorHits:
     """Classic K1 over index shards [(table, meta)]: each shard's
     (count, first_pos), summed and minimized on the anchors' device,
-    then finalize_hits."""
+    then finalize_hits (plain per-shard partials)."""
     parts = _on_shards(shards, lambda t, m, a: candidate_stats(t, m, a, cfg),
                        (anchors,), anchors.device)
     mm_v, strand_v = parts[0][2:]
@@ -487,8 +719,9 @@ def align_anchors_sharded(shards, anchors, cfg: Config) -> AnchorHits:
 
 
 def align_anchors(table, meta, anchors, cfg: Config) -> AnchorHits:
-    """SPEC.md §2 anchor alignment by enumeration (classic K1)."""
-    return align_anchors_sharded([(table, meta)], anchors, cfg)
+    """SPEC.md §2 anchor alignment by enumeration (classic K1) on one
+    table: classic_anchor_stats' hits."""
+    return classic_anchor_stats(table, meta, anchors, cfg)[0]
 
 
 def _split(hits, B):
@@ -507,26 +740,26 @@ def align_anchor_pair_sharded(shards, anchors_a, anchors_b, cfg: Config
 def align_anchor_pair(table, meta, anchors_a, anchors_b, cfg: Config
                       ) -> tuple[AnchorHits, AnchorHits]:
     """Both anchors of a batch as one stacked [2B] enumeration."""
-    return align_anchor_pair_sharded([(table, meta)], anchors_a, anchors_b,
-                                     cfg)
+    return _split(align_anchors(table, meta, torch.cat([anchors_a,
+                                                        anchors_b]), cfg),
+                  anchors_a.shape[0])
 
 
-def _fast_pair(exact, classic, anchors_a, anchors_b, cfg: Config):
+def _fast_pair(exact, compact, refill, anchors_a, anchors_b, cfg: Config):
     """The exact-first pair on `exact(anchors) -> (hits, resolved)`, with
-    the enumeration fallback over index shards `classic` [(table,
-    meta)]. The phases carry the profiler labels k1_exact and
+    the enumeration fallback on the static slice `compact(resolved, k) ->
+    (idx, overflow)`, whose hits `refill(anchors, idx, hits)` writes over
+    the exact ones. The phases carry the profiler labels k1_exact and
     k1_fallback."""
     B = anchors_a.shape[0]
     both = torch.cat([anchors_a, anchors_b])
     with record_function("k1_exact"):
         hits, resolved = exact(both)
     with record_function("k1_fallback"):
-        k = min(cfg.exact_fallback_slots, 2 * B)
-        idx = torch.argsort(resolved.to(torch.int8), stable=True)[:k]
-        sub_hits = align_anchors_sharded(classic, both[idx], cfg)
-        merged = [f.index_copy(0, idx, s) for f, s in zip(hits, sub_hits)]
-        overflow = (~resolved).sum() > k
-    return (*_split(merged, B), overflow)
+        idx, overflow = compact(resolved, min(cfg.exact_fallback_slots,
+                                              2 * B))
+        hits = refill(both, idx, hits)
+    return (*_split(hits, B), overflow)
 
 
 def align_anchor_pair_fast_sharded(shards, anchors_a, anchors_b,
@@ -535,23 +768,31 @@ def align_anchor_pair_fast_sharded(shards, anchors_a, anchors_b,
     (plain per-shard partials, combined). The fallback slice is compacted
     on the combined `resolved`, so every shard enumerates the same
     anchors, and its statistics combine as the classic path's."""
-    return _fast_pair(lambda both: exact_anchor_stats_sharded(shards, both,
-                                                              cfg),
-                      [(t, m) for t, _, m in shards], anchors_a, anchors_b,
-                      cfg)
+    classic = [(t, m) for t, _, m in shards]
+
+    return _fast_pair(
+        lambda both: exact_anchor_stats_sharded(shards, both, cfg),
+        fallback_slice_ref,
+        lambda both, idx, hits: _scatter(hits, idx, align_anchors_sharded(
+            classic, both[idx], cfg)),
+        anchors_a, anchors_b, cfg)
 
 
 def align_anchor_pair_fast(table, ntable, meta, anchors_a, anchors_b,
                            cfg: Config):
-    """K1 v4: exact-first alignment (exact_anchor_stats, the kernel on the
-    card) with the enumeration fallback on a STATIC slice of k =
+    """K1 v4: exact-first alignment (exact_anchor_stats) with the
+    enumeration fallback on a STATIC slice of k =
     min(exact_fallback_slots, 2B) anchors, the unresolved ones first
-    (stable sort of `resolved`). Re-enumerated resolved anchors give
-    identical statistics, so the scatter back is unconditional. Returns
-    (hits_a, hits_b, overflow): `overflow` is a 0-d bool tensor, True
-    when more anchors were unresolved than the slice holds — the caller
-    must then redo the batch on the classic path. Nothing here waits for
-    the device."""
-    return _fast_pair(lambda both: exact_anchor_stats(table, ntable, meta,
-                                                      both, cfg),
-                      [(table, meta)], anchors_a, anchors_b, cfg)
+    (fallback_slice, a stable sort of `resolved`), whose classic hits
+    replace the exact ones (refill_slice; re-enumerated resolved anchors
+    give identical statistics, so the scatter is unconditional). On the
+    card all three are kernels. Returns (hits_a, hits_b, overflow):
+    `overflow` is a 0-d bool tensor, True when more anchors were
+    unresolved than the slice holds — the caller must then redo the batch
+    on the classic path. Nothing here waits for the device."""
+    return _fast_pair(
+        lambda both: exact_anchor_stats(table, ntable, meta, both, cfg),
+        fallback_slice,
+        lambda both, idx, hits: refill_slice(table, meta, both, idx, hits,
+                                             cfg),
+        anchors_a, anchors_b, cfg)

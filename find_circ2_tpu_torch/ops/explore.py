@@ -10,10 +10,12 @@ no viable pair. Each candidate has exactly one pairing role (left or
 right piece), so one (Lp+2)-wide genome window per candidate serves its
 prefix sums, its full-read prefilter count and its splice dinucleotides.
 
-Everything after K1 (`explore_pairs`) is one hand-written CUDA kernel
-per chunk on the card (csrc/explore.cu, one thread block per read, its
-stages at warp level: csrc/explore.cu's header says why); a CPU
-tensor takes the plain version, `explore_pairs_ref`. In the plain version
+On the card K1 (`explore_k1`: both anchors in one launch of
+ops/anchor_align.classic_anchor_stats, csrc/classic_k1.cu) and
+everything after it (`explore_pairs`) are one hand-written CUDA kernel
+each per chunk (csrc/explore.cu, one thread block per read, its stages
+at warp level: csrc/explore.cu's header says why); a CPU tensor takes
+the plain versions, `explore_pairs_ref` here. In the plain version
 the reference's bf16 triangular-ones matmul prefix sums are an int32
 `cumsum`, which is exact. Global positions are int64 holding the
 reference's uint32 values; every sum that wraps in uint32 there is masked
@@ -47,9 +49,10 @@ from find_circ2_tpu_torch.config import (
     ST_UNALIGNED_B,
 )
 from find_circ2_tpu_torch.index.hashtable import M32
-from find_circ2_tpu_torch.ops.anchor_align import (LARGE_POS, candidate_stats,
-                                                   finalize_hits,
-                                                   read_anchors)
+from find_circ2_tpu_torch.ops.anchor_align import (LARGE_POS, AnchorHits,
+                                                   classic_anchor_stats,
+                                                   read_anchors,
+                                                   variant_metadata)
 from find_circ2_tpu_torch.ops.breakpoint import as_int32
 from find_circ2_tpu_torch.ops.detect import _pack
 from find_circ2_tpu_torch.ops.packed import gather_window
@@ -481,15 +484,19 @@ def resources(cfg: Config, n_chroms: int, device) -> dict:
 def explore_k1(words, nbases: int, table, meta, ext, ext_id, chrom_offsets,
                reads, lens, cfg: Config) -> tuple:
     """K1 with the §2b extras for both anchors of a batch of routed reads
-    (uint8 [B, Lp], int32 [B]): explore_pairs' arguments before `cfg`."""
-    anchors_a, anchors_b = read_anchors(reads, lens, cfg)
-    ca, fa, mm_v, strand_v, xa = candidate_stats(table, meta, anchors_a,
-                                                 cfg, ext, ext_id)
-    cb, fb, _, _, xb = candidate_stats(table, meta, anchors_b, cfg, ext,
-                                       ext_id)
-    return (words, nbases, chrom_offsets, reads, lens, (ca, fa, xa),
-            (cb, fb, xb), finalize_hits(ca, fa, mm_v, strand_v, cfg),
-            finalize_hits(cb, fb, mm_v, strand_v, cfg), mm_v)
+    (uint8 [B, Lp], int32 [B]): explore_pairs' arguments before `cfg`.
+    Both anchors go through one classic_anchor_stats call ([2B], one
+    kernel launch on the card), whose rows split into contiguous halves."""
+    B = reads.shape[0]
+    hits, stats = classic_anchor_stats(table, meta,
+                                       torch.cat(read_anchors(reads, lens,
+                                                              cfg)),
+                                       cfg, ext, ext_id, stats=True)
+    halves = [AnchorHits(*(x[:B] for x in hits)),
+              AnchorHits(*(x[B:] for x in hits))]
+    return (words, nbases, chrom_offsets, reads, lens,
+            tuple(x[:B] for x in stats), tuple(x[B:] for x in stats),
+            *halves, variant_metadata(cfg, reads.device)[0])
 
 
 def explore_batch_packed(words, nbases: int, table, meta, ext, ext_id,

@@ -2,8 +2,10 @@
 
 Replaces `find_circ2_tpu/ops/pallas_k1.py:gather_rows_pallas` (there a
 DEPTH-8 chain of per-row DMAs, kept off the TPU's main path); here it is
-on the main path, as every table and neighbour-table row fetch of
-`ops/anchor_align` and the §2b extras fetches of `ops/explore`. Rows are
+every table and neighbour-table row fetch of the plain K1 in
+`ops/anchor_align` (`_bucket_rows`, the §2b extras), which the sharded
+engine's per-shard partials run on the card. On one table K1's kernels
+(csrc/exact_stats.cu, csrc/classic_k1.cu) fetch their own rows. Rows are
 fetched at hashed or random indices, so each row costs one or a few
 random DRAM sectors. The kernel (csrc/gather_rows.cu) loads each row's
 index once per warp tile, moves rows in 16-, 8- or 4-byte vectors, issues

@@ -1,10 +1,13 @@
-"""Synthetic inputs of detect's core (ops/detect.detect_core_packed) and of
-K1 v4's exact-first probe (ops/anchor_align.exact_anchor_stats) at their
-edges, made with numpy from a seed.
+"""Synthetic inputs of detect's core (ops/detect.detect_core_packed), of
+K1 v4's exact-first probe (ops/anchor_align.exact_anchor_stats) and of
+the classic enumeration (ops/anchor_align.classic_anchor_stats, with the
+§2b extras, and the fallback slice) at their edges, made with numpy from
+a seed.
 
 A case is a two-chromosome genome with its query and neighbour tables
-(the port's numpy builders), a batch of reads with their reverse
-complements, each anchor's hits, and a set of anchors for the probe.
+and §2b extras (the port's numpy builders), a batch of reads with their
+reverse complements, each anchor's hits, and a set of anchors for the
+probe and the enumeration.
 The hits are K1 v4's (the plain exact_anchor_stats with its enumeration
 fallback) except on the first rows, which pin one edge each (see
 `PINNED`), with hits written out where K1 could not give them. The other
@@ -12,8 +15,10 @@ rows mix junction reads cut from the genome on either strand (with
 mismatches and N), contiguous reads (the §6 prefilter), random reads
 (unaligned anchors), reads anchored in a 20-mer planted more often than
 max_bucket, lengths 2a to Lp, and padding rows (length 0). The probe's
-anchors are the reads' anchors followed by `PINNED_ANCHORS`. `core_args`
-and `exact_args` turn a case into the two functions' arguments.
+anchors are the reads' anchors followed by `PINNED_ANCHORS` (two of
+them keys put into the table, whose two buckets coincide), then the
+anchors of the table's own such keys. `core_args`, `exact_args`
+and `classic_args` turn a case into the functions' arguments.
 `chip_smoke.py` holds the CUDA kernels against their plain versions on a
 case; the tests hold the plain versions against the reference.
 """
@@ -27,22 +32,24 @@ import torch
 
 from find_circ2_tpu_torch.config import RPAD_CODE, Config
 from find_circ2_tpu_torch.index.build import build_index
-from find_circ2_tpu_torch.index.hashtable import (EMPTY_KEY, LANES,
-                                                  S8_MASK,
+from find_circ2_tpu_torch.index.hashtable import (CNT_BITS, EMPTY_KEY,
+                                                  LANES, S8_MASK, SLOTS,
                                                   build_neighbor_table,
                                                   build_query_table,
                                                   mix_hash)
 from find_circ2_tpu_torch.io.genome import Genome
 from find_circ2_tpu_torch.models.pipeline import revcomp_batch
-from find_circ2_tpu_torch.ops.anchor_align import (AnchorHits,
+from find_circ2_tpu_torch.ops.anchor_align import (AnchorHits, _exact_keys,
                                                    align_anchor_pair_fast,
                                                    read_anchors)
 from find_circ2_tpu_torch.ops.packed import pack_words
 
 LARGE_POS = 0xFFFFFFFF
 CHROM_BASES = 60_000
-# A 20-mer planted more often than Config.max_bucket.
+# A 20-mer planted more often than Config.max_bucket, and one planted
+# more often than Config.max_pair_hits but not max_bucket.
 REPEAT_COPIES = 80
+HIT_COPIES = 30
 _A, _C, _G, _T, _N = 0, 1, 2, 3, 4
 
 # What each of the first rows of the batch pins.
@@ -78,6 +85,11 @@ PINNED_ANCHORS = (
     "one substitution away from a present 20-mer: not found, unresolved",
     "random: absent, unresolved",
     "all N",
+    "a 20-mer planted HIT_COPIES times: a slot whose count exceeds "
+    "max_pair_hits, with a full ext row",
+    "a key put into the table whose two buckets coincide: counted twice, "
+    "its ext row id doubled past the last ext row (read as LARGE_POS)",
+    "another such key, its ext row id 1 doubled to 2, inside the ext rows",
 )
 
 
@@ -87,6 +99,8 @@ class DetectCase:
     table: np.ndarray      # int32 [T, 8] cuckoo table
     ntable: np.ndarray     # int32 [T, 8] neighbour table
     meta: np.ndarray       # int32 [3]
+    ext: np.ndarray        # int32 [R, 2 (K-1)] §2b extras, uint32 bits
+    ext_id: np.ndarray     # int32 [T, 2] ext row of each slot
     reads: np.ndarray      # uint8 [B, Lp], RPAD past each length
     lens: np.ndarray       # int32 [B]
     rc: np.ndarray         # uint8 [B, Lp] left-aligned reverse complements
@@ -124,6 +138,13 @@ def detect_case(seed: int, B: int, cfg: Config = Config()) -> DetectCase:
     for p in rng.choice(CHROM_BASES // 100, REPEAT_COPIES,
                         replace=False) * 100 + 50:
         chroms[1][p:p + a] = repeat
+    # Two 20-mers of more than max_pair_hits copies, from a generator of
+    # their own, so that the reads stay those of the seed.
+    many = np.random.default_rng([seed, 1]).integers(0, 4, (2, a)).astype(
+        np.uint8)
+    for p in (100 + np.arange(HIT_COPIES)) * 100:
+        chroms[1][p + 5:p + 5 + a] = many[0]
+        chroms[1][p + 75:p + 75 + a] = many[1]
     off = cfg.chrom_gap                       # chromosome 0's first base
 
     def cut(chrom, pA, k, pB, L):
@@ -145,7 +166,7 @@ def detect_case(seed: int, B: int, cfg: Config = Config()) -> DetectCase:
     genome = Genome.from_records([("chrA", chroms[0]), ("chrB", chroms[1])],
                                  cfg)
     index = build_index(genome, cfg)
-    qt = index.qtable = build_query_table(index, cfg, extras=False)
+    qt = index.qtable = build_query_table(index, cfg)
     ntable = build_neighbor_table(index, cfg)
     nbases = len(genome)
 
@@ -272,13 +293,53 @@ def detect_case(seed: int, B: int, cfg: Config = Config()) -> DetectCase:
     co = occ[h1 == h2]
     pos = tab[co, 2:4].view(np.uint32).min(axis=1).astype(np.int64)
     same = [codes[p:p + a] for p in pos if p + a <= nbases]
+    # Two keys put into the table whose buckets coincide, their ext row
+    # ids doubled past the last row and inside the rows.
+    ext = qt.ext.view(np.int32)
+    table, ext_id = qt.table.copy(), qt.ext_id.copy()
+    put = _put_coincident(table, ext_id, qt.meta, cfg,
+                          np.random.default_rng([seed, 2]),
+                          (ext.shape[0] - 1, 1), off)
+    pinned += [many[0].copy(), *put]
     anchors = np.concatenate([anchors_a.numpy(), anchors_b.numpy(),
                               np.stack(pinned + same)])
-    return DetectCase(genome=genome, table=qt.table, ntable=ntable,
-                      meta=np.asarray(qt.meta[:3], np.int32), reads=reads,
-                      lens=lens, rc=revcomp_batch(reads, lens), hits=hits,
+    return DetectCase(genome=genome, table=table, ntable=ntable,
+                      meta=np.asarray(qt.meta[:3], np.int32), ext=ext,
+                      ext_id=ext_id, reads=reads, lens=lens,
+                      rc=revcomp_batch(reads, lens), hits=hits,
                       anchors=np.ascontiguousarray(anchors, np.uint8),
-                      coincident=len(same))
+                      coincident=len(same) + len(put))
+
+
+def _put_coincident(table, ext_id, meta, cfg: Config, rng, rids, off):
+    """Put a key for each row id of `rids` into an empty slot of `table`
+    (int32 [T, 8], in place): a random 20-mer whose two cuckoo buckets
+    are one bucket, with counts 3 ('+') and 2 ('-') and positions near
+    `off`; its `ext_id` slot gets the row id, its neighbour-table slot
+    stays empty. Returns the keys' anchors."""
+    tab = table.reshape(-1, SLOTS, LANES)
+    salts = np.asarray(meta[:2], np.int32).view(np.uint32)
+    anchors, used = [], set()
+    while len(anchors) < len(rids):
+        codes = rng.integers(0, 4, (1 << 16, cfg.anchor_len)).astype(
+            np.uint8)
+        _, _, cp, cs = (x.numpy().astype(np.uint32) for x in _exact_keys(
+            torch.from_numpy(codes), cfg))
+        h1, h2 = (mix_hash(cp, cs, s).astype(np.int64) % int(meta[2])
+                  for s in salts)
+        for i in np.flatnonzero(h1 == h2):
+            rows = tab[h1[i]]
+            free = np.flatnonzero(rows[:, 0] == EMPTY_KEY)
+            if (not free.size or h1[i] in used
+                    or len(anchors) == len(rids)):
+                continue
+            slot = free[0]
+            rows[slot] = (int(cp[i]), int(cs[i]) | (3 << 16)
+                          | (2 << (16 + CNT_BITS)), off + 11, off + 22)
+            ext_id[h1[i], slot] = rids[len(anchors)]
+            used.add(h1[i])
+            anchors.append(codes[i])
+    return anchors
 
 
 def _hits(fields: dict, device) -> AnchorHits:
@@ -316,3 +377,12 @@ def exact_args(case: DetectCase, device="cpu", shift: int = 0) -> tuple:
     def dev(x):
         return torch.from_numpy(np.ascontiguousarray(x)).to(device)
     return dev(table), dev(ntable), dev(case.meta), dev(case.anchors)
+
+
+def classic_args(case: DetectCase, device="cpu") -> tuple:
+    """classic_anchor_stats' tensors for a case, on `device`: (table,
+    meta, anchors, ext, ext_id)."""
+    def dev(x):
+        return torch.from_numpy(np.ascontiguousarray(x)).to(device)
+    return (dev(case.table), dev(case.meta), dev(case.anchors),
+            dev(case.ext), dev(case.ext_id))

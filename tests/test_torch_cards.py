@@ -60,6 +60,51 @@ def _same_hits(got, want):
             and torch.equal(resolved, wres))
 
 
+def _same_classic(got, want):
+    (hits, stats), (whits, wstats) = got, want
+    return (all(torch.equal(x, y) for x, y in zip(hits, whits))
+            and (stats is None) == (wstats is None)
+            and all(torch.equal(x, y) for x, y in zip(stats or (),
+                                                        wstats or ())))
+
+
+def _classic_modes(case, device):
+    """The enumeration kernel in each mode on the case's anchors against
+    its plain version on the same tensors on `device`, then the fallback
+    slice (compaction and refill) on resolved masks with and without
+    overflow; returns the kernels' launches (classic, compact)."""
+    table, meta, anchors, ext, ext_id = detect_cases.classic_args(case,
+                                                                  device)
+    before = (ta.classic_launches, ta.compact_launches)
+    for x, stats in (((), False), ((), True), ((ext, ext_id), True)):
+        got = ta.classic_anchor_stats(table, meta, anchors, CFG, *x,
+                                      stats=stats)
+        torch.cuda.synchronize(device)
+        assert got[0].pos.device == anchors.device
+        assert _same_classic(got, ta.classic_anchor_stats_ref(
+            table, meta, anchors, CFG, *x, stats=stats))
+    ntable = torch.from_numpy(case.ntable).to(device)
+    n = anchors.shape[0]
+    g = torch.Generator().manual_seed(3)
+    for k, unresolved in ((16, 100), (n, 100), (1024, n), (1024, 0)):
+        k = min(k, n)
+        resolved = torch.ones(n, dtype=torch.bool)
+        resolved[torch.randperm(n, generator=g)[:unresolved]] = False
+        resolved = resolved.to(device)
+        idx, over = ta.fallback_slice(resolved, k)
+        widx, wover = ta.fallback_slice_ref(resolved, k)
+        torch.cuda.synchronize(device)
+        assert torch.equal(idx, widx) and torch.equal(over, wover)
+        hits, _ = ta.exact_anchor_stats(table, ntable, meta, anchors, CFG)
+        want = ta.refill_slice_ref(table, meta, anchors, idx, hits, CFG)
+        got = ta.refill_slice(table, meta, anchors, idx, hits, CFG)
+        torch.cuda.synchronize(device)
+        assert all(a is b for a, b in zip(got, hits))
+        assert all(torch.equal(a, b) for a, b in zip(got, want))
+    return (ta.classic_launches - before[0],
+            ta.compact_launches - before[1])
+
+
 def _sharded_rows(case, device):
     """A 1x2 sharded engine's packed rows (exact-first and the classic
     redo) on the case's reads, its two index shards on `device`."""
@@ -110,6 +155,48 @@ def test_detect_kernels_match_plain_on_card(case, cuda_device):
     for got, want in zip(_sharded_rows(case, cuda_device),
                          _sharded_rows(case, "cpu")):
         assert torch.equal(got.cpu(), want)
+
+
+@pytest.mark.cuda
+def test_classic_kernels_match_plain_on_card(case, cuda_device):
+    """On the card, the enumeration kernel equals its plain version on
+    every element of every output in each mode (hits only, the
+    statistics, the §2b extras; the case's pinned anchors: more than K
+    hits, a guarded slot, keys whose buckets coincide with ext row ids
+    doubled past and inside the rows), the compaction equals the stable
+    argsort with and without overflow, the refill writes the plain hits
+    in place; each launches once a call. The redo (detect_batch_packed)
+    and explore's K1 on the card equal the CPU."""
+    assert _classic_modes(case, cuda_device) == (3 + 4, 4)
+    g = case.genome
+
+    def redo(dev):
+        words = detect_cases.core_args(case, dev)[0]
+        return tp.detect_batch_packed(
+            words, len(g), *(torch.from_numpy(x).to(dev) for x in (
+                case.table, case.meta, g.chrom_offsets, case.reads,
+                case.lens)), CFG, True, torch.from_numpy(case.rc).to(dev))
+    assert torch.equal(redo(cuda_device).cpu(), redo("cpu"))
+
+    def k1(dev):
+        words = detect_cases.core_args(case, dev)[0]
+        return tx.explore_k1(words, len(g), *(
+            torch.from_numpy(np.ascontiguousarray(x)).to(dev) for x in (
+                case.table, case.meta, case.ext, case.ext_id,
+                g.chrom_offsets, case.reads, case.lens)), CFG)
+    got, want = k1(cuda_device), k1("cpu")
+    for x, y in zip(got[5:], want[5:]):     # stats, hits, mm_v
+        pairs = zip(x, y) if isinstance(x, tuple) else [(x, y)]
+        assert all(torch.equal(a.cpu(), b) for a, b in pairs)
+
+
+@pytest.mark.cuda
+def test_classic_kernels_on_second_card(case, two_cards):
+    """With cuda:0 current, the enumeration and the compaction run on
+    tensors on cuda:1 and equal their plain versions there."""
+    torch.cuda.set_device(0)
+    assert _classic_modes(case, two_cards) == (3 + 4, 4)
+    assert torch.cuda.current_device() == 0
 
 
 @pytest.mark.cuda

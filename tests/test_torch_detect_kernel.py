@@ -321,9 +321,10 @@ def _constants(name):
 
 
 def test_kernel_constants_match_config():
-    """The codes and constants csrc/detect.cu and csrc/exact_stats.cu spell
-    out equal config.py's, ops/breakpoint.py's and index/hashtable.py's,
-    and the argument layouts match _build's."""
+    """The codes and constants that csrc/detect.cu, csrc/exact_stats.cu
+    and the table's header csrc/cuckoo.cuh spell out equal config.py's,
+    ops/breakpoint.py's and index/hashtable.py's, and the argument
+    layouts match _build's."""
     src, got = _constants("detect.cu")
     assert 1 << int(re.search(r"kBig = 1 << (\d+);", src).group(1)) == \
         tb.BIG
@@ -345,13 +346,17 @@ def test_kernel_constants_match_config():
     assert "sizeof(DetectArgs) == %d" % _build.DETECT_ARGS.size in src
     Lp = td.MAX_READ_LEN
     assert (2 * Lp * 8 + 6) * (Lp + 2) + Lp < 2 ** 31
-    src, got = _constants("exact_stats.cu")
-    want = dict(kSlots=jht.SLOTS, kLanes=jht.LANES,
-                kNbrLanes=jht.NBR_LANES, kCntBits=jht.CNT_BITS,
+    # The table's layout and hash, shared through csrc/cuckoo.cuh.
+    head, got = _constants("cuckoo.cuh")
+    want = dict(kSlots=jht.SLOTS, kLanes=jht.LANES, kCntBits=jht.CNT_BITS,
                 kC1=tht._C1, kC2=tht._C2, kC3=tht._C3,
-                kLargeMm=ta.LARGE_MM, kMaxAnchor=ta.MAX_ANCHOR_LEN)
+                kLargeMm=ta.LARGE_MM)
     assert {k: got[k] for k in want} == want
-    assert "kS8Mask = 0x%x" % jht.S8_MASK in src.replace("ffffu", "ffff")
+    assert "kS8Mask = 0x%x" % jht.S8_MASK in head.replace("ffffu", "ffff")
+    src, got = _constants("exact_stats.cu")
+    want = dict(kNbrLanes=jht.NBR_LANES, kMaxAnchor=ta.MAX_ANCHOR_LEN)
+    assert {k: got[k] for k in want} == want
+    assert '#include "cuckoo.cuh"' in src and "mix_hash(uint32_t" not in src
     assert "sizeof(ExactArgs) == %d" % _build.EXACT_ARGS.size in src
 
 
@@ -365,12 +370,16 @@ def test_library_hash_covers_headers(tmp_path, monkeypatch):
     monkeypatch.setattr(_build, "CSRC", str(tmp_path))
     before = _build.library_path()
     headers = sorted(p for p in os.listdir(tmp_path) if p.endswith(".cuh"))
-    assert headers == ["nibbles.cuh"]
-    with open(tmp_path / headers[0], "a") as fh:
-        fh.write("// edited\n")
-    assert _build.library_path() != before
+    assert headers == ["cuckoo.cuh", "nibbles.cuh"]
+    seen = {before}
+    for header in headers:
+        with open(tmp_path / header, "a") as fh:
+            fh.write("// edited\n")
+        seen.add(_build.library_path())
+    assert len(seen) == 3
     assert {os.path.basename(s) for s in _build._sources()} == {
-        "detect.cu", "exact_stats.cu", "explore.cu", "gather_rows.cu"}
+        "classic_k1.cu", "detect.cu", "exact_stats.cu", "explore.cu",
+        "gather_rows.cu"}
 
 
 def test_profiler_labels_split_a_batch(case):
