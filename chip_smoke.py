@@ -48,8 +48,10 @@ Phases, each fatal on failure:
      batch of phase 5's stream (the probe, the core, the fallback slice
      and the redo's enumeration) and on a batch forced through the
      classic redo, and are timed beside them and their bounds; K1's two
-     new kernels (time_classic) at the fallback slice, the compaction,
-     the 8192-anchor redo and the explore chunk; one batch's device
+     kernels (time_classic) at the fallback slice, the compaction (beside
+     its library call, one stable torch.argsort), the 8192-anchor redo
+     and the explore chunk, with each one's SM cycles by stage from its
+     measurement build (classic_stages); one batch's device
      activities and host enqueue are split by the profiler labels with
      the kernels and with the plain versions; `run_fastq` runs with the
      kernels and with the plain versions in turn (equal BED,
@@ -65,6 +67,10 @@ Phases, each fatal on failure:
      batch, and the engine's packed rows equal those of the plain detect
      core; `find_circ --mesh 2x2` and `--nproc 2` (two processes over
      gloo on the one card) reproduce the golden bytes.
+
+A torch.profiler profile that holds no device activity is taken again,
+up to PROFILE_TRIES times; after that its figures come from CUDA events
+and its log line says so.
 
 Prints the kernel table as one JSON line, the card line, and as its last
 line {"ok": true, "device": {...}}. Exits non-zero, printing no result,
@@ -137,6 +143,10 @@ DETECT_LABELS = ("read_anchors", "k1_exact", "k1_fallback", "k1_classic",
 EXPLORE_LABELS = ("explore_k1", "explore_pairs")
 L2_BYTES = 50 << 20
 GRAPH_REPLAYS = 5
+# torch.profiler's device tracing (CUPTI) now and then hands back a profile
+# with no device activity in it: each profile is taken up to this many
+# times before its figures fall back to CUDA events.
+PROFILE_TRIES = 3
 
 
 def fail(msg: str) -> None:
@@ -628,20 +638,41 @@ def _device_events(prof) -> list:
             and e.name not in DETECT_LABELS + EXPLORE_LABELS]
 
 
+def _profile(fn):
+    """Run fn under torch.profiler, again while the profile holds no
+    device activity, at most PROFILE_TRIES times. The profile (None when
+    every try came back empty; each empty try is said on stderr) and the
+    number of tries."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    for attempt in range(1, PROFILE_TRIES + 1):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        if _device_events(prof):
+            return prof, attempt
+        print(f"chip_smoke: torch.profiler recorded no device activity "
+              f"(try {attempt} of {PROFILE_TRIES})", file=sys.stderr,
+              flush=True)
+    return None, PROFILE_TRIES
+
+
 def device_profile(fn) -> dict:
     """Run fn once under torch.profiler. Its device activities (kernels,
     copies, fills): how many, the milliseconds the device was busy (the
-    union of their intervals) and the first-to-last span."""
-    import torch
-    from torch.profiler import ProfilerActivity, profile
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        fn()
-        torch.cuda.synchronize()
+    union of their intervals) and the first-to-last span; `source` names
+    the instrument and `tries` counts the runs of fn under it. When no
+    profile holds device activity (_profile), one call of fn timed by
+    CUDA events gives busy and span alike, and the activities and busy
+    share are None (not measured)."""
+    prof, tries = _profile(fn)
+    if prof is None:
+        ms = cuda_ms(fn, 1)
+        return dict(ops=None, busy_ms=ms, span_ms=ms, busy_share=None,
+                    source="CUDA events", tries=tries)
     spans = sorted((e.time_range.start, e.time_range.end)
                    for e in _device_events(prof))
-    if not spans:
-        fail("torch.profiler recorded no device activity")
     busy, (lo, hi) = 0, spans[0]
     for a, b in spans[1:]:
         if a > hi:
@@ -650,7 +681,15 @@ def device_profile(fn) -> dict:
     busy += hi - lo
     span = hi - spans[0][0]
     return dict(ops=len(spans), busy_ms=busy / 1e3, span_ms=span / 1e3,
-                busy_share=busy / max(span, 1))
+                busy_share=busy / max(span, 1), source="torch.profiler",
+                tries=tries)
+
+
+def busy_ms(fn) -> tuple[float, str]:
+    """device_profile(fn)'s busy milliseconds and the instrument that
+    measured them."""
+    prof = device_profile(fn)
+    return prof["busy_ms"], prof["source"]
 
 
 def explore_k1(d, reads, lens, cfg) -> tuple:
@@ -714,6 +753,16 @@ def explore_bound(args, cfg) -> dict:
                 long_lists=int((longest > EXPLORE_RANK_MAX).sum()))
 
 
+def _quantiles(cyc, names, total: str = "total") -> dict:
+    """Per stage, and for their sum (`total`), the median, 90th percentile
+    and maximum over the rows of int64 [rows, len(names)] cycles."""
+    import torch
+    cyc = torch.cat([cyc, cyc.sum(1, keepdim=True)], 1).double().cpu()
+    q = torch.tensor([0.5, 0.9, 1.0], dtype=torch.float64)
+    return {name: [float(v) for v in torch.quantile(cyc[:, k], q)]
+            for k, name in enumerate((*names, total))}
+
+
 def explore_stages(args, cfg, what: str, card: str) -> dict:
     """Where one block's time goes: the kernel's measurement build
     (ops/explore.stage_cycles) on `args`, its rows held against the plain
@@ -725,10 +774,7 @@ def explore_stages(args, cfg, what: str, card: str) -> dict:
     if not torch.equal(rows, tx.explore_pairs_ref(*args, cfg, True)):
         fail(f"the stamped explore kernel differs from its plain version "
              f"on {what}")
-    cyc = torch.cat([cyc, cyc.sum(1, keepdim=True)], 1).double().cpu()
-    q = torch.tensor([0.5, 0.9, 1.0], dtype=torch.float64)
-    out = {name: [float(v) for v in torch.quantile(cyc[:, k], q)]
-           for k, name in enumerate((*tx.STAGES, "block"))}
+    out = _quantiles(cyc, tx.STAGES, "block")
     log(f"explore kernel stages on {what}, SM clock cycles a block "
         f"(median / p90 / max): " + "; ".join(
             f"{name} {m:.0f} / {p:.0f} / {x:.0f}"
@@ -757,18 +803,19 @@ def time_pairs(args, cfg, card, buckets=()) -> dict:
         return tx.explore_pairs_ref(*args, cfg, True)
 
     def busy(fn):
-        return device_profile(lambda: fn(0))["busy_ms"]
+        return busy_ms(lambda: fn(0))
     p1, k1 = called_ms(plain, range(5)), called_ms(kernel, range(20))
     k2, p2 = called_ms(kernel, range(20)), called_ms(plain, range(5))
     gp1, gk1, bk1 = busy(plain), graph_ms(kernel, range(20)), busy(kernel)
     bk2, gk2, gp2 = busy(kernel), graph_ms(kernel, range(20)), busy(plain)
+    (bk, k_src), (gp, p_src) = min(bk1, bk2), min(gp1, gp2)
     out = dict(called_ms=min(k1, k2), plain_called_ms=min(p1, p2),
-               ms=min(gk1, gk2), profiler_ms=min(bk1, bk2),
-               plain_ms=min(gp1, gp2), **explore_bound(args, cfg))
+               ms=min(gk1, gk2), profiler_ms=bk, plain_ms=gp,
+               **explore_bound(args, cfg))
     log(f"explore_pairs on {args[3].shape[0]} routed reads: device alone "
         f"{out['ms']:.5f} ms (graph; {out['profiler_ms']:.5f} ms "
-        f"torch.profiler) vs plain {out['plain_ms']:.5f} ms "
-        f"(torch.profiler); as called {out['called_ms']:.5f} ms vs plain "
+        f"{k_src}) vs plain {out['plain_ms']:.5f} ms "
+        f"({p_src}); as called {out['called_ms']:.5f} ms vs plain "
         f"{out['plain_called_ms']:.5f} ms; bound {out['bound_ms']:.5f} ms "
         f"by {out['bound_by']} ({out['ops']:,} int32 operations, "
         f"{out['bytes']:,} bytes), {100 * out['bound_ms'] / out['ms']:.1f}% "
@@ -917,19 +964,21 @@ def check_explore(dindex, arr, lens, cfg, card) -> dict:
         peak = torch.cuda.max_memory_allocated() - base
         card_ms = cuda_ms(lambda: fn(dindex, True), 5)
         prof = device_profile(lambda: fn(dindex, True))
-        rec = dict(card_ms=card_ms, enqueue_ms=enqueue,
-                   device_ops=prof["ops"], device_ms=prof["busy_ms"],
-                   peak_bytes=peak)
+        rec = dict(card_ms=card_ms, enqueue_ms=enqueue, peak_bytes=peak)
         old = out.get(name)
-        out[name] = rec if old is None else {
-            k: min(old[k], rec[k]) for k in rec}
+        if old is not None:
+            rec = {k: min(old[k], rec[k]) for k in rec}
+            prof = min(old["device"], prof, key=lambda p: p["busy_ms"])
+        out[name] = dict(rec, device=prof)
     for name in ("plain", "kernel"):
-        r = out[name]
+        r, prof = out[name], out[name]["device"]
+        ops = ("device activities not measured;" if prof["ops"] is None
+               else f"{prof['ops']} device activities")
         log(f"one explore chunk, K1 and pairs {name} (prefilter on): "
             f"{r['card_ms']:.3f} ms as called (CUDA events), host enqueue "
-            f"{r['enqueue_ms']:.3f} ms, {r['device_ops']} device activities "
-            f"busy {r['device_ms']:.3f} ms (torch.profiler), peak "
-            f"{r['peak_bytes']:,} bytes above the index, on {card}")
+            f"{r['enqueue_ms']:.3f} ms, {ops} busy {prof['busy_ms']:.3f} ms "
+            f"({prof['source']}), peak {r['peak_bytes']:,} bytes above the "
+            f"index, on {card}")
     return out
 
 
@@ -1095,13 +1144,12 @@ def label_split(fn, labels) -> dict:
     the record_function `labels` around the host call that enqueued each
     (matched by correlation id); each label's host milliseconds. An
     activity whose host call lies in no label, or was not matched, counts
-    under "other"; "total" counts all."""
+    under "other"; "total" counts all. Only {"total": None} when no
+    profile held device activity (_profile): the split is not measured."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        fn()
-        torch.cuda.synchronize()
+    prof, _ = _profile(fn)
+    if prof is None:
+        return {"total": None}
     cpu = torch.autograd.DeviceType.CPU
     events = list(prof.events())
     spans = sorted((e.time_range.start, e.time_range.end, e.name)
@@ -1242,16 +1290,17 @@ def check_detect(dindex, batches, genome, cfg, card) -> dict:
         kernel, plainf, alone, n_alone = kernels(name)
         p1, k1 = called_ms(plainf, range(n)), called_ms(kernel, range(n))
         k2, p2 = called_ms(kernel, range(n)), called_ms(plainf, range(n))
-        gp1 = device_profile(lambda: plainf(0))["busy_ms"]
+        gp1 = busy_ms(lambda: plainf(0))
         gk1 = graph_ms(alone, range(n_alone))
         gk2 = graph_ms(alone, range(n_alone))
-        gp2 = device_profile(lambda: plainf(0))["busy_ms"]
+        gp2 = busy_ms(lambda: plainf(0))
+        gp, p_src = min(gp1, gp2)
         rec = dict(called_ms=min(k1, k2), plain_called_ms=min(p1, p2),
-                   ms=min(gk1, gk2), plain_ms=min(gp1, gp2), **bounds[name])
+                   ms=min(gk1, gk2), plain_ms=gp, **bounds[name])
         out[name] = rec
         log(f"{name} kernel on a {ex0[3].shape[0] // 2}-read batch: device "
             f"alone {rec['ms']:.5f} ms (graph, {n_alone} input sets) vs "
-            f"plain {rec['plain_ms']:.5f} ms (torch.profiler busy); as "
+            f"plain {rec['plain_ms']:.5f} ms ({p_src} busy); as "
             f"called {rec['called_ms']:.5f} ms vs plain "
             f"{rec['plain_called_ms']:.5f} ms; bound {rec['bound_ms']:.5f} "
             f"ms by {rec['bound_by']} ({rec['bytes']:,} bytes, "
@@ -1276,6 +1325,12 @@ def check_detect(dindex, batches, genome, cfg, card) -> dict:
         split[name] = got
     out["split"] = split
     for name, got in split.items():
+        if got["total"] is None:
+            log(f"one {arr.shape[0]}-read detect batch with the {name} "
+                f"versions: host enqueue {got['enqueue_ms']:.3f} ms; device "
+                f"activities by label not measured (torch.profiler "
+                f"recorded none in {PROFILE_TRIES} tries); on {card}")
+            continue
         log(f"one {arr.shape[0]}-read detect batch with the {name} "
             f"versions: {got['total']['activities']} device activities, "
             f"{got['total']['device_ms']:.3f} device ms, host enqueue "
@@ -1297,9 +1352,10 @@ def classic_bound(table, n: int, cfg, slots: bool = False,
     read once: the anchors, two 32-byte table rows a canonical variant,
     meta, the slots (slot mode) and the hit fields written; with `stats`
     (the call's outputs) the count and first_pos rows written, and with
-    extras two 8-byte ext_id rows a variant, the ext row of each variant
-    that has a real one (some lane of its slots is not LARGE_POS; row 0
-    is the dummy) and the extras written. Operations:
+    extras the 4-byte ext_id word of each variant whose key the table
+    holds (a first position on either strand slot), the ext row of each
+    variant that has a real one (some lane of its slots is not
+    LARGE_POS; row 0 is the dummy) and the extras written. Operations:
     CLASSIC_OPS_PER_VARIANT a variant."""
     a = cfg.anchor_len
     V = 1 + 3 * a
@@ -1312,7 +1368,9 @@ def classic_bound(table, n: int, cfg, slots: bool = False,
         if extras:
             x = extras[0]
             real = (x.view(n, 2, V, -1) != 0xFFFFFFFF).any(-1).any(1)
-            nbytes += (n * 2 * V * 8 + int(real.sum()) * 4 * 2 * x.shape[-1]
+            held = (first_pos.view(n, 2, V) != 0xFFFFFFFF).any(1)
+            nbytes += (4 * int(held.sum())
+                       + int(real.sum()) * 4 * 2 * x.shape[-1]
                        + 8 * x.numel())
     ops = CLASSIC_OPS_PER_VARIANT * V * n
     return _bound(nbytes, ops)
@@ -1323,6 +1381,32 @@ def _bound(nbytes: int, ops: int) -> dict:
     bytes_ms = 1e3 * nbytes / HBM_BYTES_PER_S
     return dict(bytes=nbytes, ops=ops, bound_ms=max(ops_ms, bytes_ms),
                 bound_by="operations" if ops_ms >= bytes_ms else "bytes")
+
+
+def classic_stages(calls, card: str) -> dict:
+    """Where K1's two kernels spend their time: each of `calls` (name ->
+    (stamped, plain, what)) runs the measurement build of
+    csrc/classic_k1.cu (ops/anchor_align.classic_stage_cycles,
+    compact_stage_cycles), its outputs held against the plain version's,
+    and per stage the median, 90th percentile and maximum of the SM clock
+    cycles over the warps (the enumeration) or of the one block (the
+    compaction)."""
+    from find_circ2_tpu_torch.ops import anchor_align as ta
+    out = {}
+    for name, (stamped, plain, what) in calls.items():
+        got, cyc = stamped()
+        if not _equal_all(got, plain()):
+            fail(f"the stamped {name} kernel differs from its plain version "
+                 f"on {what}")
+        names = (ta.COMPACT_STAGES if name == "compact"
+                 else ta.CLASSIC_STAGES)
+        out[name] = _quantiles(cyc, names)
+        log(f"{name} stages on {what}, SM clock cycles "
+            f"{'of the block' if name == 'compact' else 'a warp'} (median / "
+            f"p90 / max): " + "; ".join(
+                f"{k} {m:.0f} / {p:.0f} / {x:.0f}"
+                for k, (m, p, x) in out[name].items()) + f"; on {card}")
+    return out
 
 
 def time_classic(d, anchor_sets, arr, lens, cfg, card) -> dict:
@@ -1337,7 +1421,11 @@ def time_classic(d, anchor_sets, arr, lens, cfg, card) -> dict:
     (fallback_slice on each batch's `resolved`), the classic redo
     (classic_anchor_stats, hits only, on each batch's stacked anchors)
     and the explore chunk (with the extras, on the stacked anchors of
-    each full chunk of EXPLORE_READS routed reads)."""
+    each full chunk of EXPLORE_READS routed reads). The compaction's
+    library call, one stable torch.argsort of each batch's `resolved`, is
+    timed on the device alone beside it; the port never calls it. Then
+    the stage table of each kernel on the first input set of the slice,
+    the compaction and the explore chunk (classic_stages)."""
     import torch
     from find_circ2_tpu_torch.ops import anchor_align as ta
     dev = d.device
@@ -1387,27 +1475,63 @@ def time_classic(d, anchor_sets, arr, lens, cfg, card) -> dict:
         idxs = range(sets)
         p1, k1 = called_ms(plain, idxs), called_ms(kernel, idxs)
         k2, p2 = called_ms(kernel, idxs), called_ms(plain, idxs)
-        gp1 = device_profile(lambda: plain(0))["busy_ms"]
+        gp1 = busy_ms(lambda: plain(0))
         gk1, gk2 = graph_ms(kernel, idxs), graph_ms(kernel, idxs)
-        gp2 = device_profile(lambda: plain(0))["busy_ms"]
+        gp2 = busy_ms(lambda: plain(0))
+        gp, p_src = min(gp1, gp2)
         bounds = [bound(i) for i in idxs]
         rec = dict(sets=sets, called_ms=min(k1, k2),
                    plain_called_ms=min(p1, p2), ms=min(gk1, gk2),
-                   plain_ms=min(gp1, gp2),
+                   plain_ms=gp,
                    bytes=sum(b["bytes"] for b in bounds) / sets,
                    ops=sum(b["ops"] for b in bounds) / sets,
                    bound_ms=sum(b["bound_ms"] for b in bounds) / sets,
                    bound_by=bounds[0]["bound_by"])
         out[name] = rec
+        if name == "compact":
+            rec["library_ms"] = argsort_ms([s[2] for s in slices])
         log(f"{name} ({'compaction' if name == 'compact' else 'enumeration'}"
             f" kernel, {sets} input sets): device alone {rec['ms']:.5f} ms "
-            f"(graph) vs plain {rec['plain_ms']:.5f} ms (torch.profiler "
+            f"(graph) vs plain {rec['plain_ms']:.5f} ms ({p_src} "
             f"busy); as called {rec['called_ms']:.5f} ms vs plain "
             f"{rec['plain_called_ms']:.5f} ms; bound {rec['bound_ms']:.5f} "
             f"ms by {rec['bound_by']} ({rec['bytes']:,.0f} bytes, "
             f"{rec['ops']:,.0f} int32 operations), "
-            f"{100 * rec['bound_ms'] / rec['ms']:.1f}% of it; on {card}")
+            f"{100 * rec['bound_ms'] / rec['ms']:.1f}% of it"
+            + (f"; library call (stable torch.argsort) {rec['library_ms']:.5f}"
+               " ms device alone" if "library_ms" in rec else "")
+            + f"; on {card}")
+    both, hits, resolved, idx = slices[0]
+    out["stages"] = classic_stages({
+        "fallback": (
+            lambda: ta.classic_stage_cycles(t, m, both, cfg, slots=idx,
+                                            hits=ta.AnchorHits(*(
+                                                x.clone() for x in hits))),
+            lambda: (ta.refill_slice_ref(t, m, both, idx, hits, cfg), None),
+            f"the first batch's fallback slice ({k} slots)"),
+        "compact": (
+            lambda: ta.compact_stage_cycles(resolved, k),
+            lambda: ta.fallback_slice_ref(resolved, k),
+            f"the first batch's {n} resolved flags"),
+        "explore": (
+            lambda: ta.classic_stage_cycles(t, m, chunks[0], cfg, d.ext,
+                                            d.ext_id, stats=True),
+            lambda: ta.classic_anchor_stats_ref(t, m, chunks[0], cfg, d.ext,
+                                                d.ext_id, stats=True),
+            f"the first explore chunk ({chunks[0].shape[0]} anchors, with "
+            "the extras)")}, card)
     return out
+
+
+def argsort_ms(resolved) -> float:
+    """The compaction's library call on the device alone: one stable
+    torch.argsort of each `resolved` (as int8), by CUDA-graph replay."""
+    import torch
+
+    def call(i):
+        return torch.argsort(resolved[i].to(torch.int8), stable=True)
+    return min(graph_ms(call, range(len(resolved))),
+               graph_ms(call, range(len(resolved))))
 
 
 def compare_detect_streams(dindex, fq, genome, index, cfg, card,
@@ -1501,11 +1625,18 @@ def compare_streams(dindex, fq, genome, index, cfg, card) -> dict:
     prof = device_profile(lambda: run_fastq(
         dindex, fq, Aggregator(genome, cfg), cfg, slowpath=(genome, index)))
     out["profiled"] = dict(prof, seconds=time.perf_counter() - t0)
-    log(f"run_fastq with device explore under torch.profiler: "
-        f"{out['profiled']['seconds']:.3f} s, {prof['ops']} device "
-        f"activities, device busy {prof['busy_ms']:.3f} ms of a "
-        f"{prof['span_ms']:.3f} ms first-to-last span "
-        f"({100 * prof['busy_share']:.1f}%) on {card}")
+    if prof["ops"] is None:
+        log(f"run_fastq with device explore: device activities and busy "
+            f"share not measured (torch.profiler recorded none in "
+            f"{PROFILE_TRIES} tries); {prof['busy_ms']:.3f} ms as called "
+            f"({prof['source']}) on {card}")
+    else:
+        log(f"run_fastq with device explore under torch.profiler: "
+            f"{out['profiled']['seconds']:.3f} s ({prof['tries']} "
+            f"run(s)), {prof['ops']} device activities, device busy "
+            f"{prof['busy_ms']:.3f} ms of a {prof['span_ms']:.3f} ms "
+            f"first-to-last span ({100 * prof['busy_share']:.1f}%) on "
+            f"{card}")
     return out
 
 
@@ -2000,8 +2131,9 @@ def main() -> int:
             "sharded_launches": path["sharded"]["launches"][name]})
     # K1's enumeration, summed over the main path's calls (one detect
     # batch's fallback slice and one explore chunk's K1 with the extras),
-    # each shape beside it; the compaction on one batch's `resolved`. No
-    # one PyTorch call computes either.
+    # each shape beside it; the compaction on one batch's `resolved`, its
+    # library call one stable torch.argsort. No one PyTorch call computes
+    # the enumeration. Each with the median cycles of its stages.
     cl = path["classic"]
     main_shapes = ("fallback", "explore")
     keys = ("ms", "plain_ms", "bound_ms", "called_ms", "plain_called_ms")
@@ -2019,15 +2151,17 @@ def main() -> int:
         "sharded_launches":
             path["sharded"]["launches"]["classic_anchor_stats"],
         "shapes": {s: {k: cl[s][k] for k in keys + ("bound_by", "sets")}
-                   for s in ("fallback", "redo", "explore")}})
+                   for s in ("fallback", "redo", "explore")},
+        "stage_cycles": {s: {k: v[0] for k, v in cl["stages"][s].items()}
+                         for s in main_shapes}})
     kernels.append({
         "name": "fallback_slice", "route": "cuda",
         "source": "find_circ2_tpu_torch/csrc/classic_k1.cu",
         "replaces": "find_circ2_tpu/ops/anchor_align.py:496",
         "launches": path["launches"]["fallback_slice"],
         "max_abs_err": max(cases["classic_err"], det["classic_err"]),
-        **{k: cl["compact"][k] for k in keys + ("bound_by",)},
-        "library_ms": None,
+        **{k: cl["compact"][k] for k in keys + ("bound_by", "library_ms")},
+        "stage_cycles": {k: v[0] for k, v in cl["stages"]["compact"].items()},
         "sharded_launches": path["sharded"]["launches"]["fallback_slice"]})
     print(json.dumps({"kernels": kernels}))
     print(card)

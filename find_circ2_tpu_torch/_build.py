@@ -24,8 +24,9 @@ CSRC = os.path.join(_HERE, "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(_HERE), "build", "kernels")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC")
-# The measurement build: csrc/explore.cu records per-stage clocks.
-STAMP_FLAGS = ("-DFC2T_EXPLORE_STAMPS",)
+# The measurement build: csrc/explore.cu and csrc/classic_k1.cu record
+# per-stage clocks.
+STAMP_FLAGS = ("-DFC2T_EXPLORE_STAMPS", "-DFC2T_CLASSIC_STAMPS")
 
 _lib = None
 _stamped = None
@@ -127,12 +128,15 @@ def load() -> ctypes.CDLL:
 
 def load_stamped() -> ctypes.CDLL:
     """The measurement build of the kernel library (STAMP_FLAGS), built on
-    first call; it also has fc2t_explore_stamps(void*)."""
+    first call; it also has fc2t_explore_stamps(void*) and
+    fc2t_classic_stamps(void*)."""
     global _stamped
     if _stamped is None:
         lib = _bind(ctypes.CDLL(build(NVCC_FLAGS + STAMP_FLAGS)))
         lib.fc2t_explore_stamps.argtypes = [ctypes.c_void_p]
         lib.fc2t_explore_stamps.restype = ctypes.c_int
+        lib.fc2t_classic_stamps.argtypes = [ctypes.c_void_p]
+        lib.fc2t_classic_stamps.restype = ctypes.c_int
         _stamped = lib
     return _stamped
 

@@ -19,31 +19,53 @@
 // fallback slice and 546 an explore chunk's K1.
 //
 // What bounds it on this card: bytes. Each anchor reads 61 x 2 random
-// 32-byte bucket rows (about 3.9 KB); with the extras also 61 x 2 ext_id
-// rows of 8 bytes and up to 61 ext rows of 120 bytes, and it writes 122
-// counts, 122 first positions and 122 x 15 extra positions (about 16 KB).
-// Its arithmetic, a few hundred 32-bit operations a variant, is less.
-// chip_smoke.py computes the bound from each run's data. Each row is a
-// random access into a table larger than the L2, so the design:
+// 32-byte bucket rows (about 3.9 KB); with the extras also the ext_id
+// word of each matching slot and the ext row (120 bytes) of each variant
+// that has one, and it writes 122 counts, 122 first positions and
+// 122 x 15 extra positions (about 16 KB). Its arithmetic, a few hundred
+// 32-bit operations a variant, is less. chip_smoke.py computes the bound
+// from each run's data. Each row is a random access into a table larger
+// than the L2, so the rate of random row fetches, not of bytes, sets the
+// main round trip; the main path's grids fill less than one wave, so a
+// warp's chain of dependent steps sets the rest. The design, chosen
+// from the stage clocks (classic_stage_cycles), shortens that chain and
+// fetches fewer random rows:
 //
-//  - One warp an anchor, four a block. Lane l takes the canonical
-//    variants l and l + 32 (V = 61 <= 64) in enumerate_variants' order,
-//    builds each key from the anchor's base keys and the substitution's
-//    delta, swaps to the canonical key, hashes both salts and issues all
-//    its row loads (16 bytes at a time, 8 for ext_id) before it uses any
-//    of them: eight table loads and four ext_id loads in flight a lane.
+//  - One warp an anchor, four a block. The anchor's base keys are an OR
+//    over the warp of each lane's digit at its place value (the digits'
+//    2-bit fields are disjoint, so the OR is the sum), not a serial loop
+//    of shuffles.
+//  - Lane l takes the canonical variants l and l + 32 (V = 61 <= 64) in
+//    enumerate_variants' order, builds each key from the base keys and
+//    the substitution's delta, swaps to the canonical key, hashes both
+//    salts and issues all its table loads (16 bytes at a time) before it
+//    uses any of them: eight loads in flight a lane.
 //  - Sums and minima over the warp with __reduce_add_sync and
-//    __reduce_min_sync; lane 0 takes the exact slots 0 and V and writes
-//    the hit fields.
-//  - With the extras, each lane loads its variants' ext rows (the second,
-//    dependent round trip, 8 bytes at a time) into shared memory, so that
-//    the warp writes each strand's [32, 15] int64 block of `extras`
-//    contiguously.
-//  - The slice: one block scans `resolved` in chunks of 1024 with a
-//    running carry (any batch size), writes the slice's anchor indices in
-//    the stable argsort's order (the unresolved first, then the resolved,
-//    each in index order) and the 0-d overflow flag that detect's core
-//    reads on the device; then the enumeration in "slot" mode reads
+//    __reduce_min_sync; lanes 0..6 write one hit field each.
+//  - With the extras, the warp copies ext row 0 (the dummy row of every
+//    variant without a row of its own) into shared memory at the start.
+//    After the fold, only a matching slot's ext_id word is loaded (a few
+//    a warp, where every variant's two 8-byte ext_id rows were as many
+//    random fetches as the table's), flying while the warp writes the
+//    counts, positions and hits; then the rows of the few variants that
+//    have one come into shared memory in one round trip (cp.async,
+//    8-byte pieces, consecutive lanes on consecutive pieces of a row).
+//    Only then does the warp write the anchor's whole [2V, K - 1] block
+//    of `extras`, as 16-byte streaming stores (__stcs: the pair kernel
+//    reads back only the best slots), each lane's element map stepped
+//    without a division and each slot's source looked up in shared
+//    memory. Written earlier, while other warps' table rows are still on
+//    their way, the 30 MB of an explore chunk's extras slowed those
+//    random reads by more than they overlapped. The kernel asks for a
+//    shared-memory carveout that leaves the L1 about 92 KB.
+//  - The slice: one block of 1024 threads. Each thread loads its run of
+//    consecutive flags first (one 8-byte load a thread at 8192 flags),
+//    counts the unresolved, and one block-wide scan gives every flag's
+//    rank and the unresolved total: one round trip to device memory and
+//    two barriers. It writes the slice's anchor indices in the stable
+//    argsort's order (the unresolved first, then the resolved, each in
+//    index order) and the 0-d overflow flag that detect's core reads on
+//    the device; then the enumeration in "slot" mode reads
 //    anchors[slots[s]] and writes its hits over the exact probe's at
 //    slots[s], in place. Nothing waits for the device.
 //
@@ -108,6 +130,30 @@ struct CompactArgs {
 };
 static_assert(sizeof(CompactArgs) == 56, "layout packed by ops/anchor_align");
 
+// Built with FC2T_CLASSIC_STAMPS (ops/anchor_align.classic_stage_cycles,
+// compact_stage_cycles), lane 0 of each enumeration warp records its SM
+// clock at the start and after each stage, kClassicStamps values a warp
+// into fc2t_cstamps[n, kClassicStamps], and thread 0 of the compaction
+// block kCompactStamps values. A stage ends where its results are first
+// used. Without it, CSTAMP is nothing.
+#ifdef FC2T_CLASSIC_STAMPS
+constexpr int kClassicStamps = 7, kCompactStamps = 4;
+__device__ unsigned long long* fc2t_cstamps = nullptr;
+// Stamp `at` of the buffer: `dep` is stored first, so the clock is read
+// only once the values it is made from have arrived.
+__device__ __forceinline__ void classic_stamp(size_t at, unsigned dep) {
+    volatile unsigned long long* p = fc2t_cstamps;
+    if (!p) return;
+    p[at] = dep;
+    p[at] = clock64();
+}
+#define CSTAMP(at, dep) classic_stamp((at), (unsigned)(dep))
+#else
+#define CSTAMP(at, dep) \
+    do {                \
+    } while (0)
+#endif
+
 namespace {
 
 using fc2t::holds;
@@ -125,57 +171,102 @@ constexpr int kPerLane = 2;                // variants a lane: V <= 64
 constexpr int kMaxAnchor = 21;             // V = 1 + 3a <= 32 * kPerLane
 constexpr int kMaxExtWidth = 15;           // K - 1, explore's K <= 16
 constexpr int kCompactThreads = 1024;
+constexpr int kFlagsPerWord = 8;           // one 8-byte load of `resolved`
+constexpr int kCachedWords = 4;            // a thread's words in registers
+// The enumeration's shared-memory carveout with the extras, in percent of
+// the most an SM has: room for the four resident blocks of an explore
+// chunk (34 KB each), the L1 that the table rows go through keeping about
+// 92 KB.
+constexpr int kCarveout = 70;
+constexpr int kMaxDevices = 64;
 
 // The place value of anchor digit j in each key (_weights): the forward
-// (prefix, suffix) key and the reverse complement's.
+// (prefix, suffix) key and the reverse complement's; 0 past the anchor.
 struct Weights {
     long long wp, ws, wpr, wsr;
 };
 
 __device__ __forceinline__ Weights weights(int j, int al, int pk) {
     const int sk = al - pk;
+    if (j >= al) return {0, 0, 0, 0};
     return {j < pk ? 1ll << (2 * (pk - 1 - j)) : 0,
             j >= pk ? 1ll << (2 * (al - 1 - j)) : 0,
             j >= al - pk ? 1ll << (2 * (j - (al - pk))) : 0,
             j < sk ? 1ll << (2 * j) : 0};
 }
 
-__global__ void __launch_bounds__(kThreads)
-classic_kernel(const __grid_constant__ ClassicArgs a) {
-    // With the extras: a warp's 32 ext rows.
-    extern __shared__ uint32_t stage_all[];
-    const int lane = threadIdx.x & 31, w = threadIdx.x >> 5;
-    const int s = blockIdx.x * kWarps + w;
-    if (s >= a.n) return;  // the whole warp
+// The OR of x over the warp.
+__device__ __forceinline__ long long warp_or(long long x) {
+    const unsigned long long u = (unsigned long long)x;
+    const unsigned lo = __reduce_or_sync(kFull, (unsigned)u);
+    const unsigned hi = __reduce_or_sync(kFull, (unsigned)(u >> 32));
+    return (long long)((unsigned long long)hi << 32 | lo);
+}
+
+__device__ __forceinline__ unsigned smem_addr(const void* p) {
+    return (unsigned)__cvta_generic_to_shared(p);
+}
+
+// A warp's shared memory with the extras, in 32-bit words: a place for
+// each variant's ext row (W = 2 * ext_width words), ext row 0, each
+// variant's ext row id (-1: past the rows), the list of the variants
+// whose rows are copied and where each strand slot's words start. Even,
+// so each warp's rows lie on 8 bytes.
+__host__ __device__ constexpr size_t warp_smem_words(int V, int W) {
+    return (size_t)(V + 1) * W + 4 * 32 * kPerLane;
+}
+
+// Slot s's anchor, by the warp; `stage` is the warp's shared memory.
+// kExtras: the call has the extras (ext_id and ext).
+template <bool kExtras>
+__device__ __forceinline__ void enumerate(const ClassicArgs& a, int s,
+                                          int lane, uint32_t* stage) {
+#ifdef FC2T_CLASSIC_STAMPS
+    const size_t at = (size_t)s * kClassicStamps;
+    if (lane == 0) CSTAMP(at, 0);
+#endif
     const long long anchor = a.slots ? a.slots[s] : s;
     const int al = a.anchor_len, pk = a.prefix_len, V = 1 + 3 * al;
     const uint8_t* anc = a.anchors + anchor * al;
+    // With the extras: ext row 0, the dummy row of every variant without
+    // a row of its own, flies into shared memory while the keys are built.
+    const int K1 = a.ext_width, W = 2 * K1;
+    const int2* ext = reinterpret_cast<const int2*>(a.ext);
+    uint32_t* row0 = stage + (size_t)V * W;
+    if (kExtras) {
+        if (lane < K1)
+            asm volatile("cp.async.ca.shared.global [%0], [%1], 8;\n" ::"r"(
+                             smem_addr(row0 + 2 * lane)),
+                         "l"(ext + lane));
+        asm volatile("cp.async.commit_group;\n" ::);
+    }
 
     // enumerate_variants: lane j holds code j; the base keys on the codes
-    // with those >= 4 zeroed; `clean` over the whole anchor.
+    // with those >= 4 zeroed, each digit in its own 2-bit field, so an OR
+    // over the warp sums them; `clean` over the whole anchor.
     const int code = lane < al ? anc[lane] : 0;
     const bool clean = __all_sync(kFull, lane >= al || code < 4);
+#ifdef FC2T_CLASSIC_STAMPS
+    if (lane == 0) CSTAMP(at + 1, clean);
+#endif
     const int q = code < 4 ? code : 0;
-    long long p12 = 0, s8 = 0, p12r = 0, s8r = 0;
-    for (int j = 0; j < al; ++j) {
-        const long long qj = __shfl_sync(kFull, q, j);
-        const Weights wt = weights(j, al, pk);
-        p12 += qj * wt.wp;
-        s8 += qj * wt.ws;
-        p12r += (3 - qj) * wt.wpr;
-        s8r += (3 - qj) * wt.wsr;
-    }
+    const Weights mine = weights(lane, al, pk);
+    const long long p12 = warp_or(q * mine.wp);
+    const long long s8 = warp_or(q * mine.ws);
+    const long long p12r = warp_or((3 - q) * mine.wpr);
+    const long long s8r = warp_or((3 - q) * mine.wsr);
+#ifdef FC2T_CLASSIC_STAMPS
+    if (lane == 0) CSTAMP(at + 2, p12 ^ s8 ^ p12r ^ s8r);
+#endif
 
     // Each of the lane's variants: its canonical key, both buckets, and
     // every row load in flight before any is used.
     const uint32_t n_buckets = (uint32_t)a.meta[2];
     const uint32_t salt[2] = {(uint32_t)a.meta[0], (uint32_t)a.meta[1]};
-    const bool want_ext = a.ext_id != nullptr;
     bool act[kPerLane], swp[kPerLane];
     long long cp[kPerLane];
-    uint32_t cs[kPerLane];
+    uint32_t cs[kPerLane], hb[kPerLane][2];
     int4 g[kPerLane][2][kSlots];
-    int2 e[kPerLane][2];
 #pragma unroll
     for (int t = 0; t < kPerLane; ++t) {
         const int v = lane + 32 * t;
@@ -198,37 +289,55 @@ classic_kernel(const __grid_constant__ ClassicArgs a) {
             const bool in = act[t] && (long long)h < a.rows;
             const int4* tr = reinterpret_cast<const int4*>(a.table) +
                              (size_t)h * kSlots;
+            hb[t][p] = h;
 #pragma unroll
             for (int u = 0; u < kSlots; ++u)
                 g[t][p][u] = in ? __ldg(tr + u) : make_int4(-1, 0, 0, 0);
-            e[t][p] = in && want_ext
-                          ? __ldg(reinterpret_cast<const int2*>(a.ext_id) + h)
-                          : make_int2(0, 0);
         }
     }
+#ifdef FC2T_CLASSIC_STAMPS
+    {
+        unsigned dep = 0;
+#pragma unroll
+        for (int t = 0; t < kPerLane; ++t)
+#pragma unroll
+            for (int p = 0; p < 2; ++p)
+#pragma unroll
+                for (int u = 0; u < kSlots; ++u)
+                    dep ^= g[t][p][u].x ^ g[t][p][u].y ^ g[t][p][u].z ^
+                           g[t][p][u].w;
+        dep = __reduce_xor_sync(kFull, dep);
+        if (lane == 0) CSTAMP(at + 3, dep);
+    }
+#endif
 
     // candidate_stats: both probes folded (counts and ext row ids add,
     // positions take the least), each strand slot swapped into '+' / '-',
-    // the `valid` mask, then the guard on each slot.
+    // the `valid` mask, then the guard on each slot. With the extras, the
+    // ext_id word of each matching slot only (a few a warp) is loaded,
+    // all in flight together; an unmatched slot adds 0.
     int cnt_p[kPerLane], cnt_m[kPerLane];
     uint32_t pos_p[kPerLane], pos_m[kPerLane];
-    long long rid[kPerLane];
+    int x_id[kPerLane][2][kSlots];
 #pragma unroll
     for (int t = 0; t < kPerLane; ++t) {
         int cf = 0, cr = 0;
         uint32_t pf = kLargePos, pr = kLargePos;
-        long long r_id = 0;
 #pragma unroll
         for (int p = 0; p < 2; ++p) {
 #pragma unroll
             for (int u = 0; u < kSlots; ++u) {
                 const int4 r = g[t][p][u];
-                if (!holds(r, cp[t], cs[t])) continue;
+                const bool m = holds(r, cp[t], cs[t]);
+                x_id[t][p][u] = m && kExtras
+                                    ? __ldg(a.ext_id +
+                                            (size_t)hb[t][p] * kSlots + u)
+                                    : 0;
+                if (!m) continue;
                 cf += (int)(((unsigned)r.y >> 16) & kCntMask);
                 cr += (int)(((unsigned)r.y >> (16 + kCntBits)) & kCntMask);
                 pf = min(pf, (uint32_t)r.z);
                 pr = min(pr, (uint32_t)r.w);
-                r_id += u == 0 ? e[t][p].x : e[t][p].y;
             }
         }
         int cp_ = swp[t] ? cr : cf, cm_ = swp[t] ? cf : cr;
@@ -237,7 +346,6 @@ classic_kernel(const __grid_constant__ ClassicArgs a) {
         cnt_m[t] = cm_ > a.max_bucket ? 0 : cm_;
         pos_p[t] = swp[t] ? pr : pf;
         pos_m[t] = swp[t] ? pf : pr;
-        rid[t] = r_id;
     }
 
     if (a.count) {
@@ -281,108 +389,241 @@ classic_kernel(const __grid_constant__ ClassicArgs a) {
         if (strand == 1 && cnt_m[t] > 0) best = min(best, pos_m[t]);
     }
     best = __reduce_min_sync(kFull, best);
-    if (lane == 0) {
-        // _hits.
-        const int second_mm = n_best > 1 ? m0
-                              : (m0 == 0 && total > n_exact) ? 1
-                                                             : al + 1;
-        const int q10 = 10 * (second_mm - m0);
-        a.aligned[anchor] = m0 <= a.max_anchor_mm;
-        a.pos[anchor] = (int64_t)best;
-        a.strand[anchor] = strand;
-        a.mm[anchor] = m0;
-        a.n_best[anchor] = n_best;
-        a.second_mm[anchor] = second_mm;
-        a.qual[anchor] = n_best > 1 ? 0 : (q10 < 40 ? q10 : 40);
+    // _hits, one field a lane.
+    const int second_mm = n_best > 1 ? m0
+                          : (m0 == 0 && total > n_exact) ? 1
+                                                         : al + 1;
+    const int q10 = 10 * (second_mm - m0);
+    switch (lane) {
+        case 0: a.aligned[anchor] = m0 <= a.max_anchor_mm; break;
+        case 1: a.pos[anchor] = (int64_t)best; break;
+        case 2: a.strand[anchor] = strand; break;
+        case 3: a.mm[anchor] = m0; break;
+        case 4: a.n_best[anchor] = n_best; break;
+        case 5: a.second_mm[anchor] = second_mm; break;
+        case 6: a.qual[anchor] = n_best > 1 ? 0 : (q10 < 40 ? q10 : 40);
     }
+#ifdef FC2T_CLASSIC_STAMPS
+    if (lane == 0) {
+        CSTAMP(at + 4, best);
+        if (!kExtras && fc2t_cstamps)
+            fc2t_cstamps[at + 5] = fc2t_cstamps[at + 6] = fc2t_cstamps[at + 4];
+    }
+#endif
 
-    if (!a.extras) return;
-    // The extras: each variant's ext row (row id 0 is the all-LARGE
-    // dummy row; an id at or past ext_rows reads LARGE_POS), its forward
-    // half to the '+' slot and its reverse half to the '-' slot, the two
-    // exchanged when the variant swapped. The rows of the warp's 32
-    // variants are staged in shared memory, then the warp writes each
-    // strand's [32, K - 1] block of `extras` contiguously.
-    const int K1 = a.ext_width, W = 2 * K1;
-    uint32_t* stage = stage_all + (size_t)w * 32 * W;
+    if (!kExtras) return;
+    // The extras: each variant's ext row, the sum of its matching slots'
+    // ext_id words over both probes; row id 0 (in shared memory since the
+    // start) the dummy row, an id at or past ext_rows (a doubled one)
+    // LARGE_POS. The other rows, a few a warp, come into shared memory in
+    // one round trip (cp.async, 8-byte pieces, consecutive lanes on
+    // consecutive pieces of a row). Only then does the warp write its
+    // extras: written while other warps' table rows are still on their
+    // way, they slow those reads more than they gain.
+    int* row_of = reinterpret_cast<int*>(row0 + W);
+    int* list = row_of + 32 * kPerLane;
+    int* src = list + 32 * kPerLane;
+    bool copy[kPerLane];
 #pragma unroll
     for (int t = 0; t < kPerLane; ++t) {
-        const int nv = min(32, V - 32 * t);
-        if (nv <= 0) break;  // the same for every lane
-        const bool in = act[t] && rid[t] >= 0 && rid[t] < a.ext_rows;
-        const int2* xr = reinterpret_cast<const int2*>(a.ext) +
-                         (in ? (size_t)rid[t] * K1 : 0);
-        int2 x[kMaxExtWidth];
+        long long rid = 0;
 #pragma unroll
-        for (int c = 0; c < kMaxExtWidth; ++c)
-            x[c] = in && c < K1 ? __ldg(xr + c) : make_int2(-1, -1);
-        const unsigned swaps = __ballot_sync(kFull, swp[t]);
-        __syncwarp();  // the last round's reads of the stage are done
+        for (int p = 0; p < 2; ++p)
 #pragma unroll
-        for (int c = 0; c < kMaxExtWidth; ++c) {
-            if (c >= K1) break;
-            stage[lane * W + 2 * c] = (uint32_t)x[c].x;
-            stage[lane * W + 2 * c + 1] = (uint32_t)x[c].y;
-        }
-        __syncwarp();
-#pragma unroll
-        for (int half = 0; half < 2; ++half) {
-            int64_t* dst = a.extras +
-                           ((size_t)s * 2 * V + half * V + 32 * t) * K1;
-            for (int m = lane; m < nv * K1; m += 32) {
-                const int l = m / K1, k = m - l * K1;
-                const int off = (half == 1) != ((swaps >> l) & 1u) ? K1 : 0;
-                dst[m] = (int64_t)stage[l * W + off + k];
+            for (int u = 0; u < kSlots; ++u) rid += x_id[t][p][u];
+        const int row = rid >= 0 && rid < a.ext_rows ? (int)rid : -1;
+        copy[t] = act[t] && row > 0;
+        if (act[t]) row_of[lane + 32 * t] = row;
+    }
+    // list[i]: the i-th variant, in order, whose row is copied.
+    const unsigned lt = (1u << lane) - 1u;
+    const unsigned c0 = __ballot_sync(kFull, copy[0]);
+    const unsigned c1 = __ballot_sync(kFull, copy[1]);
+    const int n0 = __popc(c0), rows = n0 + __popc(c1);
+    if (copy[0]) list[__popc(c0 & lt)] = lane;
+    if (copy[1]) list[n0 + __popc(c1 & lt)] = lane + 32;
+    __syncwarp();
+    {
+        // Piece i * K1 + c: words 2c and 2c + 1 of variant list[i]'s row;
+        // lane l takes pieces l, l + 32, ...
+        const int q32 = 32 / K1, r32 = 32 - q32 * K1;
+        int i = lane / K1, c = lane - i * K1;
+        while (i < rows) {
+            const int v = list[i];
+            asm volatile("cp.async.ca.shared.global [%0], [%1], 8;\n" ::"r"(
+                             smem_addr(stage + (size_t)v * W + 2 * c)),
+                         "l"(ext + (size_t)row_of[v] * K1 + c));
+            i += q32;
+            c += r32;
+            if (c >= K1) {
+                c -= K1;
+                ++i;
             }
         }
+        asm volatile("cp.async.commit_group;\n" ::);
     }
+    // src[sl]: where strand slot sl's K1 words start in the warp's shared
+    // memory (-1: LARGE_POS), in its variant's row: the forward half for
+    // a '+' slot and the reverse half for a '-' slot, exchanged when the
+    // variant swapped.
+    const unsigned long long swaps =
+        (unsigned long long)__ballot_sync(kFull, swp[0]) |
+        (unsigned long long)__ballot_sync(kFull, swp[1]) << 32;
+    for (int sl = lane; sl < 2 * V; sl += 32) {
+        const bool minus = sl >= V;
+        const int v = minus ? sl - V : sl, row = row_of[v];
+        const int half = minus != (bool)((swaps >> v) & 1ull) ? K1 : 0;
+        src[sl] = row < 0 ? -1 : (row == 0 ? V * W : v * W) + half;
+    }
+    asm volatile("cp.async.wait_group 0;\n" ::);
+    __syncwarp();
+#ifdef FC2T_CLASSIC_STAMPS
+    if (lane == 0) CSTAMP(at + 5, rows);
+#endif
+    // The anchor's [2V, K1] block of `extras`, elements 2i and 2i + 1 a
+    // 16-byte streaming store; lane l's element 2l steps 64 a store, its
+    // slot and word stepped without a division.
+    longlong2* dst = reinterpret_cast<longlong2*>(a.extras) +
+                     (size_t)s * V * K1;
+    const int q64 = 64 / K1, r64 = 64 - q64 * K1;
+    int slot = 2 * lane / K1, c = 2 * lane - slot * K1;
+    for (int i = lane; i < V * K1; i += 32) {
+        const int o0 = src[slot];
+        const int o1 = c + 1 < K1 ? o0 : src[slot + 1];
+        const int c1 = c + 1 < K1 ? c + 1 : 0;
+        const uint32_t x0 = o0 < 0 ? kLargePos : stage[o0 + c];
+        const uint32_t x1 = o1 < 0 ? kLargePos : stage[o1 + c1];
+        __stcs(dst + i, make_longlong2(x0, x1));
+        slot += q64;
+        c += r64;
+        if (c >= K1) {
+            c -= K1;
+            ++slot;
+        }
+    }
+#ifdef FC2T_CLASSIC_STAMPS
+    if (lane == 0) CSTAMP(at + 6, slot);
+#endif
+}
+
+template <bool kExtras>
+__global__ void __launch_bounds__(kThreads)
+classic_kernel(const __grid_constant__ ClassicArgs a) {
+    extern __shared__ __align__(16) uint32_t smem_all[];
+    const int lane = threadIdx.x & 31, w = threadIdx.x >> 5;
+    uint32_t* stage =
+        smem_all + (size_t)w * warp_smem_words(1 + 3 * a.anchor_len,
+                                                2 * a.ext_width);
+    const int s = blockIdx.x * kWarps + w;
+    if (s < a.n) enumerate<kExtras>(a, s, lane, stage);
+}
+
+// The flags of word `wd` of `resolved` (flags 8 wd .. 8 wd + 7, a byte
+// each): one 8-byte load when the word lies whole inside [0, n) and the
+// buffer is on 8 bytes, else a byte at a time, those at or past n read as
+// resolved (1).
+__device__ __forceinline__ uint2 flag_word(const uint8_t* resolved,
+                                          long long n, long long wd,
+                                          bool vec) {
+    const long long j = wd * kFlagsPerWord;
+    if (vec && j + kFlagsPerWord <= n)
+        return __ldg(reinterpret_cast<const uint2*>(resolved) + wd);
+    uint32_t b[kFlagsPerWord];
+#pragma unroll
+    for (int i = 0; i < kFlagsPerWord; ++i)
+        b[i] = j + i < n ? resolved[j + i] : 1u;
+    return make_uint2(b[0] | b[1] << 8 | b[2] << 16 | b[3] << 24,
+                      b[4] | b[5] << 8 | b[6] << 16 | b[7] << 24);
+}
+
+// The unresolved (zero) flags of a word as a mask: bit b for flag b.
+__device__ __forceinline__ unsigned zero_flags(uint2 x) {
+    const unsigned lo = __vcmpeq4(x.x, 0u) & 0x01010101u;
+    const unsigned hi = __vcmpeq4(x.y, 0u) & 0x01010101u;
+    return ((lo | lo >> 7 | lo >> 14 | lo >> 21) & 0xfu) |
+           ((hi | hi >> 7 | hi >> 14 | hi >> 21) & 0xfu) << 4;
 }
 
 __global__ void __launch_bounds__(kCompactThreads)
 compact_kernel(const __grid_constant__ CompactArgs a) {
-    __shared__ int sums[kCompactThreads / 32];
+    __shared__ long long before[kCompactThreads / 32];
     __shared__ long long unresolved;
     const int tid = threadIdx.x, lane = tid & 31, w = tid >> 5;
-    // The unresolved anchors of the batch.
-    int mine = 0;
-    for (long long j = tid; j < a.n; j += kCompactThreads)
-        mine += a.resolved[j] == 0;
-    mine = (int)__reduce_add_sync(kFull, (unsigned)mine);
-    if (lane == 0) sums[w] = mine;
+    if (tid == 0) CSTAMP(0, 0);
+    // Thread tid's run: the R consecutive words from tid * R, its first
+    // kCachedWords held in registers; every load in flight before the
+    // count.
+    const long long words = (a.n + kFlagsPerWord - 1) / kFlagsPerWord;
+    const long long R = (words + kCompactThreads - 1) / kCompactThreads;
+    const long long first = tid * R;
+    const bool vec = (reinterpret_cast<uintptr_t>(a.resolved) & 7) == 0;
+    uint2 held[kCachedWords];
+#pragma unroll
+    for (int r = 0; r < kCachedWords; ++r)
+        held[r] = r < R ? flag_word(a.resolved, a.n, first + r, vec)
+                        : make_uint2(~0u, ~0u);
+    long long mine = 0;
+#pragma unroll
+    for (int r = 0; r < kCachedWords; ++r) mine += __popc(zero_flags(held[r]));
+    for (long long r = kCachedWords; r < R; ++r)
+        mine += __popc(zero_flags(flag_word(a.resolved, a.n, first + r, vec)));
+    if (tid == 0) CSTAMP(1, mine);
+
+    // The block's exclusive scan of the counts: a warp scan, then one of
+    // the 32 warp totals, which also gives the unresolved total.
+    long long incl = mine;
+#pragma unroll
+    for (int o = 1; o < 32; o <<= 1) {
+        const long long y = __shfl_up_sync(kFull, incl, o);
+        if (lane >= o) incl += y;
+    }
+    if (lane == 31) before[w] = incl;
     __syncthreads();
     if (w == 0) {
-        const int c = (int)__reduce_add_sync(
-            kFull, (unsigned)(lane < kCompactThreads / 32 ? sums[lane] : 0));
-        if (lane == 0) unresolved = c;
+        const long long x = before[lane];
+        long long sum = x;
+#pragma unroll
+        for (int o = 1; o < 32; o <<= 1) {
+            const long long y = __shfl_up_sync(kFull, sum, o);
+            if (lane >= o) sum += y;
+        }
+        before[lane] = sum - x;
+        if (lane == 31) unresolved = sum;
     }
     __syncthreads();
     const long long n_un = unresolved;
-    if (tid == 0) *a.overflow = n_un > a.k;
-    // Each anchor's place in the stable argsort of `resolved`: an
-    // unresolved one after the unresolved before it, a resolved one after
-    // every unresolved and the resolved before it. A chunk of 1024 at a
-    // time, carrying the unresolved count of the chunks before.
-    long long carry = 0;
-    for (long long base = 0; base < a.n; base += kCompactThreads) {
-        const long long j = base + tid;
-        const bool un = j < a.n && a.resolved[j] == 0;
-        const unsigned ballot = __ballot_sync(kFull, un);
-        __syncthreads();  // the last chunk's sums are read
-        if (lane == 0) sums[w] = __popc(ballot);
-        __syncthreads();
-        int before = __popc(ballot & ((1u << lane) - 1u)), chunk = 0;
-        for (int x = 0; x < kCompactThreads / 32; ++x) {
-            const int c = sums[x];
-            before += x < w ? c : 0;
-            chunk += c;
-        }
-        if (j < a.n) {
-            const long long un_before = carry + before;
-            const long long rank = un ? un_before : n_un + (j - un_before);
-            if (rank < a.k) a.slots[rank] = j;
-        }
-        carry += chunk;
+    long long un = before[w] + incl - mine;  // unresolved before the run
+    if (tid == 0) {
+        CSTAMP(2, n_un);
+        *a.overflow = n_un > a.k;
     }
+
+    // Each flag's place in the stable argsort of `resolved`: an
+    // unresolved one after the unresolved before it, a resolved one after
+    // every unresolved and the resolved before it; the eight of a word
+    // each from the word's mask. The places below k are the slice.
+    const long long j0 = first * kFlagsPerWord;
+    if (un < a.k || n_un + (j0 - un) < a.k) {
+        for (long long r = 0; r < R; ++r) {
+            uint2 x = held[0];
+#pragma unroll
+            for (int c = 1; c < kCachedWords; ++c)
+                if (r == c) x = held[c];
+            if (r >= kCachedWords)
+                x = flag_word(a.resolved, a.n, first + r, vec);
+            const unsigned z = zero_flags(x);
+            const long long jw = j0 + r * kFlagsPerWord;
+#pragma unroll
+            for (int b = 0; b < kFlagsPerWord; ++b) {
+                const long long j = jw + b;
+                const long long u = un + __popc(z & ((1u << b) - 1u));
+                const long long rank = (z >> b) & 1u ? u : n_un + (j - u);
+                if (j < a.n && rank < a.k) a.slots[rank] = j;
+            }
+            un += __popc(z);
+        }
+    }
+    if (tid == 0) CSTAMP(kCompactStamps - 1, un);
 }
 
 int check_device(int want) {
@@ -406,16 +647,35 @@ extern "C" int fc2t_classic_k1(const ClassicArgs* a) {
         stats != (a->first_pos != nullptr) ||
         (ext && (!stats || a->ext == nullptr || a->extras == nullptr ||
                  a->ext_width < 1 || a->ext_width > kMaxExtWidth ||
-                 a->ext_rows < 1)) ||
+                 a->ext_rows < 1 ||
+                 reinterpret_cast<uintptr_t>(a->extras) % 16 ||
+                 reinterpret_cast<uintptr_t>(a->ext) % 8)) ||
         (!ext && a->extras != nullptr) || (stats && a->slots != nullptr))
         return -(int)cudaErrorInvalidValue;
     const int err = check_device(a->device);
     if (err) return err;
     const unsigned blocks = (unsigned)((a->n + kWarps - 1) / kWarps);
     const size_t shared =
-        ext ? (size_t)kWarps * 32 * 2 * a->ext_width * sizeof(uint32_t) : 0;
-    classic_kernel<<<blocks, kThreads, shared,
-                     static_cast<cudaStream_t>(a->stream)>>>(*a);
+        ext ? kWarps * warp_smem_words(1 + 3 * a->anchor_len,
+                                       2 * a->ext_width) * sizeof(uint32_t)
+            : 0;
+    const cudaStream_t stream = static_cast<cudaStream_t>(a->stream);
+    if (ext) {
+        // The carveout, once a device (a racing second call sets it again).
+        static bool carved[kMaxDevices];
+        if (a->device < 0 || a->device >= kMaxDevices)
+            return -(int)cudaErrorInvalidDevice;
+        if (!carved[a->device]) {
+            const cudaError_t c = cudaFuncSetAttribute(
+                classic_kernel<true>,
+                cudaFuncAttributePreferredSharedMemoryCarveout, kCarveout);
+            if (c != cudaSuccess) return -(int)c;
+            carved[a->device] = true;
+        }
+        classic_kernel<true><<<blocks, kThreads, shared, stream>>>(*a);
+    } else {
+        classic_kernel<false><<<blocks, kThreads, 0, stream>>>(*a);
+    }
     const cudaError_t e = cudaGetLastError();
     return e == cudaSuccess ? 1 : -(int)e;
 }
@@ -431,3 +691,12 @@ extern "C" int fc2t_compact(const CompactArgs* a) {
     const cudaError_t e = cudaGetLastError();
     return e == cudaSuccess ? 1 : -(int)e;
 }
+
+#ifdef FC2T_CLASSIC_STAMPS
+// Where the next launches record their stage clocks (null: nowhere).
+extern "C" int fc2t_classic_stamps(void* stamps) {
+    unsigned long long* p = static_cast<unsigned long long*>(stamps);
+    const cudaError_t err = cudaMemcpyToSymbol(fc2t_cstamps, &p, sizeof p);
+    return err == cudaSuccess ? 0 : -(int)err;
+}
+#endif

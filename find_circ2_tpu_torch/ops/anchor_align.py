@@ -702,6 +702,57 @@ def _launch_compact(resolved, k: int, lib=None):
     return idx, overflow
 
 
+# The stages of csrc/classic_k1.cu between its stage clocks
+# (FC2T_CLASSIC_STAMPS): an enumeration warp's, and the compaction
+# block's.
+CLASSIC_STAGES = ("slot and anchor loads", "key build", "row round trip",
+                  "fold and finish", "ext rows", "extras writes")
+COMPACT_STAGES = ("flag loads", "scan", "writes")
+
+
+def _stamped(rows: int, stages: int, like: torch.Tensor, launch):
+    """launch(lib) through the measurement build of the kernel library
+    (_build.load_stamped), its stage clocks recorded into int64 [rows,
+    stages + 1] on `like`'s device, which is current: (launch's result,
+    the cycles of each stage, int64 [rows, stages])."""
+    lib = _build.load_stamped()
+    stamps = torch.zeros((rows, stages + 1), dtype=torch.int64,
+                         device=like.device)
+    with torch.cuda.device(like.get_device()):
+        _build.check(-lib.fc2t_classic_stamps(stamps.data_ptr()),
+                     "classic_k1 stamps")
+        try:
+            got = launch(lib)
+            torch.cuda.synchronize()
+        finally:
+            _build.check(-lib.fc2t_classic_stamps(None), "classic_k1 stamps")
+    return got, stamps.diff(dim=1)
+
+
+def classic_stage_cycles(table, meta, anchors, cfg: Config, ext=None,
+                         ext_id=None, stats: bool = False, slots=None,
+                         hits=None):
+    """classic_anchor_stats (or, with `slots`, refill_slice into `hits`)
+    on CUDA tensors through the measurement build of csrc/classic_k1.cu:
+    ((hits, stats), int64 [n, len(CLASSIC_STAGES)] SM clock cycles of each
+    warp's stages, lane 0's clock64 at the start and where each stage's
+    results are first used). One launch, counted on `classic_launches`."""
+    n = anchors.shape[0] if slots is None else slots.shape[0]
+    return _stamped(n, len(CLASSIC_STAGES), anchors,
+                    lambda lib: _launch_classic(table, meta, anchors, cfg,
+                                                ext, ext_id, stats, slots,
+                                                hits, lib))
+
+
+def compact_stage_cycles(resolved, k: int):
+    """fallback_slice on a CUDA tensor through the measurement build of
+    csrc/classic_k1.cu: ((idx, overflow), int64 [1, len(COMPACT_STAGES)]
+    SM clock cycles of the block's stages, thread 0's clock64). One launch,
+    counted on `compact_launches`."""
+    return _stamped(1, len(COMPACT_STAGES), resolved,
+                    lambda lib: _launch_compact(resolved, k, lib))
+
+
 def align_anchors_sharded(shards, anchors, cfg: Config) -> AnchorHits:
     """Classic K1 over index shards [(table, meta)]: each shard's
     (count, first_pos), summed and minimized on the anchors' device,

@@ -386,3 +386,31 @@ def classic_args(case: DetectCase, device="cpu") -> tuple:
         return torch.from_numpy(np.ascontiguousarray(x)).to(device)
     return (dev(case.table), dev(case.meta), dev(case.anchors),
             dev(case.ext), dev(case.ext_id))
+
+
+# The fallback slice's compaction (csrc/classic_k1.cu) at its edges:
+# (n flags, unresolved, k), k None for the stream's
+# min(exact_fallback_slots, n). The kernel gives each thread a run of
+# 8-flag words: one word up to 8192 flags, more above, and more than the
+# four it holds in registers above 32768; a word past n is partial.
+SLICE_SIZES = (
+    (8192, 0, None), (8192, 8192, None), (8192, 1024, None),
+    (8192, 1025, None), (128, 37, None), (3000, 1500, None),
+    (100, 37, None), (1001, 500, None), (8194, 3000, None),
+    (8192, 4000, 0), (8192, 100, 8192), (3001, 3001, 3001),
+    (777, 0, 777), (40001, 2000, None), (1, 1, 1),
+)
+
+
+def slice_id(n: int, unresolved: int, k) -> str:
+    return f"{n}-{unresolved}" + ("" if k is None else f"-k{k}")
+
+
+def slice_flags(n: int, unresolved: int, k, cfg: Config = Config(),
+                lead: int = 0) -> tuple[np.ndarray, int]:
+    """A SLICE_SIZES case: bool `resolved` [lead + n], its last n flags
+    with `unresolved` of them False (seeded by the size), and its k."""
+    rng = np.random.default_rng(n + unresolved + (k or 0))
+    flags = np.ones(lead + n, bool)
+    flags[lead + rng.choice(n, unresolved, replace=False)] = False
+    return flags, min(cfg.exact_fallback_slots, n) if k is None else k

@@ -191,6 +191,61 @@ def test_classic_kernels_match_plain_on_card(case, cuda_device):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("n,unresolved,k", detect_cases.SLICE_SIZES,
+                         ids=[detect_cases.slice_id(*c)
+                              for c in detect_cases.SLICE_SIZES])
+def test_compaction_matches_plain_at_edge_sizes_on_card(n, unresolved, k,
+                                                        cuda_device):
+    """The compaction kernel equals fallback_slice_ref (the stable
+    argsort's first k indices and the overflow flag) at each of
+    detect_cases.SLICE_SIZES, on a buffer on 8 bytes (one vector load a
+    word) and on a view one byte past it (a byte at a time); one launch
+    a call."""
+    flags, k = detect_cases.slice_flags(n, unresolved, k, CFG, lead=1)
+    whole = torch.from_numpy(flags).to(cuda_device)
+    views = (whole[1:].clone(), whole[1:])
+    assert [r.data_ptr() % 8 for r in views] == [0, 1]
+    before = ta.compact_launches
+    for resolved in views:
+        idx, over = ta.fallback_slice(resolved, k)
+        widx, wover = ta.fallback_slice_ref(resolved, k)
+        torch.cuda.synchronize()
+        assert torch.equal(idx, widx) and torch.equal(over, wover)
+    assert ta.compact_launches == before + 2
+
+
+@pytest.mark.cuda
+def test_stamped_classic_kernels_match_plain_on_card(case, cuda_device):
+    """The measurement build of csrc/classic_k1.cu computes what the
+    plain versions do, in each enumeration mode, in slot mode and for the
+    compaction, and its stage cycles come back one row a warp (one for the
+    compaction's block), none negative, each row's sum positive."""
+    table, meta, anchors, ext, ext_id = detect_cases.classic_args(
+        case, cuda_device)
+    n = anchors.shape[0]
+    for x, stats in (((), False), ((), True), ((ext, ext_id), True)):
+        got, cyc = ta.classic_stage_cycles(table, meta, anchors, CFG, *x,
+                                           stats=stats)
+        assert _same_classic(got, ta.classic_anchor_stats_ref(
+            table, meta, anchors, CFG, *x, stats=stats))
+        assert cyc.shape == (n, len(ta.CLASSIC_STAGES))
+        assert (cyc >= 0).all() and (cyc.sum(1) > 0).all()
+    ntable = torch.from_numpy(case.ntable).to(cuda_device)
+    hits, resolved = ta.exact_anchor_stats(table, ntable, meta, anchors, CFG)
+    k = min(CFG.exact_fallback_slots, n)
+    (idx, over), cyc = ta.compact_stage_cycles(resolved, k)
+    widx, wover = ta.fallback_slice_ref(resolved, k)
+    assert torch.equal(idx, widx) and torch.equal(over, wover)
+    assert cyc.shape == (1, len(ta.COMPACT_STAGES)) and (cyc >= 0).all()
+    want = ta.refill_slice_ref(table, meta, anchors, idx, hits, CFG)
+    (got, none), cyc = ta.classic_stage_cycles(
+        table, meta, anchors, CFG, slots=idx,
+        hits=ta.AnchorHits(*(f.clone() for f in hits)))
+    assert none is None and all(torch.equal(a, b) for a, b in zip(got, want))
+    assert cyc.shape == (k, len(ta.CLASSIC_STAGES)) and (cyc >= 0).all()
+
+
+@pytest.mark.cuda
 def test_classic_kernels_on_second_card(case, two_cards):
     """With cuda:0 current, the enumeration and the compaction run on
     tensors on cuda:1 and equal their plain versions there."""

@@ -210,22 +210,15 @@ def _jax_slice(resolved, k):
     return np.asarray(order[:k]), bool(jnp.sum(~jnp.asarray(resolved)) > k)
 
 
-@pytest.mark.parametrize("n,unresolved", [
-    (8192, 0),          # none unresolved
-    (8192, 8192),       # all unresolved
-    (8192, 1024),       # exactly k
-    (8192, 1025),       # k + 1
-    (128, 37),          # 2B < exact_fallback_slots: the golden's batch
-    (3000, 1500),       # a batch size that is no power of two
-])
-def test_fallback_slice_plain_matches_jax(n, unresolved):
+@pytest.mark.parametrize("n,unresolved,k", detect_cases.SLICE_SIZES,
+                         ids=[detect_cases.slice_id(*c)
+                              for c in detect_cases.SLICE_SIZES])
+def test_fallback_slice_plain_matches_jax(n, unresolved, k):
     """fallback_slice's plain version equals the reference's stable
-    argsort of `resolved` (the first k = min(exact_fallback_slots, n)
-    indices) and its overflow flag."""
-    rng = np.random.default_rng(n + unresolved)
-    resolved = np.ones(n, bool)
-    resolved[rng.choice(n, unresolved, replace=False)] = False
-    k = min(CFG.exact_fallback_slots, n)
+    argsort of `resolved` (its first k indices, k = min(
+    exact_fallback_slots, n) as the stream takes it, or 0 or n) and its
+    overflow flag, at the compaction kernel's edge sizes."""
+    resolved, k = detect_cases.slice_flags(n, unresolved, k, CFG)
     idx, overflow = ta.fallback_slice(torch.from_numpy(resolved), k)
     want, want_over = _jax_slice(resolved, k)
     assert idx.dtype == torch.int64 and idx.shape == (k,)
@@ -428,6 +421,70 @@ def test_cuda_tensors_reach_the_c_calls(case, monkeypatch):
     assert comp[1] == idx.data_ptr() and comp[4:] == (n, 64, 2, 0)
 
 
+class _StampedLib(_Lib):
+    """A stand-in for the measurement build: also records where the
+    stamps go (the buffer's pointer, then null) and the current device."""
+
+    def fc2t_classic_stamps(self, ptr):
+        self.seen.append(("stamps", _Device.current[0], ptr))
+        return 0
+
+
+def test_classic_stage_cycles_reach_the_stamped_c_calls(case, monkeypatch):
+    """classic_stage_cycles and compact_stage_cycles each make one C call
+    into the (stubbed) measurement build, with the tensors' device
+    current, between pointing the stamps at a zeroed int64 buffer of one
+    row a warp (a slot in slot mode) or one row for the compaction's block,
+    len(stages) + 1 clocks a row, and pointing them nowhere; each counts
+    one launch and returns the launch's outputs and the clocks' diffs."""
+    lib = _StampedLib()
+    _stub_cuda(monkeypatch)
+    monkeypatch.setattr(_build, "load_stamped", lambda: lib)
+    monkeypatch.setattr(torch.cuda, "synchronize", lambda *a: None)
+    table, meta, ext, ext_id = _tables(case)
+    anchors = torch.from_numpy(case.anchors)
+    n = anchors.shape[0]
+    made = []
+    zeros = torch.zeros
+
+    def spy_zeros(*a, **kw):
+        made.append(zeros(*a, **kw))
+        return made[-1]
+
+    monkeypatch.setattr(torch, "zeros", spy_zeros)
+    before = (ta.classic_launches, ta.compact_launches)
+    (hits, stats), cyc = ta.classic_stage_cycles(table, meta, anchors, CFG,
+                                                 ext, ext_id, stats=True)
+    assert len(stats) == 3 and hits.pos.shape == (n,)
+    assert cyc.shape == (n, len(ta.CLASSIC_STAGES))
+    (idx, over), ccyc = ta.compact_stage_cycles(
+        torch.zeros(n, dtype=torch.bool), 64)
+    assert idx.shape == (64,) and ccyc.shape == (1, len(ta.COMPACT_STAGES))
+    slots = idx[:16]
+    (got, none), scyc = ta.classic_stage_cycles(table, meta, anchors, CFG,
+                                                slots=slots, hits=hits)
+    assert none is None and all(a is b for a, b in zip(got, hits))
+    assert scyc.shape == (16, len(ta.CLASSIC_STAGES))
+    assert (ta.classic_launches, ta.compact_launches) == (before[0] + 2,
+                                                          before[1] + 1)
+    bufs = [t for t in made if t.dtype == torch.int64 and t.dim() == 2]
+    assert [tuple(t.shape) for t in bufs] == [
+        (n, len(ta.CLASSIC_STAGES) + 1), (1, len(ta.COMPACT_STAGES) + 1),
+        (16, len(ta.CLASSIC_STAGES) + 1)]
+    entries = [(e[0], e[1]) for e in lib.seen]
+    assert entries == [("stamps", 2), ("classic", 2), ("stamps", 2)] + [
+        ("stamps", 2), ("compact", 2), ("stamps", 2)] + [
+        ("stamps", 2), ("classic", 2), ("stamps", 2)]
+    ptrs = [e[2] for e in lib.seen if e[0] == "stamps"]
+    assert ptrs == [bufs[0].data_ptr(), None, bufs[1].data_ptr(), None,
+                    bufs[2].data_ptr(), None]
+    assert _Device.current == [0]
+    full = lib.seen[1][2]
+    assert full[3] == ext_id.data_ptr() and full[19] == n
+    slot = lib.seen[7][2]
+    assert slot[5] == slots.data_ptr() and slot[19] == 16
+
+
 def _constants(name):
     src = open(os.path.join(CSRC, name)).read()
     return src, {k: int(v, 0) for k, v in re.findall(
@@ -450,6 +507,10 @@ def test_classic_kernel_constants_match_config():
         tht.SLOTS, tht.LANES, tht.CNT_BITS)
     assert "sizeof(ClassicArgs) == %d" % _build.CLASSIC_ARGS.size in src
     assert "sizeof(CompactArgs) == %d" % _build.COMPACT_ARGS.size in src
+    # The measurement build's clocks: one more a warp (block) than stages.
+    assert got["kClassicStamps"] == len(ta.CLASSIC_STAGES) + 1
+    assert got["kCompactStamps"] == len(ta.COMPACT_STAGES) + 1
+    assert "-DFC2T_CLASSIC_STAMPS" in _build.STAMP_FLAGS
 
 
 def test_profiler_labels_are_unchanged(case):
