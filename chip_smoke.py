@@ -15,7 +15,9 @@ Phases, each fatal on failure:
      (`exact_anchor_stats`), K1's enumeration (`classic_anchor_stats`:
      hits, statistics, §2b extras) and fallback slice (`fallback_slice`,
      `refill_slice`, one slice that overflows and two that cannot) on a
-     `detect_cases` batch and its pinned anchors;
+     `detect_cases` batch and its pinned anchors, and detect's two
+     kernels on each of `detect_cases.EDGE_CASES` (reads up to 301 bases
+     in rows off 4 bytes, 40 chromosomes, anchors of 18 and 16 bases);
   4. the port's `find_circ` CLI on test_data/ must reproduce the golden
      BED and stats byte for byte;
   5. the main path at real size: `run --filter` on the 16 Mbp RNase-R
@@ -47,7 +49,10 @@ Phases, each fatal on failure:
      detect's kernels (check_detect) equal their plain versions on every
      batch of phase 5's stream (the probe, the core, the fallback slice
      and the redo's enumeration) and on a batch forced through the
-     classic redo, and are timed beside them and their bounds; K1's two
+     classic redo, and are timed beside them and their bounds (the
+     probe also beside its random-row floor, the rate gather_rows
+     measured in phase 3), with each one's SM cycles by stage from its
+     measurement build (detect_stages); K1's two
      kernels (time_classic) at the fallback slice, the compaction (beside
      its library call, one stable torch.argsort), the 8192-anchor redo
      and the explore chunk, with each one's SM cycles by stage from its
@@ -65,8 +70,10 @@ Phases, each fatal on failure:
      K1's single-table kernels never (the shards keep the plain K1);
      `detect_merged` equals the single device's detect and merge on every
      batch, and the engine's packed rows equal those of the plain detect
-     core; `find_circ --mesh 2x2` and `--nproc 2` (two processes over
-     gloo on the one card) reproduce the golden bytes.
+     core; K-h, the plain `merge_junctions` and `merge_tables`, is timed
+     on one batch (as called, busy, bytes bound); `find_circ --mesh 2x2`
+     and `--nproc 2` (two processes over gloo on the one card) reproduce
+     the golden bytes.
 
 A torch.profiler profile that holds no device activity is taken again,
 up to PROFILE_TRIES times; after that its figures come from CUDA events
@@ -129,10 +136,16 @@ EXACT_OPS_PER_ANCHOR = 220
 # source.
 CLASSIC_OPS_PER_VARIANT = 150
 COMPACT_OPS_PER_ANCHOR = 30
-# The detect_cases batch (seed, rows), the fallback slice of the forced
+# The detect_cases batch (seed, rows) and each edge case's rows
+# (detect_cases.EDGE_CASES), the fallback slice of the forced
 # classic redo, and the anchor sets drawn from the genome for the probe's
 # device-alone time (their rows exceed the L2 four times).
 DETECT_CASE_SEED, DETECT_CASE_ROWS = 4, 1024
+EDGE_CASE_ROWS = 256
+# Detect's kernels are also timed on this many reads (the probe on twice
+# as many anchors): one warp or less a scheduler, so the time is the
+# launch and one warp's chain.
+LATENCY_READS = 32
 REDO_SLOTS = 16
 EXACT_TIMING_SETS = 200
 # The profiler labels of a detect batch (models/pipeline,
@@ -356,6 +369,15 @@ def check_gather_rows(device, card: str) -> dict:
     return out
 
 
+def row_rate(gather: dict) -> float:
+    """Random 32-byte rows a second, device alone, as check_gather_rows
+    moved them at its largest single-table shape (W = 8, 2^20 rows of a
+    2^24-row table, beyond the L2)."""
+    rec = next(r for r in gather["shapes"] if r["name"] == "gather_rows"
+               and r["widths"] == [8] and r["n"] == 1 << 20)
+    return rec["n"] / (rec["device_ms"] / 1e3)
+
+
 def check_detect_cases(device, card: str) -> dict:
     """Detect's two kernels against their plain versions on a
     detect_cases batch, before the main path: the core with the
@@ -374,11 +396,21 @@ def check_detect_cases(device, card: str) -> dict:
     for shift in (0, 3_000_000_000):
         hold_exact(detect_cases.exact_args(case, device, shift), cfg,
                    f"the detect_cases anchors (positions + {shift})", out)
+    for name, (what, _, _) in detect_cases.EDGE_CASES.items():
+        edge, ecfg = detect_cases.edge_case(name, DETECT_CASE_SEED,
+                                            EDGE_CASE_ROWS)
+        for prefilter in (True, False):
+            hold_core(detect_cases.core_args(edge, device, True), ecfg,
+                      prefilter, f"the {name} edge case ({what})", out)
+        hold_exact(detect_cases.exact_args(edge, device), ecfg,
+                   f"the {name} edge case's anchors ({what})", out)
     log(f"detect_core_packed and exact_anchor_stats equal their plain "
         f"versions on {DETECT_CASE_ROWS} detect_cases rows (seed "
         f"{DETECT_CASE_SEED}; {case.anchors.shape[0]} anchors, "
-        f"{case.coincident} of keys whose two buckets coincide), prefilter "
-        f"on and off, exactly, on {card}")
+        f"{case.coincident} of keys whose two buckets coincide, an N at "
+        f"either end of an anchor and either side of its prefix's end), "
+        f"prefilter on and off, and on {EDGE_CASE_ROWS} rows of each edge "
+        f"case ({', '.join(detect_cases.EDGE_CASES)}), exactly, on {card}")
     return out
 
 
@@ -1060,6 +1092,17 @@ def detect_inputs(d, arr, lens, cfg) -> tuple:
              hits_b, overflow))
 
 
+def _first_rows(core_args, m: int) -> tuple:
+    """detect_core_packed's arguments cut to their first m reads."""
+    from find_circ2_tpu_torch.ops.anchor_align import AnchorHits
+    words, nbases, offsets, reads, lens, rc, ha, hb, overflow = core_args
+
+    def cut(t):
+        return t[:m].contiguous()
+    return (words, nbases, offsets, cut(reads), cut(lens), cut(rc),
+            AnchorHits(*map(cut, ha)), AnchorHits(*map(cut, hb)), overflow)
+
+
 def _max_err(pairs) -> int:
     import torch
     return max((int((a.to(torch.int64) - b.to(torch.int64)).abs().max())
@@ -1098,7 +1141,8 @@ def hold_exact(args, cfg, what: str, out: dict) -> None:
                  f"{what}: {name} (anchors {bad})")
 
 
-def detect_bounds(exact_args, core_args, cfg, prefilter: bool) -> dict:
+def detect_bounds(exact_args, core_args, cfg, prefilter: bool,
+                  row_rate: float | None = None) -> dict:
     """The least time the card could take for each detect kernel on one
     batch's inputs: the larger of its bytes over the HBM rate (each input
     read once, each output written once) and its int32 operations over
@@ -1109,7 +1153,10 @@ def detect_bounds(exact_args, core_args, cfg, prefilter: bool) -> dict:
     len + 2 bases and (prefilter on) two prefilter windows of len bases,
     half a byte a base (rows of length 0 need none), the chromosome
     offsets, the overflow flag, the [B, 14] rows; DETECT_OPS_PER_SPLIT for
-    every valid split."""
+    every valid split. With `row_rate` (random 32-byte rows a second, as
+    gather_rows moved them in this run) also the probe's random-row
+    floor: its 4 n rows at that rate, which says how far its bytes bound
+    is reachable (the bytes bound stays the bound)."""
     import torch
     table, ntable, meta, anchors = exact_args
     n, a = anchors.shape
@@ -1135,6 +1182,14 @@ def detect_bounds(exact_args, core_args, cfg, prefilter: bool) -> dict:
         bytes_ms = 1e3 * rec["bytes"] / HBM_BYTES_PER_S
         rec.update(bound_ms=max(ops_ms, bytes_ms),
                    bound_by="operations" if ops_ms >= bytes_ms else "bytes")
+    if row_rate:
+        out["exact"]["row_floor_ms"] = 1e3 * 4 * n / row_rate
+        log(f"probe's random-row floor: {4 * n:,} random 32-byte rows at "
+            f"{row_rate:,.0f} rows/s (gather_rows, W = 8, 2^20 random rows "
+            f"of a 2^24-row table, this run) = "
+            f"{out['exact']['row_floor_ms']:.5f} ms, beside its bound "
+            f"{out['exact']['bound_ms']:.5f} ms by "
+            f"{out['exact']['bound_by']}")
     return out
 
 
@@ -1173,7 +1228,8 @@ def label_split(fn, labels) -> dict:
             if v["activities"] or v["host_ms"] or k == "total"}
 
 
-def check_detect(dindex, batches, genome, cfg, card) -> dict:
+def check_detect(dindex, batches, genome, cfg, card,
+                 row_rate: float | None = None) -> dict:
     """Detect's two kernels on the card (phase 6), on the main path's
     index and the batches phase 5's stream sent to the single device:
     - exact_anchor_stats and detect_core_packed against their plain
@@ -1188,7 +1244,12 @@ def check_detect(dindex, batches, genome, cfg, card) -> dict:
       called (CUDA events) over the stream's batches, on the device alone
       (CUDA-graph replay; the probe on EXACT_TIMING_SETS anchor sets drawn
       from the genome, whose rows exceed the L2), the plain version's
-      torch.profiler busy time, beside the bound of detect_bounds;
+      torch.profiler busy time, beside the bound of detect_bounds (and
+      the probe's random-row floor); and each kernel alone on
+      LATENCY_READS reads (the probe on twice as many anchors), where no
+      warp shares its scheduler;
+    - each kernel's SM cycles by stage on the first batch, and at
+      LATENCY_READS reads, from its measurement build (detect_stages);
     - one batch of detect_batch_packed_fast with the kernels and with the
       plain versions: device activities, device ms and host enqueue ms
       split by the profiler labels (label_split).
@@ -1262,7 +1323,7 @@ def check_detect(dindex, batches, genome, cfg, card) -> dict:
     # Times, beside the bounds.
     n = len(inputs)
     ex0, core0 = inputs[0]
-    bounds = detect_bounds(ex0, core0, cfg, prefilter)
+    bounds = detect_bounds(ex0, core0, cfg, prefilter, row_rate)
     rng = np.random.default_rng(0)
     a = cfg.anchor_len
     codes = torch.from_numpy(genome.codes).to(dev)
@@ -1286,6 +1347,16 @@ def check_detect(dindex, batches, genome, cfg, card) -> dict:
                 lambda i: ta.exact_anchor_stats(*ex0[:3], sets[i], cfg),
                 EXACT_TIMING_SETS)
 
+    # The same at a size that keeps every warp alone on its scheduler:
+    # the launch and one warp's chain of round trips and arithmetic.
+    few = [_first_rows(core, LATENCY_READS) for _, core in inputs]
+    latency = {"core": (lambda i: td.detect_core_packed(*few[i], cfg,
+                                                        prefilter), n,
+                        LATENCY_READS),
+               "exact": (lambda i: ta.exact_anchor_stats(
+                   *ex0[:3], sets[i][:2 * LATENCY_READS], cfg),
+                   EXACT_TIMING_SETS, 2 * LATENCY_READS)}
+
     for name in ("exact", "core"):
         kernel, plainf, alone, n_alone = kernels(name)
         p1, k1 = called_ms(plainf, range(n)), called_ms(kernel, range(n))
@@ -1295,9 +1366,17 @@ def check_detect(dindex, batches, genome, cfg, card) -> dict:
         gk2 = graph_ms(alone, range(n_alone))
         gp2 = busy_ms(lambda: plainf(0))
         gp, p_src = min(gp1, gp2)
+        small, n_small, rows = latency[name]
         rec = dict(called_ms=min(k1, k2), plain_called_ms=min(p1, p2),
-                   ms=min(gk1, gk2), plain_ms=gp, **bounds[name])
+                   ms=min(gk1, gk2), plain_ms=gp,
+                   latency_ms=min(graph_ms(small, range(n_small))
+                                  for _ in range(2)), **bounds[name])
         out[name] = rec
+        log(f"{name} kernel alone on {rows} "
+            f"{'reads' if name == 'core' else 'anchors'} (each warp alone "
+            f"on its scheduler): {rec['latency_ms']:.5f} ms device alone "
+            f"(graph, {n_small} input sets), the launch and one warp's "
+            f"chain; on {card}")
         log(f"{name} kernel on a {ex0[3].shape[0] // 2}-read batch: device "
             f"alone {rec['ms']:.5f} ms (graph, {n_alone} input sets) vs "
             f"plain {rec['plain_ms']:.5f} ms ({p_src} busy); as "
@@ -1306,6 +1385,14 @@ def check_detect(dindex, batches, genome, cfg, card) -> dict:
             f"ms by {rec['bound_by']} ({rec['bytes']:,} bytes, "
             f"{rec['ops']:,} int32 operations), "
             f"{100 * rec['bound_ms'] / rec['ms']:.1f}% of it; on {card}")
+
+    out["stages"] = detect_stages(
+        ex0, core0, cfg, prefilter,
+        f"the stream's first batch ({core0[3].shape[0]} reads)", card)
+    out["latency_stages"] = detect_stages(
+        (*ex0[:3], sets[0][:2 * LATENCY_READS]), few[0], cfg, prefilter,
+        f"{LATENCY_READS} reads and {2 * LATENCY_READS} anchors, each "
+        "warp alone on its scheduler", card)
 
     # One batch's device activities and host enqueue by label, the plain
     # versions and the kernels in turn.
@@ -1341,6 +1428,37 @@ def check_detect(dindex, batches, genome, cfg, card) -> dict:
                 if isinstance(v, dict) and k != "total") + f"; on {card}")
     out["max_abs_err"] = max(out["core_err"], out["exact_err"])
     out["anchor_sets"] = [ex[3] for ex, _ in inputs]
+    return out
+
+
+def detect_stages(exact_args, core_args, cfg, prefilter: bool, what: str,
+                  card: str) -> dict:
+    """Where detect's two kernels spend their time on one batch: each
+    one's measurement build (ops/anchor_align.exact_stage_cycles,
+    ops/detect.detect_stage_cycles), its outputs held against the plain
+    version's, and per stage the median, 90th percentile and maximum of
+    the SM clock cycles over the warps."""
+    import torch
+    from find_circ2_tpu_torch.ops import anchor_align as ta
+    from find_circ2_tpu_torch.ops import detect as td
+    out = {}
+    got, cyc = ta.exact_stage_cycles(*exact_args, cfg)
+    if not _equal_all(got, ta.exact_anchor_stats_ref(*exact_args, cfg)):
+        fail(f"the stamped probe differs from its plain version on {what}")
+    out["exact"] = _quantiles(cyc, ta.EXACT_STAGES)
+    rows, cyc = td.detect_stage_cycles(*core_args, cfg, prefilter)
+    if not torch.equal(rows, td.detect_core_packed_ref(*core_args, cfg,
+                                                       prefilter)):
+        fail(f"the stamped detect core differs from its plain version on "
+             f"{what}")
+    out["core"] = _quantiles(cyc, td.STAGES)
+    for name, per in (("exact", ta.EXACT_ANCHORS_PER_WARP),
+                      ("core", td.READS_PER_WARP)):
+        log(f"{name} stages on {what}, SM clock cycles a warp "
+            f"({per} {'anchors' if name == 'exact' else 'reads'} a warp; "
+            f"median / p90 / max): " + "; ".join(
+                f"{k} {m:.0f} / {p:.0f} / {x:.0f}"
+                for k, (m, p, x) in out[name].items()) + f"; on {card}")
     return out
 
 
@@ -1864,6 +1982,8 @@ def check_sharded(fq, sim, genome, index, dindex, cfg, streams, truth,
         n_rows += n
     out["merged_batches"] = -(-len(reads) // bs)
     out["probe_faults"] = faults
+    out["merge"] = merge_times(single, torch.from_numpy(lens_kept).to(
+        dindex.device), cfg, card)
     log(f"detect_merged equals detect_batch + merge_junctions on all "
         f"{out['merged_batches']} batches ({n_rows} junction rows); the "
         f"engine's packed rows (exact-first and classic) equal the plain "
@@ -1874,7 +1994,52 @@ def check_sharded(fq, sim, genome, index, dindex, cfg, streams, truth,
     return out
 
 
-def main_path(device: str, library: dict, card: str) -> dict:
+def merge_times(res, lens, cfg, card: str) -> dict:
+    """K-h, the plain merge_junctions and merge_tables (no hand kernel:
+    they reach no pallas_call, and only the sharded engine calls them),
+    on the card on one batch's detect result: as called (CUDA events,
+    the least of three runs of five calls) and busy (torch.profiler), in
+    the order busy, called, called, busy, beside the bytes bound: each
+    field it reads once and each it writes once over the HBM rate.
+    merge_tables merges two such tables stacked, as the 2x2 engine
+    gathers its two data rows."""
+    import torch
+    from find_circ2_tpu_torch.ops.merge import merge_junctions, merge_tables
+
+    def nbytes(tensors) -> int:
+        return sum(t.numel() * t.element_size() for t in tensors)
+
+    one = merge_junctions(res, lens, cfg)
+    stacked = {k: torch.stack([v, v]) for k, v in one.items()}
+    read = ("status", "multi", "qual_left", "qual_right", "kind", "chrom",
+            "start", "end", "sense", "align_strand", "edits", "overlap",
+            "n_bp")
+    calls = {
+        "merge_junctions": (lambda: merge_junctions(res, lens, cfg),
+                            nbytes([res[k] for k in read if k in res]
+                                   + [lens] + list(one.values()))),
+        "merge_tables": (lambda: merge_tables(stacked),
+                         nbytes(list(stacked.values())) + nbytes(
+                             merge_tables(stacked).values()))}
+    out = {}
+    for name, (fn, moved) in calls.items():
+        b1 = busy_ms(fn)
+        c1 = min(cuda_ms(fn, 5) for _ in range(3))
+        c2 = min(cuda_ms(fn, 5) for _ in range(3))
+        b2 = busy_ms(fn)
+        busy, src = min(b1, b2)
+        out[name] = dict(called_ms=min(c1, c2), busy_ms=busy, bytes=moved,
+                         bound_ms=1e3 * moved / HBM_BYTES_PER_S)
+        log(f"K-h {name} (plain PyTorch) on one {res['status'].shape[0]}-"
+            f"read batch{' x 2 stacked' if name == 'merge_tables' else ''}"
+            f": as called {out[name]['called_ms']:.5f} ms, busy "
+            f"{busy:.5f} ms ({src}); bound {out[name]['bound_ms']:.5f} ms "
+            f"by bytes ({moved:,} bytes); on {card}")
+    return out
+
+
+def main_path(device: str, library: dict, card: str,
+              row_rate: float | None = None) -> dict:
     """`run --filter` on the simulated library (phase 5), then §2b
     explore on the card, the two explore modes of run_fastq, and
     run_reads vs the oracle on its first ORACLE_READS reads (phase 6).
@@ -2007,7 +2172,7 @@ def main_path(device: str, library: dict, card: str) -> dict:
             dindex, np.concatenate(seen["arr"]), np.concatenate(seen["lens"]),
             cfg, card)
         out["detect"] = check_detect(dindex, batches["batches"], g, cfg,
-                                     card)
+                                     card, row_rate)
         out["classic"] = time_classic(
             dindex, out["detect"].pop("anchor_sets"),
             np.concatenate(seen["arr"]), np.concatenate(seen["lens"]), cfg,
@@ -2061,7 +2226,7 @@ def main() -> int:
     cases = check_detect_cases("cuda", card)
     cases.update(check_classic_cases("cuda", card))
     check_golden("cuda")
-    path = main_path("cuda", LIBRARY, card)
+    path = main_path("cuda", LIBRARY, card, row_rate(gather))
     check_golden("cuda", ("--mesh", "2x2"))
     check_golden_nproc("cuda")
 
@@ -2128,7 +2293,14 @@ def main() -> int:
             "bound_by": rec["bound_by"], "library_ms": None,
             "called_ms": rec["called_ms"],
             "plain_called_ms": rec["plain_called_ms"],
-            "sharded_launches": path["sharded"]["launches"][name]})
+            "sharded_launches": path["sharded"]["launches"][name],
+            "latency_ms": rec["latency_ms"],
+            **({"row_floor_ms": rec["row_floor_ms"]}
+               if "row_floor_ms" in rec else {}),
+            "stage_cycles": {k: v[0] for k, v in
+                             det["stages"][key].items()},
+            "latency_stage_cycles": {k: v[0] for k, v in
+                                     det["latency_stages"][key].items()}})
     # K1's enumeration, summed over the main path's calls (one detect
     # batch's fallback slice and one explore chunk's K1 with the extras),
     # each shape beside it; the compaction on one batch's `resolved`, its

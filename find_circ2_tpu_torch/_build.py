@@ -24,9 +24,10 @@ CSRC = os.path.join(_HERE, "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(_HERE), "build", "kernels")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC")
-# The measurement build: csrc/explore.cu and csrc/classic_k1.cu record
-# per-stage clocks.
-STAMP_FLAGS = ("-DFC2T_EXPLORE_STAMPS", "-DFC2T_CLASSIC_STAMPS")
+# The measurement build: csrc/explore.cu, csrc/classic_k1.cu,
+# csrc/detect.cu and csrc/exact_stats.cu record per-stage clocks.
+STAMP_FLAGS = ("-DFC2T_EXPLORE_STAMPS", "-DFC2T_CLASSIC_STAMPS",
+               "-DFC2T_DETECT_STAMPS")
 
 _lib = None
 _stamped = None
@@ -128,17 +129,44 @@ def load() -> ctypes.CDLL:
 
 def load_stamped() -> ctypes.CDLL:
     """The measurement build of the kernel library (STAMP_FLAGS), built on
-    first call; it also has fc2t_explore_stamps(void*) and
-    fc2t_classic_stamps(void*)."""
+    first call; it also has fc2t_explore_stamps(void*),
+    fc2t_classic_stamps(void*), fc2t_detect_stamps(void*) and
+    fc2t_exact_stamps(void*)."""
     global _stamped
     if _stamped is None:
         lib = _bind(ctypes.CDLL(build(NVCC_FLAGS + STAMP_FLAGS)))
-        lib.fc2t_explore_stamps.argtypes = [ctypes.c_void_p]
-        lib.fc2t_explore_stamps.restype = ctypes.c_int
-        lib.fc2t_classic_stamps.argtypes = [ctypes.c_void_p]
-        lib.fc2t_classic_stamps.restype = ctypes.c_int
+        for name in STAMP_ENTRIES:
+            getattr(lib, name).argtypes = [ctypes.c_void_p]
+            getattr(lib, name).restype = ctypes.c_int
         _stamped = lib
     return _stamped
+
+
+# The measurement build's entries that point a kernel's stage clocks at a
+# buffer (null: nowhere); each returns 0 or minus a CUDA error.
+STAMP_ENTRIES = ("fc2t_explore_stamps", "fc2t_classic_stamps",
+                 "fc2t_detect_stamps", "fc2t_exact_stamps")
+
+
+def stamped(entry: str, rows: int, stages: int, like, launch):
+    """launch(lib) through the measurement build (load_stamped), with the
+    stage clocks of the kernel behind `entry` (one of STAMP_ENTRIES)
+    recorded into a zeroed int64 [rows, stages + 1] buffer on `like`'s
+    device, which is current: (launch's result, the cycles of each stage,
+    int64 [rows, stages])."""
+    import torch
+    lib = load_stamped()
+    point = getattr(lib, entry)
+    stamps = torch.zeros((rows, stages + 1), dtype=torch.int64,
+                         device=like.device)
+    with torch.cuda.device(like.get_device()):
+        check(-point(stamps.data_ptr()), entry)
+        try:
+            got = launch(lib)
+            torch.cuda.synchronize()
+        finally:
+            check(-point(None), entry)
+    return got, stamps.diff(dim=1)
 
 
 # csrc/gather_rows.cu's GatherArgs: table_a, out_a, table_b, out_b, idx,

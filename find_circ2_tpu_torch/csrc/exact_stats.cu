@@ -1,5 +1,5 @@
-// K1 v4's exact-first probe (K-b) of a batch's stacked anchors: one thread
-// per anchor, one launch per batch.
+// K1 v4's exact-first probe (K-b) of a batch's stacked anchors: four
+// lanes per anchor, one launch per batch.
 //
 // Replaces, on one index table, everything of the plain
 // exact_anchor_stats_ref in find_circ2_tpu_torch/ops/anchor_align.py:
@@ -15,17 +15,34 @@
 // What bounds it on this card. Each anchor reads its 20 codes and four
 // 32-byte rows, and writes about 30 bytes: about 1.5 MB a batch of 8192
 // anchors, half a microsecond at 3.35 TB/s; its arithmetic (two hashes,
-// eight slot compares) is less. Each row is one random access into a
-// table larger than the L2, so the design issues all four row loads of a
-// thread before it uses any of them, 16 bytes at a time, and keeps
-// everything else in registers. No shared memory, no tensor cores, no
-// TMA: nothing is shared between anchors, and the loads are
-// data-dependent 32-byte rows.
+// eight slot compares) is less. But each row is one random access into a
+// table larger than the L2, and random 32-byte rows move at about a third
+// of the bytes rate (chip_smoke.py measures that rate with gather_rows
+// and prints the probe's floor beside its bound). So the design puts as
+// many rows in flight on as many SMs as it can:
+//
+//  - Four lanes an anchor, one row each (a probe's table row or its
+//    neighbour-table row, two 16-byte loads): 8192 anchors are 256
+//    blocks of 128 threads, every SM busy, where one thread an anchor
+//    filled half of them with 64 blocks.
+//  - The key without a per-byte dependent loop: an anchor row on 4 bytes
+//    (anchor_len a multiple of 4) is read as words, all in flight, and
+//    its digits packed by word operations; the reverse complement's key
+//    is the digits complemented and reversed (a bit reversal). Any other
+//    row is read a byte at a time.
+//  - The table lane's slot matches go to its neighbour-table lane by one
+//    shuffle; the four lanes' partials combine by two butterfly steps;
+//    each lane then finishes and writes a quarter of the outputs, so each
+//    store writes eight neighbouring anchors.
+//
+// No shared memory, no tensor cores, no TMA: nothing is shared between
+// anchors, and the loads are data-dependent 32-byte rows.
 //
 // Kept bit for bit: when a key's two buckets are one bucket both probes
 // match its slot and their counts add (ROADMAP.md §3); a dirty anchor
 // (a code >= 4) is looked up on its codes with those zeroed, is not
-// clean, and resolves; exact counts above max_bucket count as 0.
+// clean, and resolves; exact counts above max_bucket count as 0; a
+// bucket at or past the table's rows reads empty.
 //
 // Plain C interface for ctypes: one packed argument buffer (ExactArgs).
 // The entry returns the kernels it launched (1, or 0 for no anchors), or
@@ -58,6 +75,33 @@ struct ExactArgs {
 };
 static_assert(sizeof(ExactArgs) == 136, "layout packed by ops/anchor_align");
 
+// Built with FC2T_DETECT_STAMPS (ops/anchor_align.exact_stage_cycles),
+// the first lane of each warp records its SM clock at the start and after
+// each stage, kExactStamps values a warp into fc2t_estamps[warps,
+// kExactStamps]. A stage ends where its results are first used (the
+// warp's values, reduced over its lanes). Without it, ESTAMP is nothing.
+#ifdef FC2T_DETECT_STAMPS
+constexpr int kExactStamps = 5;
+__device__ unsigned long long* fc2t_estamps = nullptr;
+// Stamp `at` of the buffer: `dep` is stored first, so the clock is read
+// only once the values it is made from have arrived.
+__device__ __forceinline__ void exact_stamp(size_t at, unsigned dep) {
+    volatile unsigned long long* p = fc2t_estamps;
+    if (!p) return;
+    p[at] = dep;
+    p[at] = clock64();
+}
+#define ESTAMP(at, dep)                                              \
+    do {                                                             \
+        const unsigned d_ = __reduce_xor_sync(__activemask(), (dep)); \
+        if ((threadIdx.x & 31) == 0) exact_stamp((at), d_);          \
+    } while (0)
+#else
+#define ESTAMP(at, dep) \
+    do {                \
+    } while (0)
+#endif
+
 namespace {
 
 using fc2t::holds;
@@ -69,105 +113,195 @@ using fc2t::kSlots;
 using fc2t::mix_hash;
 
 constexpr int kThreads = 128;
+// Four lanes an anchor: lane 2p + t reads probe p's row of the table
+// (t = 0) or of the neighbour table (t = 1).
+constexpr int kLanesPerAnchor = 4;
+constexpr int kAnchorsPerWarp = 8;
+static_assert(kAnchorsPerWarp * kLanesPerAnchor == 32, "a warp's lanes");
+constexpr int kAnchorsPerBlock = kThreads / kLanesPerAnchor;
+constexpr unsigned kFull = 0xffffffffu;
 // The neighbour table's lanes (index/hashtable.py NBR_LANES): one int4 a
 // slot, as the table's.
 constexpr int kNbrLanes = 4;
 static_assert(kNbrLanes == fc2t::kLanes, "a slot is one int4 a table");
 constexpr int kMaxAnchor = 32;
+// A slot's matches, and its two 7-bit counts, packed into one sum: at
+// most four matches (two slots, two probes of one coincident bucket).
+constexpr int kCfShift = 3, kCrShift = 13;
 
-// One probe's two slots against the canonical key (cp, cs), folded into
-// the anchor's sums and minima (exact_partials' probe).
-struct Partials {
-    bool found = false;
-    long long cf = 0, cr = 0, s1f = 0, s1r = 0;
-    uint32_t pf = kLargePos, pr = kLargePos, m1f = kLargePos,
-             m1r = kLargePos;
-
-    __device__ void add(const int4 (&g)[2], const int4 (&nb)[2],
-                        long long cp, uint32_t cs) {
+// The anchor's codes as one base-4 number, code j (those >= 4 as 0) the
+// digit of 4^(al - 1 - j), and whether every code is below 4. An anchor
+// row on 4 bytes of a length that is a multiple of 4 is read as words,
+// all in flight at once; any other byte by byte.
+__device__ __forceinline__ unsigned long long forward(const uint8_t* anc,
+                                                      int al, bool& clean) {
+    unsigned long long f = 0;
+    bool ok = true;
+    if ((al & 3) == 0 && (reinterpret_cast<uintptr_t>(anc) & 3) == 0) {
+        const auto* w = reinterpret_cast<const uint32_t*>(anc);
+        const int nw = al >> 2;
+        uint32_t x[kMaxAnchor / 4];
 #pragma unroll
-        for (int t = 0; t < kSlots; ++t) {
-            const int4 r = g[t], q = nb[t];
-            const unsigned packed = (unsigned)r.y;
-            if (!holds(r, cp, cs)) continue;
-            found = true;
-            cf += (packed >> 16) & kCntMask;
-            cr += (packed >> (16 + kCntBits)) & kCntMask;
-            pf = min(pf, (uint32_t)r.z);
-            pr = min(pr, (uint32_t)r.w);
-            s1f += q.x;
-            m1f = min(m1f, (uint32_t)q.y);
-            s1r += q.z;
-            m1r = min(m1r, (uint32_t)q.w);
+        for (int t = 0; t < kMaxAnchor / 4; ++t)
+            x[t] = t < nw ? __ldg(w + t) : 0u;
+#pragma unroll
+        for (int t = 0; t < kMaxAnchor / 4; ++t) {
+            if (t < nw) {
+                // 0xff in each byte whose code is below 4.
+                const uint32_t lt = __vcmpltu4(x[t], 0x04040404u);
+                ok = ok && lt == kFull;
+                const uint32_t q = x[t] & lt;
+                f = f << 8 | (q << 6 & 0xc0u) | (q >> 4 & 0x30u) |
+                    (q >> 14 & 0x0cu) | (q >> 24 & 0x03u);
+            }
+        }
+    } else {
+        for (int j = 0; j < al; ++j) {
+            const unsigned c = anc[j];
+            ok = ok && c < 4;
+            f = f << 2 | (c < 4 ? c : 0u);
         }
     }
-};
+    clean = ok;
+    return f;
+}
+
+// The reverse complement's number: the digits complemented, in reverse
+// order.
+__device__ __forceinline__ unsigned long long reverse_complement(
+    unsigned long long f, int al) {
+    const unsigned long long all =
+        al == 32 ? ~0ull : (1ull << (2 * al)) - 1ull;
+    constexpr unsigned long long kEven = 0x5555555555555555ull;
+    unsigned long long r = __brevll(~f & all);
+    r = (r >> 1 & kEven) | (r & kEven) << 1;  // each digit's bits back
+    return r >> (64 - 2 * al);
+}
+
+// x over the four lanes of an anchor, summed or least.
+template <typename T>
+__device__ __forceinline__ T anchor_sum(T x) {
+    x += __shfl_xor_sync(kFull, x, 1);
+    return x + __shfl_xor_sync(kFull, x, 2);
+}
+
+__device__ __forceinline__ uint32_t anchor_min(uint32_t x) {
+    x = min(x, __shfl_xor_sync(kFull, x, 1));
+    return min(x, __shfl_xor_sync(kFull, x, 2));
+}
 
 __global__ void __launch_bounds__(kThreads)
 exact_kernel(const __grid_constant__ ExactArgs a) {
-    const int i = blockIdx.x * kThreads + threadIdx.x;
-    if (i >= a.n) return;
-    const int al = a.anchor_len, pk = a.prefix_len, sk = al - pk;
-    const uint8_t* anc = a.anchors + (size_t)i * al;
+    const int lane = threadIdx.x & 31;
+    const int warp = (blockIdx.x * kThreads + threadIdx.x) >> 5;
+    if (warp * kAnchorsPerWarp >= a.n) return;  // whole warps leave
+    // Lanes past the last anchor compute it again and write nothing:
+    // every lane takes part in the shuffles.
+    const int i_raw = warp * kAnchorsPerWarp + lane / kLanesPerAnchor;
+    const bool real = i_raw < a.n;
+    const int i = real ? i_raw : a.n - 1;
+    const int sub = lane & (kLanesPerAnchor - 1);
+    const int probe = sub >> 1;
+    const bool nbr = sub & 1;
+#ifdef FC2T_DETECT_STAMPS
+    const size_t at = (size_t)warp * kExactStamps;
+#endif
+    ESTAMP(at, 0);
+    const int al = a.anchor_len, sk = al - a.prefix_len;
 
     // _exact_keys: the forward key (p12, s8) and its reverse complement's,
-    // on the codes with those >= 4 zeroed.
-    bool clean = true;
-    unsigned long long p12 = 0, s8 = 0, p12r = 0, s8r = 0;
-    for (int j = 0; j < al; ++j) {
-        const int c = anc[j];
-        clean = clean && c < 4;
-        const unsigned long long q = c < 4 ? (unsigned)c : 0u;
-        if (j < pk)
-            p12 = p12 * 4 + q;
-        else
-            s8 = s8 * 4 + q;
-        // The reverse complement's digit j from the end is 3 - q.
-        if (j >= al - pk) p12r += (3 - q) << (2 * (j - (al - pk)));
-        if (j < sk) s8r += (3 - q) << (2 * j);
-    }
+    // on the codes with those >= 4 zeroed; the lane's probe's salt and
+    // the bucket count fly with the codes.
+    const uint32_t salt = (uint32_t)a.meta[probe];
+    const uint32_t n_buckets = (uint32_t)a.meta[2];
+    bool clean;
+    const unsigned long long f = forward(a.anchors + (size_t)i * al, al,
+                                         clean);
+    const unsigned long long r = reverse_complement(f, al);
+    const unsigned long long low = (1ull << (2 * sk)) - 1ull;
+    const unsigned long long p12 = f >> (2 * sk), s8 = f & low;
+    const unsigned long long p12r = r >> (2 * sk), s8r = r & low;
     const bool swap = p12r < p12 || (p12r == p12 && s8r < s8);
     const unsigned long long cp = swap ? p12r : p12;
     const unsigned long long cs = swap ? s8r : s8;
+    ESTAMP(at + 1, (unsigned)(cp ^ cs) ^ salt ^ n_buckets);
 
-    // Both probes' buckets, then all four rows in flight at once.
-    const uint32_t n_buckets = (uint32_t)a.meta[2];
-    uint32_t h[2];
+    // The lane's row: its probe's bucket in its table.
+    const uint32_t h = mix_hash((uint32_t)cp, (uint32_t)cs, salt) % n_buckets;
+    const bool in = (long long)h < a.rows;
+    const int4* row = reinterpret_cast<const int4*>(nbr ? a.ntable : a.table) +
+                      (size_t)h * kSlots;
+    const int4 empty = nbr ? make_int4(0, 0, 0, 0) : make_int4(-1, 0, 0, 0);
+    int4 g[kSlots];
 #pragma unroll
-    for (int t = 0; t < 2; ++t)
-        h[t] = mix_hash((uint32_t)cp, (uint32_t)cs, (uint32_t)a.meta[t]) %
-               n_buckets;
-    int4 g[2][2], nb[2][2];
+    for (int u = 0; u < kSlots; ++u) g[u] = in ? __ldg(row + u) : empty;
+#ifdef FC2T_DETECT_STAMPS
+    {
+        unsigned dep = 0;
 #pragma unroll
-    for (int t = 0; t < 2; ++t) {
-        const bool in = (long long)h[t] < a.rows;
-        const int4* tr = reinterpret_cast<const int4*>(a.table) +
-                         (size_t)h[t] * kSlots;
-        const int4* nr = reinterpret_cast<const int4*>(a.ntable) +
-                         (size_t)h[t] * kSlots;
+        for (int u = 0; u < kSlots; ++u)
+            dep ^= g[u].x ^ g[u].y ^ g[u].z ^ g[u].w;
+        ESTAMP(at + 2, dep);
+    }
+#endif
+
+    // exact_partials: the table lane finds the slots that hold the key;
+    // the neighbour-table lane of the same probe takes them by shuffle.
+    // Every lane folds its own row's matching slots, then the anchor's
+    // four lanes combine (counts and sums add, positions take the least).
+    unsigned mine = 0;
 #pragma unroll
-        for (int u = 0; u < kSlots; ++u) {
-            g[t][u] = in ? __ldg(tr + u) : make_int4(-1, 0, 0, 0);
-            nb[t][u] = in ? __ldg(nr + u) : make_int4(0, 0, 0, 0);
+    for (int u = 0; u < kSlots; ++u)
+        mine |= holds(g[u], (long long)cp, (uint32_t)cs) ? 1u << u : 0u;
+    const unsigned other = __shfl_xor_sync(kFull, mine, 1);
+    const unsigned match = nbr ? other : mine;
+    int cnt = 0;  // matches | cnt_f << kCfShift | cnt_r << kCrShift
+    long long s1f = 0, s1r = 0;
+    uint32_t pf = kLargePos, pr = kLargePos, m1f = kLargePos,
+             m1r = kLargePos;
+#pragma unroll
+    for (int u = 0; u < kSlots; ++u) {
+        if (!(match >> u & 1)) continue;
+        const int4 v = g[u];
+        if (!nbr) {
+            const unsigned packed = (unsigned)v.y;
+            cnt += 1 + (int)((packed >> 16) & kCntMask) * (1 << kCfShift) +
+                   (int)((packed >> (16 + kCntBits)) & kCntMask) *
+                       (1 << kCrShift);
+            pf = min(pf, (uint32_t)v.z);
+            pr = min(pr, (uint32_t)v.w);
+        } else {
+            s1f += v.x;
+            m1f = min(m1f, (uint32_t)v.y);
+            s1r += v.z;
+            m1r = min(m1r, (uint32_t)v.w);
         }
     }
-    Partials p;
-    p.add(g[0], nb[0], (long long)cp, (uint32_t)cs);
-    p.add(g[1], nb[1], (long long)cp, (uint32_t)cs);
+    cnt = anchor_sum(cnt);
+    s1f = anchor_sum(s1f);
+    s1r = anchor_sum(s1r);
+    pf = anchor_min(pf);
+    pr = anchor_min(pr);
+    m1f = anchor_min(m1f);
+    m1r = anchor_min(m1r);
+    const bool found = (cnt & ((1 << kCfShift) - 1)) != 0;
+    const long long cf = cnt >> kCfShift & ((1 << (kCrShift - kCfShift)) - 1);
+    const long long cr = cnt >> kCrShift;
 
-    // exact_finish: the guard on the exact counts, the orientation of the
-    // query, the frozen best-hit selection and the MAPQ surrogate.
-    const bool usable = p.found && clean;
-    const long long cf_t = usable && p.cf <= a.max_bucket ? p.cf : 0;
-    const long long cr_t = usable && p.cr <= a.max_bucket ? p.cr : 0;
-    const long long s1f_t = usable ? p.s1f : 0;
-    const long long s1r_t = usable ? p.s1r : 0;
+    // exact_finish, on every lane: the guard on the exact counts, the
+    // orientation of the query, the frozen best-hit selection and the
+    // MAPQ surrogate.
+    const bool usable = found && clean;
+    const long long cf_t = usable && cf <= a.max_bucket ? cf : 0;
+    const long long cr_t = usable && cr <= a.max_bucket ? cr : 0;
+    const long long s1f_t = usable ? s1f : 0;
+    const long long s1r_t = usable ? s1r : 0;
     const long long exact_p = swap ? cr_t : cf_t;
     const long long exact_m = swap ? cf_t : cr_t;
-    const uint32_t posx_p = swap ? p.pr : p.pf, posx_m = swap ? p.pf : p.pr;
+    const uint32_t posx_p = swap ? pr : pf, posx_m = swap ? pf : pr;
     const long long s1_p = swap ? s1r_t : s1f_t;
     const long long s1_m = swap ? s1f_t : s1r_t;
-    const uint32_t mp1_p = swap ? p.m1r : p.m1f, mp1_m = swap ? p.m1f : p.m1r;
+    const uint32_t mp1_p = swap ? m1r : m1f, mp1_m = swap ? m1f : m1r;
     const long long n_exact = exact_p + exact_m;
     const long long total = n_exact + s1_p + s1_m;
     const bool any_exact = n_exact > 0, any_at_all = total > 0;
@@ -186,14 +320,28 @@ exact_kernel(const __grid_constant__ ExactArgs a) {
                           : (m0 == 0 && total > n_exact) ? 1
                                                          : al + 1;
     const int q10 = 10 * (second_mm - m0);
-    a.aligned[i] = m0 <= a.max_anchor_mm;
-    a.pos[i] = (int64_t)pos;
-    a.strand[i] = strand;
-    a.mm[i] = m0;
-    a.n_best[i] = (int32_t)n_best;
-    a.second_mm[i] = second_mm;
-    a.qual[i] = n_best > 1 ? 0 : (q10 < 40 ? q10 : 40);
-    a.resolved[i] = p.found || !clean;
+    ESTAMP(at + 3, pos ^ strand ^ m0 ^ (unsigned)n_best ^ second_mm ^ q10 ^
+                       found ^ clean);
+
+    // The writes, shared by the anchor's lanes so that each store
+    // instruction writes kAnchorsPerWarp neighbouring anchors: a 4-byte
+    // field a lane, then pos, qual, and the two flags.
+    if (real) {
+        int32_t* f32 = sub == 0   ? a.strand
+                       : sub == 1 ? a.mm
+                       : sub == 2 ? a.n_best
+                                  : a.second_mm;
+        f32[i] = sub == 0   ? strand
+                 : sub == 1 ? m0
+                 : sub == 2 ? (int32_t)n_best
+                            : second_mm;
+        if (sub == 0) a.pos[i] = (int64_t)pos;
+        if (sub == 1) a.qual[i] = n_best > 1 ? 0 : (q10 < 40 ? q10 : 40);
+        if (sub >= 2)
+            (sub == 2 ? a.aligned : a.resolved)[i] =
+                sub == 2 ? m0 <= a.max_anchor_mm : found || !clean;
+    }
+    ESTAMP(at + 4, 0);
 }
 
 }  // namespace
@@ -211,9 +359,19 @@ extern "C" int fc2t_exact_stats(const ExactArgs* a) {
     cudaError_t err = cudaGetDevice(&dev);
     if (err != cudaSuccess) return -(int)err;
     if (dev != a->device) return -(int)cudaErrorInvalidDevice;
-    const unsigned blocks = (unsigned)((a->n + kThreads - 1) / kThreads);
+    const unsigned blocks =
+        (unsigned)((a->n + kAnchorsPerBlock - 1) / kAnchorsPerBlock);
     exact_kernel<<<blocks, kThreads, 0,
                    static_cast<cudaStream_t>(a->stream)>>>(*a);
     err = cudaGetLastError();
     return err == cudaSuccess ? 1 : -(int)err;
 }
+
+#ifdef FC2T_DETECT_STAMPS
+// Where the next launches record their stage clocks (null: nowhere).
+extern "C" int fc2t_exact_stamps(void* stamps) {
+    unsigned long long* p = static_cast<unsigned long long*>(stamps);
+    const cudaError_t err = cudaMemcpyToSymbol(fc2t_estamps, &p, sizeof p);
+    return err == cudaSuccess ? 0 : -(int)err;
+}
+#endif

@@ -710,25 +710,6 @@ CLASSIC_STAGES = ("slot and anchor loads", "key build", "row round trip",
 COMPACT_STAGES = ("flag loads", "scan", "writes")
 
 
-def _stamped(rows: int, stages: int, like: torch.Tensor, launch):
-    """launch(lib) through the measurement build of the kernel library
-    (_build.load_stamped), its stage clocks recorded into int64 [rows,
-    stages + 1] on `like`'s device, which is current: (launch's result,
-    the cycles of each stage, int64 [rows, stages])."""
-    lib = _build.load_stamped()
-    stamps = torch.zeros((rows, stages + 1), dtype=torch.int64,
-                         device=like.device)
-    with torch.cuda.device(like.get_device()):
-        _build.check(-lib.fc2t_classic_stamps(stamps.data_ptr()),
-                     "classic_k1 stamps")
-        try:
-            got = launch(lib)
-            torch.cuda.synchronize()
-        finally:
-            _build.check(-lib.fc2t_classic_stamps(None), "classic_k1 stamps")
-    return got, stamps.diff(dim=1)
-
-
 def classic_stage_cycles(table, meta, anchors, cfg: Config, ext=None,
                          ext_id=None, stats: bool = False, slots=None,
                          hits=None):
@@ -738,10 +719,10 @@ def classic_stage_cycles(table, meta, anchors, cfg: Config, ext=None,
     warp's stages, lane 0's clock64 at the start and where each stage's
     results are first used). One launch, counted on `classic_launches`."""
     n = anchors.shape[0] if slots is None else slots.shape[0]
-    return _stamped(n, len(CLASSIC_STAGES), anchors,
-                    lambda lib: _launch_classic(table, meta, anchors, cfg,
-                                                ext, ext_id, stats, slots,
-                                                hits, lib))
+    return _build.stamped(
+        "fc2t_classic_stamps", n, len(CLASSIC_STAGES), anchors,
+        lambda lib: _launch_classic(table, meta, anchors, cfg, ext, ext_id,
+                                    stats, slots, hits, lib))
 
 
 def compact_stage_cycles(resolved, k: int):
@@ -749,8 +730,29 @@ def compact_stage_cycles(resolved, k: int):
     csrc/classic_k1.cu: ((idx, overflow), int64 [1, len(COMPACT_STAGES)]
     SM clock cycles of the block's stages, thread 0's clock64). One launch,
     counted on `compact_launches`."""
-    return _stamped(1, len(COMPACT_STAGES), resolved,
-                    lambda lib: _launch_compact(resolved, k, lib))
+    return _build.stamped(
+        "fc2t_classic_stamps", 1, len(COMPACT_STAGES), resolved,
+        lambda lib: _launch_compact(resolved, k, lib))
+
+
+# The stages of csrc/exact_stats.cu between its stage clocks
+# (FC2T_DETECT_STAMPS), a warp's, and the anchors a warp takes.
+EXACT_STAGES = ("code loads and key build", "hash and row round trip",
+                "fold and finish", "writes")
+EXACT_ANCHORS_PER_WARP = 8
+
+
+def exact_stage_cycles(table, ntable, meta, anchors, cfg: Config):
+    """exact_anchor_stats on CUDA tensors through the measurement build of
+    csrc/exact_stats.cu: ((hits, resolved), int64 [warps,
+    len(EXACT_STAGES)] SM clock cycles of each warp's stages, its first
+    lane's clock64 at the start and where each stage's results are first
+    used; a warp takes EXACT_ANCHORS_PER_WARP anchors). One launch,
+    counted on `exact_launches`."""
+    warps = -(-anchors.shape[0] // EXACT_ANCHORS_PER_WARP)
+    return _build.stamped(
+        "fc2t_exact_stamps", warps, len(EXACT_STAGES), anchors,
+        lambda lib: _launch_exact((table, ntable, meta, anchors), cfg, lib))
 
 
 def align_anchors_sharded(shards, anchors, cfg: Config) -> AnchorHits:

@@ -8,9 +8,9 @@ both anchor placements, pairing and strand canonicalization, its
 chromosome, K2's best split over two (Lp+2)-wide genome windows, the
 frozen status priority and `multi`, as one int32 row in PACK_FIELDS
 order. On the card that is one hand-written CUDA kernel per batch
-(csrc/detect.cu, one warp per read; its header says why); a CPU tensor
-takes the plain version, `detect_core_packed_ref` (`detect_core`, then
-`_pack`). `detect_core` is also the unpacked entries' core. The
+(csrc/detect.cu, sixteen lanes per read; its header says why); a CPU
+tensor takes the plain version, `detect_core_packed_ref` (`detect_core`,
+then `_pack`). `detect_core` is also the unpacked entries' core. The
 fallback-overflow flag of K1 v4 is a 0-d device bool that the kernel ORs
 into `multi` bit 3, so no host sync is added.
 """
@@ -272,3 +272,25 @@ def _launch(args: tuple, cfg: Config, prefilter: bool,
         _build.check(-got, "detect_core_packed launch")
     launches += got
     return out
+
+
+# The stages of csrc/detect.cu between its stage clocks
+# (FC2T_DETECT_STAMPS), a warp's, and the reads a warp takes.
+STAGES = ("hit-field loads", "read and window loads", "split scan",
+          "finish", "row writes")
+READS_PER_WARP = 2
+
+
+def detect_stage_cycles(words, nbases: int, chrom_offsets, reads, lens, rc,
+                        hits_a, hits_b, overflow, cfg: Config,
+                        prefilter: bool = True):
+    """detect_core_packed on CUDA tensors through the measurement build of
+    csrc/detect.cu: (its rows, int64 [warps, len(STAGES)] SM clock cycles
+    of each warp's stages, its first lane's clock64 at the start and where
+    each stage's results are first used; a warp takes READS_PER_WARP
+    reads). One launch, counted on `launches`."""
+    args = (words, nbases, chrom_offsets, reads, lens, rc, hits_a, hits_b,
+            overflow)
+    warps = -(-reads.shape[0] // READS_PER_WARP)
+    return _build.stamped("fc2t_detect_stamps", warps, len(STAGES), reads,
+                          lambda lib: _launch(args, cfg, prefilter, lib))

@@ -451,20 +451,9 @@ def stage_cycles(args: tuple, cfg: Config, prefilter: bool = True
     0's clock64 at the start, at the barrier that ends each stage and
     before the row). One launch, counted on `launches`."""
     reads = args[3]
-    B = reads.shape[0]
-    lib = _build.load_stamped()
-    stamps = torch.zeros((B, len(STAGES) + 1), dtype=torch.int64,
-                         device=reads.device)
-    with torch.cuda.device(reads.device):
-        _build.check(-lib.fc2t_explore_stamps(stamps.data_ptr()),
-                     "explore_pairs stamps")
-        try:
-            rows = _launch(args, cfg, prefilter, lib)
-            torch.cuda.synchronize()
-        finally:
-            _build.check(-lib.fc2t_explore_stamps(None),
-                         "explore_pairs stamps")
-    return rows, stamps.diff(dim=1)
+    return _build.stamped("fc2t_explore_stamps", reads.shape[0],
+                          len(STAGES), reads,
+                          lambda lib: _launch(args, cfg, prefilter, lib))
 
 
 def resources(cfg: Config, n_chroms: int, device) -> dict:

@@ -25,6 +25,7 @@ case; the tests hold the plain versions against the reference.
 
 from __future__ import annotations
 
+import dataclasses
 from dataclasses import dataclass
 
 import numpy as np
@@ -91,6 +92,40 @@ PINNED_ANCHORS = (
     "its ext row id doubled past the last ext row (read as LARGE_POS)",
     "another such key, its ext row id 1 doubled to 2, inside the ext rows",
 )
+# Anchors appended after the coincident keys' ones: a present 20-mer
+# with an N at the first position, at the last, at the prefix's last
+# and at the suffix's first (dirty: zeroed codes, not clean, resolved).
+DIRTY_AT = ("first", "last", "prefix's last", "suffix's first")
+
+# What each edge row written over the random rows of an edge case pins
+# (detect_case's `n_chroms` > 2), from row len(PINNED) on.
+CHROM_PINNED = (
+    "both anchors on the last chromosome",
+    "anchor A on a chromosome's first base, B on the base before it: "
+    "different chromosomes",
+    "anchor A on the first chromosome's first base, B on the last "
+    "chromosome",
+    "anchor A on the last chromosome's first base, B on the genome's "
+    "last base",
+)
+# The cases beside the default one, each for the kernels' paths that it
+# does not reach: name -> (what it pins, Config changes, detect_case
+# options).
+EDGE_CASES = {
+    "long-rows": ("max_read_len 301, not a multiple of 8 and above 256: "
+                  "the split loop takes several rounds, the rows are off "
+                  "4 bytes, and the last row, of length Lp, ends on the "
+                  "buffer's last byte",
+                  dict(max_read_len=301), dict(last_full=True)),
+    "many-chroms": ("40 chromosomes: anchors on the first and the last, "
+                    "on a chromosome's first base and the base before it "
+                    "(CHROM_PINNED)", {}, dict(n_chroms=40)),
+    "anchor-18": ("anchor_len 18: the probe reads its anchors byte by "
+                  "byte", dict(anchor_len=18), {}),
+    "anchor-16": ("anchor_len 16: the probe reads its anchors as four "
+                  "words", dict(anchor_len=16), {}),
+}
+SMALL_CHROM = 1500
 
 
 @dataclass
@@ -126,14 +161,31 @@ def _hit(a, pos, strand, aligned=True, mm=0, n_best=1):
                 qual=0 if n_best > 1 else min(10 * (second - mm), 40))
 
 
-def detect_case(seed: int, B: int, cfg: Config = Config()) -> DetectCase:
-    """B >= len(PINNED) reads: the pinned rows, then random ones."""
-    if B < len(PINNED):
-        raise ValueError(f"detect_case needs B >= {len(PINNED)}")
+def edge_case(name: str, seed: int, B: int) -> tuple[DetectCase, Config]:
+    """EDGE_CASES[name] at `seed` with B reads, and its Config."""
+    _, changes, opts = EDGE_CASES[name]
+    cfg = dataclasses.replace(Config(), **changes)
+    return detect_case(seed, B, cfg, **opts), cfg
+
+
+def detect_case(seed: int, B: int, cfg: Config = Config(),
+                n_chroms: int = 2, last_full: bool = False) -> DetectCase:
+    """B >= len(PINNED) reads: the pinned rows, then random ones. With
+    n_chroms > 2 the genome has n_chroms - 2 more chromosomes of
+    SMALL_CHROM bases and the rows after PINNED pin CHROM_PINNED; with
+    `last_full` the last row is a junction read of length Lp. Either
+    leaves every other row as it is."""
+    need = (len(PINNED) + (len(CHROM_PINNED) if n_chroms > 2 else 0)
+            + int(last_full))
+    if B < need:
+        raise ValueError(f"detect_case needs B >= {need}")
     rng = np.random.default_rng(seed)
     a, Lp = cfg.anchor_len, cfg.max_read_len
     chroms = [rng.integers(0, 4, CHROM_BASES).astype(np.uint8)
               for _ in range(2)]
+    # The small chromosomes, from a generator of their own.
+    chroms += list(np.random.default_rng([seed, 3]).integers(
+        0, 4, (max(n_chroms - 2, 0), SMALL_CHROM)).astype(np.uint8))
     repeat = rng.integers(0, 4, a).astype(np.uint8)
     for p in rng.choice(CHROM_BASES // 100, REPEAT_COPIES,
                         replace=False) * 100 + 50:
@@ -163,8 +215,9 @@ def detect_case(seed: int, B: int, cfg: Config = Config()) -> DetectCase:
     c0[9000 + a - 100 - 2:9000 + a - 100] = (_A, _C)
     # Row 14: the right piece's first bases repeat after the left piece.
     c0[30000 + 40:30000 + 46] = c0[36000 + a - 60:36000 + a - 54]
-    genome = Genome.from_records([("chrA", chroms[0]), ("chrB", chroms[1])],
-                                 cfg)
+    genome = Genome.from_records(
+        [("chrA", chroms[0]), ("chrB", chroms[1])]
+        + [(f"chr{c}", chroms[c]) for c in range(2, len(chroms))], cfg)
     index = build_index(genome, cfg)
     qt = index.qtable = build_query_table(index, cfg)
     ntable = build_neighbor_table(index, cfg)
@@ -257,6 +310,20 @@ def detect_case(seed: int, B: int, cfg: Config = Config()) -> DetectCase:
         seq[errs] = rng.integers(0, 5, errs.size)
         set_read(b, _revcomp(seq) if rng.random() < 0.5 else seq)
 
+    if last_full:
+        set_read(B - 1, cut(0, 40000, 120, 45000, Lp)[0])
+    if n_chroms > 2:
+        starts = genome.chrom_offsets
+        last = int(starts[-1])
+        seq, pA, _ = cut(0, 6000, 50, 6500, 100)
+        at = len(PINNED)
+        for b, (pa, pb) in enumerate(((last + 100, last + 700),
+                                      (int(starts[5]), int(starts[5]) - 1),
+                                      (int(starts[0]), last + 300),
+                                      (last, nbases - 1)), start=at):
+            set_read(b, seq)
+            pinned_hits[b] = (_hit(a, pa, 0), _hit(a, pb, 0))
+
     # K1 v4 (plain, on the CPU) for every row, then the written-out rows.
     anchors_a, anchors_b = read_anchors(torch.from_numpy(reads),
                                         torch.from_numpy(lens), cfg)
@@ -301,8 +368,14 @@ def detect_case(seed: int, B: int, cfg: Config = Config()) -> DetectCase:
                           np.random.default_rng([seed, 2]),
                           (ext.shape[0] - 1, 1), off)
     pinned += [many[0].copy(), *put]
+    pk = cfg.prefix_len
+    dirty_at = []
+    for j in (0, a - 1, pk - 1, pk):
+        d = codes[g0 + 300:g0 + 300 + a].copy()
+        d[j] = _N
+        dirty_at.append(d)
     anchors = np.concatenate([anchors_a.numpy(), anchors_b.numpy(),
-                              np.stack(pinned + same)])
+                              np.stack(pinned + same + dirty_at)])
     return DetectCase(genome=genome, table=table, ntable=ntable,
                       meta=np.asarray(qt.meta[:3], np.int32), ext=ext,
                       ext_id=ext_id, reads=reads, lens=lens,

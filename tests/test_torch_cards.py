@@ -125,7 +125,9 @@ def test_detect_kernels_match_plain_on_card(case, cuda_device):
     the prefilter on and off and each overflow flag, the probe on the
     case's anchors (positions past 2^31 too), detect_batch_packed_fast
     with and without an overflowing fallback slice against the CPU, and
-    the sharded engine's rows against the CPU's."""
+    the sharded engine's rows against the CPU's; then both kernels on
+    each of detect_cases.EDGE_CASES (reads up to 301 bases in rows off 4
+    bytes, 40 chromosomes, anchors of 18 and 16 bases)."""
     for prefilter in (True, False):
         for overflow in (None, False, True):
             args = detect_cases.core_args(case, cuda_device, overflow)
@@ -155,6 +157,17 @@ def test_detect_kernels_match_plain_on_card(case, cuda_device):
     for got, want in zip(_sharded_rows(case, cuda_device),
                          _sharded_rows(case, "cpu")):
         assert torch.equal(got.cpu(), want)
+    for name in detect_cases.EDGE_CASES:
+        edge, cfg = detect_cases.edge_case(name, 2, CASE_ROWS)
+        for prefilter in (True, False):
+            args = detect_cases.core_args(edge, cuda_device, True)
+            got = td.detect_core_packed(*args, cfg, prefilter)
+            torch.cuda.synchronize()
+            assert torch.equal(got, td.detect_core_packed_ref(*args, cfg,
+                                                              prefilter))
+        args = detect_cases.exact_args(edge, cuda_device)
+        assert _same_hits(ta.exact_anchor_stats(*args, cfg),
+                          ta.exact_anchor_stats_ref(*args, cfg))
 
 
 @pytest.mark.cuda
@@ -243,6 +256,31 @@ def test_stamped_classic_kernels_match_plain_on_card(case, cuda_device):
         hits=ta.AnchorHits(*(f.clone() for f in hits)))
     assert none is None and all(torch.equal(a, b) for a, b in zip(got, want))
     assert cyc.shape == (k, len(ta.CLASSIC_STAGES)) and (cyc >= 0).all()
+
+
+@pytest.mark.cuda
+def test_stamped_detect_kernels_match_plain_on_card(case, cuda_device):
+    """The measurement build of csrc/detect.cu and csrc/exact_stats.cu
+    computes what the plain versions do (the core with the prefilter on
+    and off, the probe with positions past 2^31 too), and its stage
+    cycles come back one row a warp, none negative, each row's sum
+    positive."""
+    for prefilter in (True, False):
+        args = detect_cases.core_args(case, cuda_device, True)
+        rows, cyc = td.detect_stage_cycles(*args, CFG, prefilter)
+        assert torch.equal(rows, td.detect_core_packed_ref(*args, CFG,
+                                                           prefilter))
+        assert cyc.shape == (-(-CASE_ROWS // td.READS_PER_WARP),
+                             len(td.STAGES))
+        assert (cyc >= 0).all() and (cyc.sum(1) > 0).all()
+    for shift in (0, 3_000_000_000):
+        args = detect_cases.exact_args(case, cuda_device, shift)
+        got, cyc = ta.exact_stage_cycles(*args, CFG)
+        assert _same_hits(got, ta.exact_anchor_stats_ref(*args, CFG))
+        n = args[3].shape[0]
+        assert cyc.shape == (-(-n // ta.EXACT_ANCHORS_PER_WARP),
+                             len(ta.EXACT_STAGES))
+        assert (cyc >= 0).all() and (cyc.sum(1) > 0).all()
 
 
 @pytest.mark.cuda

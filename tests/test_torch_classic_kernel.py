@@ -72,7 +72,8 @@ def _same(got, want):
 
 def test_pin_names_follow_pinned_anchors(case):
     """PIN names detect_cases.PINNED_ANCHORS in order, and the case's
-    anchors hold them after the reads' anchors."""
+    anchors hold them after the reads' anchors, then the coincident
+    keys' and DIRTY_AT's."""
     pins = detect_cases.PINNED_ANCHORS
     assert len(PIN) == len(pins)
     for name, words in (("repeat", "max_bucket"), ("many", "HIT_COPIES"),
@@ -80,7 +81,8 @@ def test_pin_names_follow_pinned_anchors(case):
                         ("all_n", "all N")):
         assert words in pins[PIN[name] - 2 * CASE_ROWS]
     assert (case.anchors[PIN["all_n"]] == 4).all()
-    assert case.anchors.shape[0] == PIN["inside"] + 1 + case.coincident - 2
+    assert case.anchors.shape[0] == (PIN["inside"] + 1 + case.coincident - 2
+                                     + len(detect_cases.DIRTY_AT))
 
 
 @pytest.mark.parametrize("extras", [False, True])

@@ -43,6 +43,17 @@ def case():
     return detect_cases.detect_case(2, CASE_ROWS, CFG)
 
 
+_EDGES = {}
+
+
+def _edge(name):
+    """detect_cases.edge_case(name) at this file's seed and size, and its
+    Config, built once."""
+    if name not in _EDGES:
+        _EDGES[name] = detect_cases.edge_case(name, 2, CASE_ROWS)
+    return _EDGES[name]
+
+
 def _jax_hits(fields):
     return ja.AnchorHits(*(jnp.asarray(fields[f].astype(np.uint32))
                            if f == "pos" else jnp.asarray(fields[f])
@@ -64,33 +75,52 @@ def _jax_core(gpacked, nbases, chrom_offsets, reads, lens, rc, hits_a,
     return jnp.stack(cols, axis=1)
 
 
-def _jax_case_rows(case, prefilter, overflow):
+def _jax_case_rows(case, prefilter, overflow, cfg=CFG):
     g = case.genome
     return np.asarray(_jax_core(
         jnp.asarray(pack_nibbles(g.codes)), len(g),
         jnp.asarray(g.chrom_offsets.astype(np.uint32)),
         jnp.asarray(case.reads), jnp.asarray(case.lens),
         jnp.asarray(case.rc), _jax_hits(case.hits[0]),
-        _jax_hits(case.hits[1]), jnp.asarray(overflow), cfg=CFG,
+        _jax_hits(case.hits[1]), jnp.asarray(overflow), cfg=cfg,
         prefilter=prefilter))
 
 
-@pytest.mark.parametrize("prefilter,overflow", [(True, False), (False, True)])
+@pytest.mark.parametrize(
+    "prefilter,overflow,edge",
+    [(True, False, None), (False, True, None),
+     (True, False, "long-rows"), (False, True, "long-rows"),
+     (True, False, "many-chroms")],
+    ids=["True-False", "False-True", "long-rows-True-False",
+         "long-rows-False-True", "many-chroms-True-False"])
 def test_detect_core_plain_matches_jax_on_edge_cases(case, prefilter,
-                                                     overflow):
+                                                     overflow, edge):
     """detect_core_packed's plain version equals the reference's core on
     the detect_cases batch, every column of every row: the pinned rows
     (padding, unaligned anchors at 2^32 - 1, starts that wrap below 0,
     planted GT..AG and CT..AC sites, N, sense from align_strand 2, every
     status, positions next to 2^32, ties in score, windows clamped at the
-    genome's end) and the random ones."""
-    got = td.detect_core_packed(*detect_cases.core_args(case, "cpu",
-                                                        overflow),
-                                CFG, prefilter).numpy()
-    want = _jax_case_rows(case, prefilter, overflow)
+    genome's end) and the random ones; and on the edge cases of the
+    kernel's paths (detect_cases.EDGE_CASES): reads of up to 301 bases
+    in rows off 4 bytes, the last of length Lp; 40 chromosomes with
+    anchors on the first, the last and either side of a boundary."""
+    c, cfg = (case, CFG) if edge is None else _edge(edge)
+    got = td.detect_core_packed(*detect_cases.core_args(c, "cpu", overflow),
+                                cfg, prefilter).numpy()
+    want = _jax_case_rows(c, prefilter, overflow, cfg)
     assert got.dtype == np.int32 and got.shape == (CASE_ROWS, 14)
     assert np.array_equal(got, want)
     assert ((got[:, 12] >> 3) == int(overflow)).all()
+    if edge == "long-rows":
+        assert c.reads.shape[1] == 301 and c.lens[-1] == 301
+        assert (c.lens > 8 * 16 * 2).any()
+    if edge == "many-chroms":
+        n = len(c.genome.chrom_names)
+        at = len(detect_cases.PINNED)
+        chrom, st = got[at:at + 4, 2], got[at:at + 4, 0]
+        assert n > 32 and chrom.tolist() == [n - 1, 5, 0, n - 1]
+        assert st[1] == jconfig.ST_DIFF_CHROM == st[2]
+        assert st[0] != jconfig.ST_DIFF_CHROM != st[3]
 
 
 def test_pinned_rows_pin_what_they_say(case):
@@ -126,21 +156,27 @@ def test_pinned_rows_pin_what_they_say(case):
                                 jconfig.ST_UNALIGNED_B}
 
 
-@pytest.mark.parametrize("shift", [0, 3_000_000_000])
-def test_exact_stats_plain_matches_jax_on_edge_cases(case, shift):
+@pytest.mark.parametrize("shift,edge",
+                         [(0, None), (3_000_000_000, None),
+                          (0, "anchor-18"), (0, "anchor-16")],
+                         ids=["0", "3000000000", "anchor-18", "anchor-16"])
+def test_exact_stats_plain_matches_jax_on_edge_cases(case, shift, edge):
     """exact_anchor_stats' plain version equals the reference on the case's
     anchors, every field and `resolved`: the reads' anchors, the pinned
     ones (dirty and found, dirty and absent, the guarded repeat, a swapped
-    key, one substitution off, random, all N) and keys whose two buckets
-    coincide (counted twice, as the reference does); with positions past
-    2^31 too."""
-    args = detect_cases.exact_args(case, "cpu", shift)
-    hits, resolved = ta.exact_anchor_stats(*args, CFG)
+    key, one substitution off, random, all N), keys whose two buckets
+    coincide (counted twice, as the reference does) and an N at the
+    first, the last and either side of the prefix's end; with positions
+    past 2^31 too; and with anchors of 18 and 16 bases (the kernel reads
+    those byte by byte and as four words)."""
+    c, cfg = (case, CFG) if edge is None else _edge(edge)
+    args = detect_cases.exact_args(c, "cpu", shift)
+    hits, resolved = ta.exact_anchor_stats(*args, cfg)
     table, ntable, meta, anchors = (a.numpy() for a in args)
     want, want_res = ja.exact_anchor_stats(jnp.asarray(table),
                                            jnp.asarray(ntable),
                                            jnp.asarray(meta),
-                                           jnp.asarray(anchors), CFG)
+                                           jnp.asarray(anchors), cfg)
     for f in ja.AnchorHits._fields:
         assert np.array_equal(getattr(hits, f).numpy().astype(np.int64),
                               np.asarray(getattr(want, f)).astype(np.int64)), f
@@ -153,7 +189,11 @@ def test_exact_stats_plain_matches_jax_on_edge_cases(case, shift):
     assert res[n + 3] and hits.mm[n + 3].item() == 0
     assert hits.strand[n + 3].item() == 1
     assert not res[n + 4] and not res[n + 5]
-    assert case.coincident >= 1
+    assert c.coincident >= 1
+    dirty = slice(-len(detect_cases.DIRTY_AT), None)
+    assert anchors.shape[1] == cfg.anchor_len
+    assert res[dirty].all() and (hits.n_best.numpy()[dirty] == 0).all()
+    assert (anchors[dirty] >= 4).sum(1).tolist() == [1] * 4
     if shift:
         aligned = hits.aligned.numpy() & (hits.mm.numpy() == 0)
         assert (hits.pos.numpy()[aligned] >= shift).all() and aligned.any()
@@ -314,6 +354,81 @@ def test_exact_c_call_runs_on_the_tensors_device(case, monkeypatch):
     assert seen == [(2, 2)] and _Device.current == [0]
 
 
+class _StampedLib:
+    """A stand-in for the measurement build: records each C call (the
+    stamps' pointer, or the launch's unpacked arguments) with the current
+    device."""
+
+    def __init__(self):
+        self.seen = []
+
+    def fc2t_detect(self, buf):
+        self.seen.append(("detect", _Device.current[0],
+                          _build.DETECT_ARGS.unpack(buf)))
+        return 1
+
+    def fc2t_exact_stats(self, buf):
+        self.seen.append(("exact", _Device.current[0],
+                          _build.EXACT_ARGS.unpack(buf)))
+        return 1
+
+    def fc2t_detect_stamps(self, ptr):
+        self.seen.append(("detect_stamps", _Device.current[0], ptr))
+        return 0
+
+    def fc2t_exact_stamps(self, ptr):
+        self.seen.append(("exact_stamps", _Device.current[0], ptr))
+        return 0
+
+
+def test_stage_cycles_reach_the_stamped_c_calls(case, monkeypatch):
+    """detect_stage_cycles and exact_stage_cycles each make one C call into
+    the (stubbed) measurement build, with the tensors' device current,
+    between pointing their kernel's stamps at a zeroed int64 buffer of one
+    row a warp (READS_PER_WARP reads, EXACT_ANCHORS_PER_WARP anchors),
+    len(stages) + 1 clocks a row, and pointing them nowhere; each counts
+    one launch and returns the launch's outputs and the clocks' diffs."""
+    lib = _StampedLib()
+    _stub_cuda(monkeypatch)
+    monkeypatch.setattr(_build, "load_stamped", lambda: lib)
+    monkeypatch.setattr(torch.cuda, "synchronize", lambda *a: None)
+    monkeypatch.setattr(td, "_check", lambda *a: [None] * 16)
+    monkeypatch.setattr(ta, "_check_exact", lambda *a: None)
+    made = []
+    zeros = torch.zeros
+
+    def spy_zeros(*a, **kw):
+        made.append(zeros(*a, **kw))
+        return made[-1]
+
+    monkeypatch.setattr(torch, "zeros", spy_zeros)
+    core = detect_cases.core_args(case, "cpu", False)
+    exact = detect_cases.exact_args(case)
+    n = exact[3].shape[0]
+    before = (td.launches, ta.exact_launches)
+    rows, cyc = td.detect_stage_cycles(*core, CFG, True)
+    warps = -(-CASE_ROWS // td.READS_PER_WARP)
+    assert rows.shape == (CASE_ROWS, 14)
+    assert cyc.shape == (warps, len(td.STAGES))
+    (hits, resolved), ecyc = ta.exact_stage_cycles(*exact, CFG)
+    ewarps = -(-n // ta.EXACT_ANCHORS_PER_WARP)
+    assert resolved.shape == (n,) and hits.pos.shape == (n,)
+    assert ecyc.shape == (ewarps, len(ta.EXACT_STAGES))
+    assert (td.launches, ta.exact_launches) == (before[0] + 1,
+                                                before[1] + 1)
+    bufs = [t for t in made if t.dtype == torch.int64 and t.dim() == 2]
+    assert [tuple(t.shape) for t in bufs] == [
+        (warps, len(td.STAGES) + 1), (ewarps, len(ta.EXACT_STAGES) + 1)]
+    assert [(e[0], e[1]) for e in lib.seen] == [
+        ("detect_stamps", 2), ("detect", 2), ("detect_stamps", 2),
+        ("exact_stamps", 2), ("exact", 2), ("exact_stamps", 2)]
+    assert [e[2] for e in lib.seen if e[0].endswith("stamps")] == [
+        bufs[0].data_ptr(), None, bufs[1].data_ptr(), None]
+    assert lib.seen[1][2][-8] == CASE_ROWS                  # B
+    assert lib.seen[4][2][-6] == n                          # n
+    assert _Device.current == [0]
+
+
 def _constants(name):
     src = open(os.path.join(CSRC, name)).read()
     return src, {k: int(v, 0) for k, v in re.findall(
@@ -358,6 +473,19 @@ def test_kernel_constants_match_config():
     assert {k: got[k] for k in want} == want
     assert '#include "cuckoo.cuh"' in src and "mix_hash(uint32_t" not in src
     assert "sizeof(ExactArgs) == %d" % _build.EXACT_ARGS.size in src
+    # The measurement build's clocks: one more a warp than stages, and
+    # the anchors or reads a warp takes.
+    assert got["kExactStamps"] == len(ta.EXACT_STAGES) + 1
+    assert got["kAnchorsPerWarp"] == ta.EXACT_ANCHORS_PER_WARP
+    src, got = _constants("detect.cu")
+    assert got["kDetectStamps"] == len(td.STAGES) + 1
+    assert got["kReadsPerWarp"] == td.READS_PER_WARP
+    assert "-DFC2T_DETECT_STAMPS" in _build.STAMP_FLAGS
+    assert "fc2t_detect_stamps" in _build.STAMP_ENTRIES
+    assert "fc2t_exact_stamps" in _build.STAMP_ENTRIES
+    for name in ("detect.cu", "exact_stats.cu"):
+        assert "#ifdef FC2T_DETECT_STAMPS" in open(os.path.join(
+            CSRC, name)).read()
 
 
 def test_library_hash_covers_headers(tmp_path, monkeypatch):
