@@ -18,6 +18,12 @@ Phases, each fatal on failure:
      `detect_cases` batch and its pinned anchors, and detect's two
      kernels on each of `detect_cases.EDGE_CASES` (reads up to 301 bases
      in rows off 4 bytes, 40 chromosomes, anchors of 18 and 16 bases);
+     the sharded K1's kernels (the partials modes of the probe and the
+     enumeration, `exact_records` and `classic_records`, and the
+     cross-shard finish `shard_finish`) and the sharded forms over 1, 2, 4
+     and 8 index shards of that batch's genome; K-h's kernel
+     (`merge_junctions`, `merge_tables`) on every `merge_cases` case at
+     MERGE_SIZES rows, past its one-block limit too;
   4. the port's `find_circ` CLI on test_data/ must reproduce the golden
      BED and stats byte for byte;
   5. the main path at real size: `run --filter` on the 16 Mbp RNase-R
@@ -66,14 +72,21 @@ Phases, each fatal on failure:
      index shards, all four slots on cuda:0) over phase 5's index streams
      phase 5's FASTQ through `run_fastq` and must give phase 6's BED and
      stats byte for byte, the filter stack's precision and recall, §2b on
-     the host twin, the row-gather kernels launched on every shard and
-     K1's single-table kernels never (the shards keep the plain K1);
-     `detect_merged` equals the single device's detect and merge on every
-     batch, and the engine's packed rows equal those of the plain detect
-     core; K-h, the plain `merge_junctions` and `merge_tables`, is timed
-     on one batch (as called, busy, bytes bound); `find_circ --mesh 2x2`
-     and `--nproc 2` (two processes over gloo on the one card) reproduce
-     the golden bytes.
+     the host twin, and exactly the launches its batches imply (per data
+     row and batch one probe's records a shard, a finish, the
+     compaction, one slice's records a shard, a finish and the core; the
+     row gather, explore and K1's single-table kernels never); the stream
+     again with the plain versions and with the kernels (equal BED, wall
+     and device_dispatch); on every batch the engine's packed rows and
+     `detect_merged` (all rows) with the kernels equal the plain
+     versions, `detect_merged` equals the single device's detect and
+     merge, and the merge kernel launches once a data row and once for
+     their tables; the first batch forced through the redo; one batch's
+     device activities by label, kernels against plain; each new
+     kernel timed at the engine's shapes (as called, device alone, the
+     plain version's busy time, bound), K-h at B / 2, B and 4 B rows;
+     `find_circ --mesh 2x2` and `--nproc 2` (two processes over gloo on
+     the one card) reproduce the golden bytes.
 
 A torch.profiler profile that holds no device activity is taken again,
 up to PROFILE_TRIES times; after that its figures come from CUDA events
@@ -136,6 +149,19 @@ EXACT_OPS_PER_ANCHOR = 220
 # source.
 CLASSIC_OPS_PER_VARIANT = 150
 COMPACT_OPS_PER_ANCHOR = 30
+# The int32 operations of csrc/shard_k1.cu's combine, a record of one
+# shard, and of its finish, an anchor; and of csrc/merge.cu, one key
+# comparison of the sort (a comparison sort needs N log2 N of them) and
+# one row's combine (its loads, head, scan, shuffles and atomics),
+# counted from the sources.
+FINISH_OPS_PER_RECORD = 12
+FINISH_OPS_PER_ANCHOR = 60
+MERGE_OPS_PER_COMPARE = 8
+MERGE_OPS_PER_ROW = 120
+# K-h's row counts held against the plain merge in phase 3: one row, a
+# ragged few, a 2x2 engine's data row (B / 2) and two rows' tables (B),
+# csrc/merge.cu's one-block limit and past it (the sort across blocks).
+MERGE_SIZES = (1, 97, 2048, 4096, 8192, 8193, 20000)
 # The detect_cases batch (seed, rows) and each edge case's rows
 # (detect_cases.EDGE_CASES), the fallback slice of the forced
 # classic redo, and the anchor sets drawn from the genome for the probe's
@@ -267,12 +293,13 @@ def check_gather_rows(device, card: str) -> dict:
     """gather_rows and gather_rows_multi against their plain versions,
     exactly, at every call shape they had on the main path, on tables
     larger than the 50 MB L2: [2^24, 8] (two of them: table and neighbour
-    table), [2^24, 2] (ext_id) and [2^21, 30] (ext). On one table K1's
-    kernels fetch their own rows; the sharded engine's shards keep the
-    plain K1, which gathers, per detect batch and shard, both tables'
-    rows at 2 probes x 2B anchors (multi, W = 8 and 8: the exact
-    statistics) and the table's rows at 2 probes x min(slots, 2B) anchors
-    x V variants (one table, gather_rows: the fallback slice). Also
+    table), [2^24, 2] (ext_id) and [2^21, 30] (ext). K1's kernels fetch
+    their own rows, on one table and on the sharded engine's shards, so
+    the row gather runs only under K1's plain versions, which gather, per
+    detect batch and shard, both tables' rows at 2 probes x 2B anchors
+    (multi, W = 8 and 8: the exact statistics) and the table's rows at 2
+    probes x min(slots, 2B) anchors x V variants (one table, gather_rows:
+    the fallback slice). Also
     timed, outside the sums: the old explore chunk's calls (table and
     ext_id rows at 2 x 1024 x V, multi, W = 8 and 2; ext rows at 1024 x
     V), the single-table W = 8 and W = 2 calls at the old design's
@@ -463,20 +490,27 @@ def _flat(x) -> list:
     return [x]
 
 
+def hold_plain(fn, plain, what: str, out: dict, key: str,
+               name: str = "a kernel") -> None:
+    """fn() against fn() inside the `plain` context manager, on the same
+    CUDA tensors: every element of every output (out[key] the largest
+    difference)."""
+    import torch
+    got = fn()
+    with plain():
+        want = fn()
+    torch.cuda.synchronize()
+    out[key] = max(out.get(key, 0), _max_err(zip(_flat(got), _flat(want))))
+    if not _equal_all(got, want):
+        fail(f"{name} differs from its plain version on {what}")
+
+
 def hold_classic(fn, what: str, out: dict) -> None:
     """fn() with the enumeration and compaction kernels against fn()
     under plain_classic, on the same CUDA tensors: every element of every
     output."""
-    import torch
-    got = fn()
-    with plain_classic():
-        want = fn()
-    torch.cuda.synchronize()
-    out["classic_err"] = max(out.get("classic_err", 0),
-                             _max_err(zip(_flat(got), _flat(want))))
-    if not _equal_all(got, want):
-        fail(f"K1's enumeration or fallback slice differs from its plain "
-             f"version on {what}")
+    hold_plain(fn, plain_classic, what, out, "classic_err",
+               "K1's enumeration or fallback slice")
 
 
 def check_classic_cases(device, card: str) -> dict:
@@ -523,6 +557,121 @@ def check_classic_cases(device, card: str) -> dict:
         f"their plain versions on the {n} detect_cases anchors (pinned: "
         f"more than K hits, a guarded slot, {case.coincident} keys whose "
         f"buckets coincide, ext row ids doubled past and inside the rows), "
+        f"exactly, on {card}")
+    return out
+
+
+def check_shard_cases(device, card: str) -> dict:
+    """The sharded K1's kernels against their plain versions on a
+    detect_cases batch's anchors (PINNED_ANCHORS and DIRTY_AT among them),
+    over 1, 2, 4 and 8 index shards of the case's genome on the card:
+    each shard's records (exact_records; classic_records, full and in
+    slot mode), the finish of the stacked records (shard_finish: exact;
+    classic, full and written at slots in place), and the sharded forms
+    (the exact-first pair at REDO_SLOTS slots, where it overflows, and at
+    exact_fallback_slots; the classic pair). Returns the largest
+    difference (0)."""
+    import dataclasses
+    import torch
+    from find_circ2_tpu_torch.config import Config
+    from find_circ2_tpu_torch.ops import anchor_align as ta
+    from find_circ2_tpu_torch.utils import detect_cases
+    cfg = Config()
+    case = detect_cases.detect_case(DETECT_CASE_SEED, DETECT_CASE_ROWS, cfg)
+    anchors = torch.from_numpy(case.anchors).to(device)
+    n = anchors.shape[0]
+    half = n // 2
+    slot = torch.arange(n - 1, -1, -3, device=device)
+    out = {}
+    for S, tables in detect_cases.shard_tables(
+            case, detect_cases.SHARD_COUNTS, cfg).items():
+        sh = detect_cases.shard_args(*tables, [device] * S)
+        classic = [(t, m) for t, _, m in sh]
+        what = f"the detect_cases anchors over {S} index shards"
+
+        def records():
+            return (torch.stack([ta.exact_records(*x, anchors, cfg)
+                                 for x in sh]),
+                    torch.stack([ta.classic_records(t, m, anchors, cfg)
+                                 for t, m in classic]),
+                    torch.stack([ta.classic_records(t, m, anchors, cfg, slot)
+                                 for t, m in classic]))
+
+        hold_plain(records, plain_shard, f"{what} (records)", out,
+                   "shard_err")
+        exact, full, sliced = records()
+
+        def finish():
+            hits, resolved = ta.shard_finish(exact, anchors, cfg)
+            fresh = ta.AnchorHits(*(x.clone() for x in hits))
+            return (hits, resolved, ta.shard_finish(full, None, cfg),
+                    ta.shard_finish(sliced, None, cfg, slot, fresh))
+
+        hold_plain(finish, plain_shard, f"{what} (finish)", out, "shard_err")
+        flags = []
+        for k in (REDO_SLOTS, cfg.exact_fallback_slots):
+            c = dataclasses.replace(cfg, exact_fallback_slots=k)
+            hold_plain(lambda: ta.align_anchor_pair_fast_sharded(
+                sh, anchors[:half], anchors[half:2 * half], c),
+                _plain_k1, f"{what} (the exact-first pair, {k} slots)",
+                out, "shard_err")
+            flags.append(bool(ta.align_anchor_pair_fast_sharded(
+                sh, anchors[:half], anchors[half:2 * half], c)[2]))
+        hold_plain(lambda: ta.align_anchor_pair_sharded(
+            classic, anchors[:half], anchors[half:2 * half], cfg),
+            _plain_k1, f"{what} (the classic pair)", out, "shard_err")
+        if flags != [True, False]:
+            fail(f"the sharded fallback slice's overflow flags {flags} at "
+                 f"{REDO_SLOTS} and {cfg.exact_fallback_slots} slots")
+    log(f"the sharded K1's kernels (exact_records, classic_records full "
+        f"and in slot mode, shard_finish exact, classic and at slots) and "
+        f"the sharded forms (the exact-first pair at {REDO_SLOTS} slots, "
+        f"overflowing, and at {cfg.exact_fallback_slots}; the classic "
+        f"pair) equal their plain versions on the {n} detect_cases anchors "
+        f"over {', '.join(map(str, detect_cases.SHARD_COUNTS))} index "
+        f"shards, exactly, on {card}")
+    return out
+
+
+@contextlib.contextmanager
+def _plain_k1():
+    """The sharded K1's kernels and K1's enumeration and compaction,
+    plain (plain_shard and plain_classic)."""
+    with plain_shard(), plain_classic():
+        yield
+
+
+def check_merge_cases(device, card: str) -> dict:
+    """K-h's kernel (csrc/merge.cu) against the plain merge on every
+    utils/merge_cases case at each of MERGE_SIZES rows: merge_junctions,
+    and merge_tables of two and of three copies of its table, all N rows,
+    fill rows included. Returns the largest difference (0)."""
+    import torch
+    from find_circ2_tpu_torch.config import Config
+    from find_circ2_tpu_torch.ops import merge as tm
+    from find_circ2_tpu_torch.utils.merge_cases import CASES, merge_case
+    cfg = Config()
+    out = {}
+    for n in MERGE_SIZES:
+        for i, name in enumerate(CASES):
+            res, lens = merge_case(name, n, i + n)
+            res = {k: torch.from_numpy(v.astype("int64")
+                                       if v.dtype.kind == "u" else v
+                                       ).to(device) for k, v in res.items()}
+            lens = torch.from_numpy(lens).to(device)
+
+            def merges():
+                one = tm.merge_junctions(res, lens, cfg)
+                return tuple(one[k] for k in tm.ALL_FIELDS) + tuple(
+                    tm.merge_tables({k: torch.stack([v] * K)
+                                     for k, v in one.items()})[f]
+                    for K in (2, 3) for f in tm.ALL_FIELDS)
+
+            hold_plain(merges, plain_merge, f"the {name} merge case at {n} "
+                       "rows", out, "merge_err")
+    log(f"K-h's kernel (merge_junctions, merge_tables of 2 and 3 tables) "
+        f"equals the plain merge on all rows of every merge case "
+        f"({', '.join(CASES)}) at {', '.join(map(str, MERGE_SIZES))} rows, "
         f"exactly, on {card}")
     return out
 
@@ -1018,11 +1167,11 @@ def check_explore(dindex, arr, lens, cfg, card) -> dict:
 def plain_detect():
     """While the block runs, CUDA tensors take the plain versions of all
     of detect's kernels: each wrapper's launch (ops/detect._launch,
-    ops/anchor_align._launch_exact, and K1's enumeration and fallback
-    slice, plain_classic, which explore's K1 takes too) is swapped for its
-    plain version, so the same program runs without those kernels and
-    their counts stay. For the comparisons and the plain timings of this
-    script only."""
+    ops/anchor_align._launch_exact, K1's enumeration and fallback slice,
+    plain_classic, which explore's K1 takes too, and the sharded K1's,
+    plain_shard) is swapped for its plain version, so the same program
+    runs without those kernels and their counts stay. For the
+    comparisons and the plain timings of this script only."""
     from find_circ2_tpu_torch.ops import anchor_align as ta
     from find_circ2_tpu_torch.ops import detect as td
     launch, launch_exact = td._launch, ta._launch_exact
@@ -1031,10 +1180,60 @@ def plain_detect():
     ta._launch_exact = (lambda args, cfg, lib=None:
                         ta.exact_anchor_stats_ref(*args, cfg))
     try:
-        with plain_classic():
+        with plain_classic(), plain_shard():
             yield
     finally:
         td._launch, ta._launch_exact = launch, launch_exact
+
+
+@contextlib.contextmanager
+def plain_shard():
+    """While the block runs, CUDA tensors take the plain versions of the
+    sharded K1's kernels: the partials modes' launches
+    (ops/anchor_align._launch_exact_records, _launch_classic_records) and
+    the cross-shard finish's (_launch_finish) are swapped for
+    exact_records_ref, classic_records_ref and shard_finish_ref, so the
+    sharded forms run without those kernels and their counts stay. For
+    the comparisons and the plain timings of this script only."""
+    from find_circ2_tpu_torch.ops import anchor_align as ta
+    saved = (ta._launch_exact_records, ta._launch_classic_records,
+             ta._launch_finish)
+    ta._launch_exact_records = (
+        lambda args, cfg, out=None, lib=None:
+        ta._into(out, ta.exact_records_ref(*args, cfg)))
+    ta._launch_classic_records = (
+        lambda table, meta, anchors, cfg, slots=None, out=None, lib=None:
+        ta._into(out, ta.classic_records_ref(table, meta, anchors, cfg,
+                                             slots)))
+    ta._launch_finish = (
+        lambda records, anchors, cfg, slots=None, hits=None, lib=None:
+        ta.shard_finish_ref(records, anchors, cfg, slots, hits))
+    try:
+        yield
+    finally:
+        (ta._launch_exact_records, ta._launch_classic_records,
+         ta._launch_finish) = saved
+
+
+@contextlib.contextmanager
+def plain_merge():
+    """While the block runs, CUDA tensors take K-h's plain version: the
+    merge wrappers' launch (ops/merge._launch_merge) is swapped for
+    merge_junctions_ref and _sort_combine, and its count stays. For the
+    comparisons and the plain timings of this script only."""
+    from find_circ2_tpu_torch.ops import merge as tm
+    launch = tm._launch_merge
+
+    def merge(src, cfg=None, lib=None):
+        if "valid" in src:
+            return tm._sort_combine(src)
+        return tm.merge_junctions_ref(src, src["lens"], cfg)
+
+    tm._launch_merge = merge
+    try:
+        yield
+    finally:
+        tm._launch_merge = launch
 
 
 @contextlib.contextmanager
@@ -1590,35 +1789,14 @@ def time_classic(d, anchor_sets, arr, lens, cfg, card) -> dict:
     }
     out = {}
     for name, (kernel, plain, sets, bound) in shapes.items():
-        idxs = range(sets)
-        p1, k1 = called_ms(plain, idxs), called_ms(kernel, idxs)
-        k2, p2 = called_ms(kernel, idxs), called_ms(plain, idxs)
-        gp1 = busy_ms(lambda: plain(0))
-        gk1, gk2 = graph_ms(kernel, idxs), graph_ms(kernel, idxs)
-        gp2 = busy_ms(lambda: plain(0))
-        gp, p_src = min(gp1, gp2)
-        bounds = [bound(i) for i in idxs]
-        rec = dict(sets=sets, called_ms=min(k1, k2),
-                   plain_called_ms=min(p1, p2), ms=min(gk1, gk2),
-                   plain_ms=gp,
-                   bytes=sum(b["bytes"] for b in bounds) / sets,
-                   ops=sum(b["ops"] for b in bounds) / sets,
-                   bound_ms=sum(b["bound_ms"] for b in bounds) / sets,
-                   bound_by=bounds[0]["bound_by"])
-        out[name] = rec
+        rec = out[name] = _time_shape(kernel, plain, sets, bound)
+        extra = ""
         if name == "compact":
             rec["library_ms"] = argsort_ms([s[2] for s in slices])
-        log(f"{name} ({'compaction' if name == 'compact' else 'enumeration'}"
-            f" kernel, {sets} input sets): device alone {rec['ms']:.5f} ms "
-            f"(graph) vs plain {rec['plain_ms']:.5f} ms ({p_src} "
-            f"busy); as called {rec['called_ms']:.5f} ms vs plain "
-            f"{rec['plain_called_ms']:.5f} ms; bound {rec['bound_ms']:.5f} "
-            f"ms by {rec['bound_by']} ({rec['bytes']:,.0f} bytes, "
-            f"{rec['ops']:,.0f} int32 operations), "
-            f"{100 * rec['bound_ms'] / rec['ms']:.1f}% of it"
-            + (f"; library call (stable torch.argsort) {rec['library_ms']:.5f}"
-               " ms device alone" if "library_ms" in rec else "")
-            + f"; on {card}")
+            extra = (f"; library call (stable torch.argsort) "
+                     f"{rec['library_ms']:.5f} ms device alone")
+        kind = "compaction" if name == "compact" else "enumeration"
+        _log_shape(f"{name} ({kind} kernel)", rec, card, extra)
     both, hits, resolved, idx = slices[0]
     out["stages"] = classic_stages({
         "fallback": (
@@ -1829,17 +2007,31 @@ def check_sharded(fq, sim, genome, index, dindex, cfg, streams, truth,
     index (its neighbour table is relocated, not rebuilt). `run_fastq`
     with the engine's dispatch and redo must give phase 6's BED and
     stats byte for byte and the filter stack's precision and recall, run
-    §2b on the host twin and launch both row-gather wrappers; its time
-    stands beside phase 6's `explore=False` stream.
+    §2b on the host twin, and launch exactly what its batches imply: a
+    data row's exact-first batch one partials-mode probe a shard
+    (exact_records), one finish (shard_finish), one compaction
+    (fallback_slice), one slot-mode enumeration a shard (classic_records)
+    and one finish, then detect's core; a classic redo one enumeration a
+    shard, one finish and the core; the row gather, explore and the
+    single-table K1 kernels never. The stream runs again with the plain
+    versions (plain_detect) and once more with the kernels: equal BED,
+    wall and device_dispatch seconds of each.
 
-    Then, on every batch of the library, the engine's classic rows
-    (`redo_packed`) against the single device's `detect_batch`, read for
-    read. A read may differ only by the reference's double count
-    (`_coincident_probes` on the full table, not on the shards), and then
-    the engine's row must be the oracle's call. With those reads left
-    out (length 0), `detect_merged` must equal the single device's
-    `merge_junctions` on the valid rows. Returns the launches and
-    numbers."""
+    Then, on every batch of the library, the engine's packed rows
+    (exact-first and classic) with the kernels against the plain
+    versions, and its classic rows against the single device's
+    `detect_batch`, read for read: a read may differ only by the
+    reference's double count (`_coincident_probes` on the full table, not
+    on the shards), and then the engine's row must be the oracle's call.
+    With those reads left out (length 0), `detect_merged` with the
+    kernels equals it with the plain versions (plain_detect, plain_merge)
+    on all N rows and the single device's `merge_junctions` on the valid
+    rows, which equals the plain merge on all N rows. The first stream
+    batch forced through the redo (a fallback slice of REDO_SLOTS), its
+    device activities by label with the kernels and the plain versions,
+    and the new kernels' times (time_shard, merge_times). Returns the
+    launches and numbers."""
+    import dataclasses
     import numpy as np
     import torch
     from find_circ2_tpu_torch.io.bed import passes_filter
@@ -1853,6 +2045,7 @@ def check_sharded(fq, sim, genome, index, dindex, cfg, streams, truth,
     from find_circ2_tpu_torch.ops import detect as td
     from find_circ2_tpu_torch.ops import explore as tx
     from find_circ2_tpu_torch.ops import gather_rows as gr
+    from find_circ2_tpu_torch.ops import merge as tm
     from find_circ2_tpu_torch.ops.merge import merge_junctions
     from find_circ2_tpu_torch.parallel.mesh import make_mesh
     from find_circ2_tpu_torch.parallel.sharded import ShardedEngine
@@ -1874,21 +2067,44 @@ def check_sharded(fq, sim, genome, index, dindex, cfg, streams, truth,
         f"in all on the host; {len(copies)} copies of the index shards for "
         f"four slots, on {card}")
 
-    agg = Aggregator(genome, cfg)
-    times = StageTimes()
-    gr.launches = gr.multi_launches = tx.launches = 0
-    td.launches = ta.exact_launches = 0
-    ta.classic_launches = ta.compact_launches = 0
-    t0 = time.perf_counter()
-    run_fastq(None, fq, agg, cfg, times=times, slowpath=(genome, index),
-              dispatch=eng.dispatch_packed, redo=eng.redo_packed)
-    wall = time.perf_counter() - t0
+    seen = dict(fast=0, classic=0, batches=[])
+
+    def dispatch(arr, lens):
+        seen["fast"] += 1
+        seen["batches"].append((np.array(arr), np.array(lens)))
+        return eng.dispatch_packed(arr, lens)
+
+    def redo(arr, lens):
+        seen["classic"] += 1
+        return eng.redo_packed(arr, lens)
+
+    def stream(watched: bool):
+        agg, times = Aggregator(genome, cfg), StageTimes()
+        t0 = time.perf_counter()
+        run_fastq(None, fq, agg, cfg, times=times, slowpath=(genome, index),
+                  dispatch=dispatch if watched else eng.dispatch_packed,
+                  redo=redo if watched else eng.redo_packed)
+        return agg, times, time.perf_counter() - t0
+
+    counters = ((gr, "launches"), (gr, "multi_launches"), (tx, "launches"),
+                (td, "launches"), (ta, "exact_launches"),
+                (ta, "classic_launches"), (ta, "compact_launches"),
+                (ta, "exact_record_launches"),
+                (ta, "classic_record_launches"), (ta, "finish_launches"),
+                (tm, "launches"))
+    for mod, name in counters:
+        setattr(mod, name, 0)
+    agg, times, wall = stream(True)
     out["launches"] = {"gather_rows": gr.launches,
                        "gather_rows_multi": gr.multi_launches,
                        "detect_core_packed": td.launches,
                        "exact_anchor_stats": ta.exact_launches,
                        "classic_anchor_stats": ta.classic_launches,
-                       "fallback_slice": ta.compact_launches}
+                       "fallback_slice": ta.compact_launches,
+                       "exact_records": ta.exact_record_launches,
+                       "classic_records": ta.classic_record_launches,
+                       "shard_finish": ta.finish_launches,
+                       "merge": tm.launches}
     out["explore_launches"] = tx.launches
     out.update(seconds=wall, reads=times.n_reads,
                peak_bytes=torch.cuda.max_memory_allocated())
@@ -1899,18 +2115,23 @@ def check_sharded(fq, sim, genome, index, dindex, cfg, streams, truth,
         f"s, {host['reads'] / host['seconds']:,.1f} reads/s; peak device "
         f"memory {out['peak_bytes']:,} bytes; on {card}; stages:\n"
         + times.report(wall=wall))
-    log(f"kernel launches on the sharded path: gather_rows "
-        f"{gr.launches}, gather_rows_multi {gr.multi_launches}, "
-        f"detect_core_packed {td.launches}; exact_anchor_stats "
-        f"{ta.exact_launches}, classic_anchor_stats {ta.classic_launches} "
-        f"and fallback_slice {ta.compact_launches} (the shards' plain "
-        f"partials); explore_pairs {tx.launches} (§2b on the host twin)")
-    plain_k1 = ("exact_anchor_stats", "classic_anchor_stats",
-                "fallback_slice")
-    for name, count in out["launches"].items():
-        if (count <= 0) != (name in plain_k1):
-            fail(f"kernel {name} was launched {count} times on the sharded "
-                 "path")
+    rows, shards = eng.n_data, len(eng.rows[0].shards)
+    fast, classic = seen["fast"], seen["classic"]
+    want = {"gather_rows": 0, "gather_rows_multi": 0,
+            "detect_core_packed": (fast + classic) * rows,
+            "exact_anchor_stats": 0, "classic_anchor_stats": 0,
+            "fallback_slice": fast * rows,
+            "exact_records": fast * rows * shards,
+            "classic_records": (fast + classic) * rows * shards,
+            "shard_finish": (2 * fast + classic) * rows, "merge": 0}
+    log(f"kernel launches on the sharded stream ({fast} exact-first "
+        f"batches, {classic} classic redos, {rows} data rows of {shards} "
+        f"index shards): " + ", ".join(
+            f"{k} {v}" for k, v in out["launches"].items())
+        + f"; explore_pairs {tx.launches} (§2b on the host twin)")
+    if out["launches"] != want or tx.launches or not fast:
+        fail(f"the sharded stream's launches {out['launches']} (explore "
+             f"{tx.launches}) are not what its batches imply: {want}")
     ran = set(times.counts)
     if "slowpath_multihit" not in ran or "explore_dispatch" in ran:
         fail(f"the sharded stream ran stages {sorted(ran)}: §2b must run "
@@ -1919,10 +2140,10 @@ def check_sharded(fq, sim, genome, index, dindex, cfg, streams, truth,
     if got != streams["beds"]["device"]:
         fail("the sharded stream's BED or stats differ from the single "
              "device's")
-    rows = [r for r in agg.rows(sample_name="s")
+    kept = [r for r in agg.rows(sample_name="s")
             if passes_filter(r, cfg.max_span, cfg.min_support,
                              cfg.filter_max_edits)]
-    prec, rec = _precision_recall(rows, truth)
+    prec, rec = _precision_recall(kept, truth)
     if (round(prec, 4), round(rec, 4)) != (EXPECT_PRECISION, EXPECT_RECALL):
         fail(f"sharded precision {prec:.4f} / recall {rec:.4f}, the "
              f"reference gives {EXPECT_PRECISION} / {EXPECT_RECALL}")
@@ -1930,11 +2151,36 @@ def check_sharded(fq, sim, genome, index, dindex, cfg, streams, truth,
         f"equal the single device's; filtered precision {prec:.4f}, recall "
         f"{rec:.4f}")
 
-    # Classic rows read for read, then detect_merged against single-device
-    # detect and merge, every batch.
+    # The stream with the plain versions, then with the kernels again.
+    runs = {"kernel": dict(seconds=wall, reads=times.n_reads,
+                           device_dispatch=times.totals.get(
+                               "device_dispatch", 0.0))}
+    for name in ("plain", "kernel"):
+        with plain_detect() if name == "plain" else contextlib.nullcontext():
+            agg_n, times_n, wall_n = stream(False)
+        if _render(agg_n) != got:
+            fail(f"the sharded stream with the {name} versions gives "
+                 "another BED or stats")
+        rec_n = dict(seconds=wall_n, reads=times_n.n_reads,
+                     device_dispatch=times_n.totals.get("device_dispatch",
+                                                        0.0))
+        old = runs.get(name)
+        runs[name] = rec_n if old is None else {k: min(old[k], rec_n[k])
+                                                for k in rec_n}
+    out["streams"] = runs
+    for name, r in runs.items():
+        log(f"sharded run_fastq with the {name} versions: "
+            f"{r['seconds']:.3f} s, {r['reads'] / r['seconds']:,.1f} "
+            f"reads/s, device_dispatch {r['device_dispatch']:.3f} s"
+            f"{' (least of two)' if name == 'kernel' else ''}; equal BED "
+            f"and stats; on {card}")
+
+    # Every batch: packed rows, kernels against plain; classic rows read
+    # for read; detect_merged and the merge, kernels against plain.
     reads = [(n, s) for n, s in sim.reads
              if 2 * cfg.anchor_len <= len(s) <= cfg.max_read_len]
     bs, n_rows, faults = cfg.batch_size, 0, []
+    err, merge_calls = 0, 0
     for lo in range(0, len(reads), bs):
         part = reads[lo:lo + bs]
         arr, lens = encode_batch([s for _, s in part], bs, cfg.max_read_len)
@@ -1947,10 +2193,10 @@ def check_sharded(fq, sim, genome, index, dindex, cfg, streams, truth,
         with plain_detect():
             plain = [eng.dispatch_packed(arr, lens),
                      eng.redo_packed(arr, lens)]
+        err = max(err, _max_err(zip(packed, plain)))
         if not all(torch.equal(a, b) for a, b in zip(packed, plain)):
-            fail(f"the sharded engine's packed rows with detect_core_packed "
-                 f"differ from the plain version's on the batch at read "
-                 f"{lo}")
+            fail(f"the sharded engine's packed rows with the kernels "
+                 f"differ from the plain versions' on the batch at read {lo}")
         many = unpack_results(packed[1].cpu().numpy())
         differ = np.flatnonzero((lens > 0) & np.any(
             [(one[k] != many[k]).reshape(bs, -1).any(axis=1) for k in one],
@@ -1970,9 +2216,25 @@ def check_sharded(fq, sim, genome, index, dindex, cfg, streams, truth,
                        for k in one if np.any(one[k][i] != many[k][i])}))
         lens_kept = np.where(np.isin(np.arange(bs), differ), 0,
                              lens).astype(np.int32)
+        before = tm.launches
         merged = eng.detect_merged(arr, lens_kept)
-        want = merge_junctions(single, torch.from_numpy(lens_kept).to(
-            dindex.device), cfg)
+        merge_calls += tm.launches - before
+        with plain_detect(), plain_merge():
+            merged_plain = eng.detect_merged(arr, lens_kept)
+        kept_t = torch.from_numpy(lens_kept).to(dindex.device)
+        want = merge_junctions(single, kept_t, cfg)
+        with plain_merge():
+            want_plain = merge_junctions(single, kept_t, cfg)
+        for a, b in ((merged, merged_plain), (want, want_plain)):
+            for k in b:
+                x, y = (np.asarray(t.cpu() if isinstance(t, torch.Tensor)
+                                   else t).astype(np.int64)
+                        for t in (a[k], b[k]))
+                err = max(err, int(np.abs(x - y).max(initial=0)))
+                if not np.array_equal(x, y):
+                    fail(f"detect_merged or merge_junctions with the "
+                         f"kernels differs from the plain versions in {k} "
+                         f"on the batch at read {lo}")
         want = {k: v.cpu().numpy() for k, v in want.items()}
         n = int(want["valid"].sum())
         if int(merged["valid"].sum()) != n or not all(
@@ -1982,59 +2244,273 @@ def check_sharded(fq, sim, genome, index, dindex, cfg, streams, truth,
         n_rows += n
     out["merged_batches"] = -(-len(reads) // bs)
     out["probe_faults"] = faults
+    out["merge_launches"] = merge_calls
+    if merge_calls != out["merged_batches"] * (rows + 1):
+        fail(f"detect_merged launched the merge kernel {merge_calls} times "
+             f"in {out['merged_batches']} batches: want one for each of "
+             f"{rows} data rows and one for their tables")
+    log(f"detect_merged with the kernels equals it with the plain versions "
+        f"(all rows) and detect_batch + merge_junctions (valid rows) on all "
+        f"{out['merged_batches']} batches ({n_rows} junction rows; the "
+        f"merge kernel launched {merge_calls} times), merge_junctions with "
+        f"the kernel equals the plain merge on all rows; the engine's "
+        f"packed rows (exact-first and classic) with the kernels equal the "
+        f"plain versions' on every batch; classic rows equal read for read "
+        f"but for {len(faults)} reads {faults}, where the single table "
+        f"counts a key whose two probe buckets coincide twice and the "
+        f"engine gives the oracle's call")
+
+    # The first stream batch forced through the redo.
+    arr0, lens0 = seen["batches"][0]
+    multi = td.PACK_FIELDS.index("multi")
+    eng.cfg = dataclasses.replace(cfg, exact_fallback_slots=REDO_SLOTS)
+    try:
+        forced = [eng.dispatch_packed(arr0, lens0),
+                  eng.redo_packed(arr0, lens0)]
+        with plain_detect():
+            forced_plain = [eng.dispatch_packed(arr0, lens0),
+                            eng.redo_packed(arr0, lens0)]
+    finally:
+        eng.cfg = cfg
+    err = max(err, _max_err(zip(forced, forced_plain)))
+    if (not all(torch.equal(a, b) for a, b in zip(forced, forced_plain))
+            or not bool((forced[0][:, multi] & 8).all())
+            or not torch.equal(forced[1], eng.redo_packed(arr0, lens0))):
+        fail(f"the sharded batch forced through the redo ({REDO_SLOTS} "
+             "slots): the kernels differ from the plain versions, a row "
+             "lacks the overflow flag, or the redo's rows changed")
+    out["shard_err"] = err
+    log(f"the sharded engine's first stream batch with a fallback slice "
+        f"of {REDO_SLOTS}: every row flagged (multi bit 3), the packed rows "
+        f"and the classic redo's with the kernels equal the plain "
+        f"versions'; on {card}")
+
+    # One sharded batch's device activities by label, then the times.
+    split = {}
+    for name in ("plain", "kernel", "kernel", "plain"):
+        with plain_detect() if name == "plain" else contextlib.nullcontext():
+            eng.dispatch_packed(arr0, lens0)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            eng.dispatch_packed(arr0, lens0)
+            enqueue = 1e3 * (time.perf_counter() - t0)
+            torch.cuda.synchronize()
+            got_split = label_split(lambda: eng.dispatch_packed(arr0, lens0),
+                                    DETECT_LABELS)
+        got_split["enqueue_ms"] = enqueue
+        split[name] = got_split
+    out["split"] = split
+    for name, g in split.items():
+        head = (f"one {arr0.shape[0]}-read sharded batch (2x2) with the "
+                f"{name} versions: host enqueue {g['enqueue_ms']:.3f} ms")
+        if g["total"] is None:
+            log(f"{head}; device activities by label not measured "
+                f"(torch.profiler recorded none in {PROFILE_TRIES} tries); "
+                f"on {card}")
+            continue
+        log(f"{head}, {g['total']['activities']} device activities, "
+            f"{g['total']['device_ms']:.3f} device ms; by label "
+            f"(activities / device ms / host ms): " + "; ".join(
+                f"{k} {v['activities']} / {v['device_ms']:.3f} / "
+                f"{v['host_ms']:.3f}" for k, v in g.items()
+                if isinstance(v, dict) and k != "total") + f"; on {card}")
+    out["times"] = time_shard(eng, seen["batches"], cfg, card)
     out["merge"] = merge_times(single, torch.from_numpy(lens_kept).to(
         dindex.device), cfg, card)
-    log(f"detect_merged equals detect_batch + merge_junctions on all "
-        f"{out['merged_batches']} batches ({n_rows} junction rows); the "
-        f"engine's packed rows (exact-first and classic) equal the plain "
-        f"detect core's on every batch; "
-        f"classic rows equal read for read but for {len(faults)} reads "
-        f"{faults}, where the single table counts a key whose two probe "
-        f"buckets coincide twice and the engine gives the oracle's call")
+    return out
+
+
+def _time_shape(kernel, plain, sets: int, bound) -> dict:
+    """One kernel shape beside its plain version, in the order plain,
+    kernel, kernel, plain: as called (CUDA events over the input sets),
+    on the device alone (CUDA-graph replay over the sets), the plain
+    version's busy time (torch.profiler, on set 0; `plain_source` names
+    the instrument), and the mean bound of bound(i) over the sets."""
+    idxs = range(sets)
+    p1, k1 = called_ms(plain, idxs), called_ms(kernel, idxs)
+    k2, p2 = called_ms(kernel, idxs), called_ms(plain, idxs)
+    gp1 = busy_ms(lambda: plain(0))
+    gk1, gk2 = graph_ms(kernel, idxs), graph_ms(kernel, idxs)
+    gp2 = busy_ms(lambda: plain(0))
+    gp, p_src = min(gp1, gp2)
+    bounds = [bound(i) for i in idxs]
+    return dict(sets=sets, called_ms=min(k1, k2),
+                plain_called_ms=min(p1, p2), ms=min(gk1, gk2), plain_ms=gp,
+                plain_source=p_src,
+                bytes=sum(b["bytes"] for b in bounds) / sets,
+                ops=sum(b["ops"] for b in bounds) / sets,
+                bound_ms=sum(b["bound_ms"] for b in bounds) / sets,
+                bound_by=bounds[0]["bound_by"])
+
+
+def _log_shape(name: str, rec: dict, card: str, extra: str = "") -> None:
+    log(f"{name} ({rec['sets']} input sets): device alone {rec['ms']:.5f} "
+        f"ms (graph) vs plain {rec['plain_ms']:.5f} ms "
+        f"({rec['plain_source']} busy); as called {rec['called_ms']:.5f} ms "
+        f"vs plain {rec['plain_called_ms']:.5f} ms; bound "
+        f"{rec['bound_ms']:.6f} ms by {rec['bound_by']} "
+        f"({rec['bytes']:,.0f} bytes, {rec['ops']:,.0f} int32 operations), "
+        f"{100 * rec['bound_ms'] / rec['ms']:.1f}% of it{extra}; on {card}")
+
+
+def records_bound(n: int, cfg, exact: bool, slots: bool = False) -> dict:
+    """The least time the card could take for one shard's records of n
+    anchors (or slots): bytes, each read once (the anchors' codes, the
+    rows they look up: four 32-byte rows an anchor for the probe, two a
+    canonical variant for the enumeration; meta; the slots) and the
+    records written; int32 operations as the single-table kernels'."""
+    from find_circ2_tpu_torch.ops.anchor_align import (CLASSIC_FIELDS,
+                                                       EXACT_FIELDS)
+    a = cfg.anchor_len
+    V = 1 + 3 * a
+    if exact:
+        nbytes, ops = n * (a + 4 * 32 + 4 * EXACT_FIELDS), \
+            EXACT_OPS_PER_ANCHOR * n
+    else:
+        nbytes, ops = n * (a + 2 * V * 32 + 4 * CLASSIC_FIELDS), \
+            CLASSIC_OPS_PER_VARIANT * V * n
+    return _bound(nbytes + 4 * 3 + (8 * n if slots else 0), ops)
+
+
+def finish_bound(shards: int, n: int, fields: int, cfg,
+                 slots: bool = False) -> dict:
+    """The least time the card could take for csrc/shard_k1.cu on n
+    rows: bytes, the records of every shard read once (and, for exact
+    records, the anchors' codes), the hit fields (and `resolved`) and
+    slots; int32 operations FINISH_OPS_PER_RECORD a record and
+    FINISH_OPS_PER_ANCHOR a row."""
+    from find_circ2_tpu_torch.ops.anchor_align import EXACT_FIELDS
+    exact = fields == EXACT_FIELDS
+    nbytes = (4 * shards * n * fields + n * (1 + 8 + 5 * 4)
+              + (n * (cfg.anchor_len + 1) if exact else 0)
+              + (8 * n if slots else 0))
+    return _bound(nbytes, FINISH_OPS_PER_RECORD * shards * n
+                  + FINISH_OPS_PER_ANCHOR * n)
+
+
+def time_shard(eng, batches, cfg, card: str) -> dict:
+    """The sharded K1's kernels at the 2x2 engine's shapes, on the first
+    data row of each stream batch (both anchors of its B / 2 reads) and
+    that row's first index shard: each with _time_shape beside its plain
+    version and bound. Shapes: the probe's records (exact_records), their
+    finish over the row's shards (shard_finish, exact), the fallback
+    slice's records (classic_records in slot mode, on the compaction of
+    the finish's `resolved`) and their finish at the slots, and the
+    redo's records and finish (classic, every anchor)."""
+    import torch
+    from find_circ2_tpu_torch.ops import anchor_align as ta
+    row = eng.rows[0]
+    sh = row.shards
+    classic = [(t, m) for t, _, m in sh]
+    t0, nt0, m0 = sh[0]
+    sets, exact, hits, idx, slot, full = [], [], [], [], [], []
+    for arr, lens in batches:
+        _, reads, lens_t, _ = eng._split(arr, lens)[0]
+        both = torch.cat(ta.read_anchors(reads, lens_t, cfg))
+        k = min(cfg.exact_fallback_slots, both.shape[0])
+        e = torch.stack([ta.exact_records(*x, both, cfg) for x in sh])
+        h, resolved = ta.shard_finish(e, both, cfg)
+        i = ta.fallback_slice(resolved, k)[0]
+        sets.append(both)
+        exact.append(e)
+        hits.append(h)
+        idx.append(i)
+        slot.append(torch.stack([ta.classic_records(t, m, both, cfg, i)
+                                 for t, m in classic]))
+        full.append(torch.stack([ta.classic_records(t, m, both, cfg)
+                                 for t, m in classic]))
+    n, S = sets[0].shape[0], len(sh)
+    k = idx[0].shape[0]
+    E, C = ta.EXACT_FIELDS, ta.CLASSIC_FIELDS
+    shapes = {
+        "exact_records": (
+            lambda i: ta.exact_records(t0, nt0, m0, sets[i], cfg),
+            lambda i: ta.exact_records_ref(t0, nt0, m0, sets[i], cfg),
+            lambda i: records_bound(n, cfg, True)),
+        "exact_finish": (
+            lambda i: ta.shard_finish(exact[i], sets[i], cfg),
+            lambda i: ta.shard_finish_ref(exact[i], sets[i], cfg),
+            lambda i: finish_bound(S, n, E, cfg)),
+        "slot_records": (
+            lambda i: ta.classic_records(t0, m0, sets[i], cfg, idx[i]),
+            lambda i: ta.classic_records_ref(t0, m0, sets[i], cfg, idx[i]),
+            lambda i: records_bound(k, cfg, False, slots=True)),
+        "slot_finish": (
+            lambda i: ta.shard_finish(slot[i], None, cfg, idx[i], hits[i]),
+            lambda i: ta.shard_finish_ref(slot[i], None, cfg, idx[i],
+                                          hits[i]),
+            lambda i: finish_bound(S, k, C, cfg, slots=True)),
+        "redo_records": (
+            lambda i: ta.classic_records(t0, m0, sets[i], cfg),
+            lambda i: ta.classic_records_ref(t0, m0, sets[i], cfg),
+            lambda i: records_bound(n, cfg, False)),
+        "redo_finish": (
+            lambda i: ta.shard_finish(full[i], None, cfg),
+            lambda i: ta.shard_finish_ref(full[i], None, cfg),
+            lambda i: finish_bound(S, n, C, cfg)),
+    }
+    out = {}
+    for name, (kernel, plain, bound) in shapes.items():
+        out[name] = _time_shape(kernel, plain, len(sets), bound)
+        _log_shape(f"sharded {name} ({n} anchors of a data row, {k} "
+                   f"slots, {S} shards)", out[name], card)
     return out
 
 
 def merge_times(res, lens, cfg, card: str) -> dict:
-    """K-h, the plain merge_junctions and merge_tables (no hand kernel:
-    they reach no pallas_call, and only the sharded engine calls them),
-    on the card on one batch's detect result: as called (CUDA events,
-    the least of three runs of five calls) and busy (torch.profiler), in
-    the order busy, called, called, busy, beside the bytes bound: each
-    field it reads once and each it writes once over the HBM rate.
-    merge_tables merges two such tables stacked, as the 2x2 engine
-    gathers its two data rows."""
+    """K-h on one stream batch's single-device detect result: the kernel
+    (csrc/merge.cu) beside the plain merge (plain_merge) with
+    _time_shape, at the 2x2 engine's shapes, merge_junctions on a data
+    row's B / 2 rows and merge_tables of two such tables (B rows); at the
+    whole batch's B rows; and merge_tables of eight tables, past the
+    kernel's one-block limit. The bound: each field read once and each
+    written once over the HBM rate, or N log2 N key comparisons and a
+    combine a row over the int32 rate."""
+    import math
     import torch
     from find_circ2_tpu_torch.ops.merge import merge_junctions, merge_tables
 
     def nbytes(tensors) -> int:
         return sum(t.numel() * t.element_size() for t in tensors)
 
-    one = merge_junctions(res, lens, cfg)
-    stacked = {k: torch.stack([v, v]) for k, v in one.items()}
     read = ("status", "multi", "qual_left", "qual_right", "kind", "chrom",
             "start", "end", "sense", "align_strand", "edits", "overlap",
             "n_bp")
-    calls = {
-        "merge_junctions": (lambda: merge_junctions(res, lens, cfg),
-                            nbytes([res[k] for k in read if k in res]
-                                   + [lens] + list(one.values()))),
-        "merge_tables": (lambda: merge_tables(stacked),
-                         nbytes(list(stacked.values())) + nbytes(
-                             merge_tables(stacked).values()))}
-    out = {}
-    for name, (fn, moved) in calls.items():
-        b1 = busy_ms(fn)
-        c1 = min(cuda_ms(fn, 5) for _ in range(3))
-        c2 = min(cuda_ms(fn, 5) for _ in range(3))
-        b2 = busy_ms(fn)
-        busy, src = min(b1, b2)
-        out[name] = dict(called_ms=min(c1, c2), busy_ms=busy, bytes=moved,
-                         bound_ms=1e3 * moved / HBM_BYTES_PER_S)
-        log(f"K-h {name} (plain PyTorch) on one {res['status'].shape[0]}-"
-            f"read batch{' x 2 stacked' if name == 'merge_tables' else ''}"
-            f": as called {out[name]['called_ms']:.5f} ms, busy "
-            f"{busy:.5f} ms ({src}); bound {out[name]['bound_ms']:.5f} ms "
-            f"by bytes ({moved:,} bytes); on {card}")
+    B = lens.shape[0]
+    half = ({k: v[:B // 2].contiguous() for k, v in res.items()},
+            lens[:B // 2].contiguous())
+    row = merge_junctions(*half, cfg)
+
+    def stack(K):
+        return {k: torch.stack([v] * K) for k, v in row.items()}
+
+    def bound(N, moved):
+        return _bound(moved, N * math.ceil(math.log2(max(N, 2)))
+                      * MERGE_OPS_PER_COMPARE + N * MERGE_OPS_PER_ROW)
+
+    def junctions(r, ln):
+        moved = nbytes([r[k] for k in read if k in r] + [ln]) + nbytes(
+            merge_junctions(r, ln, cfg).values())
+        return (lambda i: merge_junctions(r, ln, cfg),
+                bound(ln.shape[0], moved))
+
+    def tables(K):
+        t = stack(K)
+        moved = nbytes(t.values()) + nbytes(merge_tables(t).values())
+        return lambda i: merge_tables(t), bound(K * B // 2, moved)
+
+    shapes = {f"merge_junctions_{B // 2}": junctions(*half),
+              f"merge_tables_{B}": tables(2),
+              f"merge_junctions_{B}": junctions(res, lens),
+              f"merge_tables_{4 * B}": tables(8)}
+    out = {"main": {f"merge_junctions_{B // 2}": 2,
+                    f"merge_tables_{B}": 1}}
+    for name, (fn, b) in shapes.items():
+        def plain(i, fn=fn):
+            with plain_merge():
+                return fn(i)
+        out[name] = _time_shape(fn, plain, 3, lambda i, b=b: b)
+        _log_shape(f"K-h {name}", out[name], card)
     return out
 
 
@@ -2225,13 +2701,16 @@ def main() -> int:
     gather = check_gather_rows("cuda", card)
     cases = check_detect_cases("cuda", card)
     cases.update(check_classic_cases("cuda", card))
+    cases.update(check_shard_cases("cuda", card))
+    cases.update(check_merge_cases("cuda", card))
     check_golden("cuda")
     path = main_path("cuda", LIBRARY, card, row_rate(gather))
     check_golden("cuda", ("--mesh", "2x2"))
     check_golden_nproc("cuda")
 
-    # Per wrapper, summed over one sharded detect batch's calls on one
-    # index shard (on one table K1's kernels fetch their own rows): "ms"
+    # Per wrapper, summed over the calls the plain K1 makes for one
+    # sharded detect batch on one index shard (K1's kernels fetch their
+    # own rows, so no main path launches it any more): "ms"
     # and "plain_ms" on the device alone (CUDA graphs), "called_ms" and
     # "plain_called_ms" as called; "bound_ms" the bytes over the HBM rate.
     # index_select is gather_rows' library call; no one PyTorch call
@@ -2335,6 +2814,43 @@ def main() -> int:
         **{k: cl["compact"][k] for k in keys + ("bound_by", "library_ms")},
         "stage_cycles": {k: v[0] for k, v in cl["stages"]["compact"].items()},
         "sharded_launches": path["sharded"]["launches"]["fallback_slice"]})
+    # The sharded engine's kernels (phase 7), summed over the calls of one
+    # 2x2 data row's exact-first batch (the probe's records on one shard;
+    # the slice's records on one shard; the two finishes) and of one
+    # detect_merged batch (a merge a data row, then one of their tables),
+    # each shape beside it. No one PyTorch call computes any of them.
+    sd = path["sharded"]
+    st, mt = sd["times"], sd["merge"]
+    for name, source, replaces, main, other, err in (
+            ("exact_records", "exact_stats.cu",
+             "find_circ2_tpu/ops/anchor_align.py:340",
+             {"exact_records": 1}, (), "shard_err"),
+            ("classic_records", "classic_k1.cu",
+             "find_circ2_tpu/ops/anchor_align.py:140",
+             {"slot_records": 1}, ("redo_records",), "shard_err"),
+            ("shard_finish", "shard_k1.cu",
+             "find_circ2_tpu/ops/anchor_align.py:286",
+             {"exact_finish": 1, "slot_finish": 1}, ("redo_finish",),
+             "shard_err"),
+            ("merge", "merge.cu", "find_circ2_tpu/ops/merge.py:36",
+             mt["main"], tuple(k for k in mt if k not in mt["main"]
+                               and k != "main"), "merge_err")):
+        recs = st if name != "merge" else mt
+        kernels.append({
+            "name": name, "route": "cuda",
+            "source": f"find_circ2_tpu_torch/csrc/{source}",
+            "replaces": replaces,
+            "launches": (sd["merge_launches"] if name == "merge"
+                         else sd["launches"][name]),
+            "max_abs_err": max(cases[err], sd["shard_err"]),
+            **{k: sum(c * recs[s][k] for s, c in main.items())
+               for k in keys},
+            "bound_by": ("bytes" if all(recs[s]["bound_by"] == "bytes"
+                                        for s in main) else "operations"),
+            "library_ms": None,
+            "shapes": {s: {k: recs[s][k] for k in keys + ("bound_by",
+                                                           "sets")}
+                       for s in (*main, *other)}})
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

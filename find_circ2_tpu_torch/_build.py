@@ -116,6 +116,12 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.fc2t_classic_k1.restype = ctypes.c_int
     lib.fc2t_compact.argtypes = [ctypes.c_char_p]
     lib.fc2t_compact.restype = ctypes.c_int
+    # One SHARD_ARGS / MERGE_ARGS buffer in; the kernels launched, or
+    # minus a CUDA error, out.
+    lib.fc2t_shard_finish.argtypes = [ctypes.c_char_p]
+    lib.fc2t_shard_finish.restype = ctypes.c_int
+    lib.fc2t_merge.argtypes = [ctypes.c_char_p]
+    lib.fc2t_merge.restype = ctypes.c_int
     return lib
 
 
@@ -186,21 +192,34 @@ EXPLORE_ARGS = struct.Struct("<25Qq10i")
 DETECT_ARGS = struct.Struct("<18Qq8i")
 
 # csrc/exact_stats.cu's ExactArgs: anchors, table, ntable, meta, then the
-# outputs aligned, pos, strand, mm, n_best, second_mm, qual, resolved;
-# stream, rows; then n, anchor_len, prefix_len, max_bucket, max_anchor_mm,
-# device.
-EXACT_ARGS = struct.Struct("<13Qq6i")
+# outputs aligned, pos, strand, mm, n_best, second_mm, qual, resolved,
+# partials; stream, rows; then n, anchor_len, prefix_len, max_bucket,
+# max_anchor_mm, device.
+EXACT_ARGS = struct.Struct("<14Qq6i")
 
 # csrc/classic_k1.cu's ClassicArgs: anchors, table, meta, ext_id, ext,
 # slots, then the outputs aligned, pos, strand, mm, n_best, second_mm,
 # qual, count, first_pos, extras; stream; rows, ext_rows; then n,
 # anchor_len, prefix_len, max_bucket, max_anchor_mm, ext_width, device,
-# reserved.
-CLASSIC_ARGS = struct.Struct("<17Q2q8i")
+# reserved; then partials.
+CLASSIC_ARGS = struct.Struct("<17Q2q8iQ")
 
 # csrc/classic_k1.cu's CompactArgs: resolved, slots, overflow, stream; n,
 # k; device, reserved.
 COMPACT_ARGS = struct.Struct("<4Q2q2i")
+
+# csrc/shard_k1.cu's ShardArgs: records, anchors, slots, then the outputs
+# aligned, pos, strand, mm, n_best, second_mm, qual, resolved; stream; n;
+# then shards, fields, anchor_len, prefix_len, max_bucket, max_anchor_mm,
+# device, reserved.
+SHARD_ARGS = struct.Struct("<12Qq8i")
+
+# csrc/merge.cu's MergeArgs: valid, kind, chrom, start, end, sense, the
+# three sum, two maximum and three minimum fields, status, lens, multi,
+# align_strand; the outputs in the same order as the table's fields; the
+# sort's key_hi, key_lo and order; stream; n; then st_junction,
+# min_uniq_qual, device, reserved.
+MERGE_ARGS = struct.Struct("<36Qq4i")
 
 
 def check(err: int, what: str) -> None:

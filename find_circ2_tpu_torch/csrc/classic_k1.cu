@@ -15,6 +15,11 @@
 // The reference computes the same as XLA programs, not Pallas
 // (find_circ2_tpu/ops/anchor_align.py:140 candidate_stats, :59, :123,
 // :271 finalize_hits; the slice of align_anchor_pair_fast at :496-527).
+// On an index shard of the sharded engine the enumeration runs in
+// partials mode: the shard's part of candidate_stats reduced to the
+// eight numbers a slot's finish reads (the reference's finalize_hits
+// with axis_name psums and pmins the whole [n, 2V] arrays), which
+// csrc/shard_k1.cu combines over the shards and finishes.
 // The plain versions are about 270 eager kernels a detect batch's
 // fallback slice and 546 an explore chunk's K1.
 //
@@ -93,7 +98,10 @@
 // one buffer. Three modes: hits only (count == nullptr, slots ==
 // nullptr); the per-slot statistics too (count and first_pos, and with
 // ext_id the extras); and the fallback slice (slots != nullptr): slot s
-// enumerates anchors[slots[s]] and writes its hits at slots[s].
+// enumerates anchors[slots[s]] and writes its hits at slots[s]. With
+// `partials` (an index shard's part; no statistics, the hit pointers
+// null) the full or slot mode writes each slot's kClassicFields record
+// at row s instead of its hits.
 struct ClassicArgs {
     const uint8_t* anchors;   // [n_anchors, anchor_len] codes
     const int32_t* table;     // [rows, SLOTS * LANES] cuckoo table
@@ -116,8 +124,17 @@ struct ClassicArgs {
     long long ext_rows;       // a row id at or past it reads LARGE_POS
     int n, anchor_len, prefix_len, max_bucket, max_anchor_mm, ext_width,
         device, reserved;
+    int32_t* partials;        // [n, kClassicFields], or null
 };
-static_assert(sizeof(ClassicArgs) == 184, "layout packed by ops/anchor_align");
+static_assert(sizeof(ClassicArgs) == 192, "layout packed by ops/anchor_align");
+
+// A shard's record in partials mode: the counts of the two exact slots
+// (0 and V), the counts summed over each strand half, and the least
+// first position over the slots whose count is above 0 of slot 0, slot
+// V, slots 1..V-1 and slots V+1..2V-1 (uint32 bit patterns, LARGE_POS
+// for none): all that finalize_hits reads, since mm is 0 only at the
+// exact slots and it selects only slots with a count.
+constexpr int kClassicFields = 8;
 
 // The arguments of one compaction of the fallback slice.
 struct CompactArgs {
@@ -346,6 +363,43 @@ __device__ __forceinline__ void enumerate(const ClassicArgs& a, int s,
         cnt_m[t] = cm_ > a.max_bucket ? 0 : cm_;
         pos_p[t] = swp[t] ? pr : pf;
         pos_m[t] = swp[t] ? pf : pr;
+    }
+
+    if (!kExtras && a.partials) {
+        // Partials mode: the record, one field a lane of lanes 0..7.
+        int sp = 0, sm = 0;
+        uint32_t lp = kLargePos, lm = kLargePos;
+#pragma unroll
+        for (int t = 0; t < kPerLane; ++t) {
+            sp += cnt_p[t];
+            sm += cnt_m[t];
+            const int v = lane + 32 * t;
+            if (!act[t] || v == 0) continue;
+            if (cnt_p[t] > 0) lp = min(lp, pos_p[t]);
+            if (cnt_m[t] > 0) lm = min(lm, pos_m[t]);
+        }
+        sp = (int)__reduce_add_sync(kFull, (unsigned)sp);
+        sm = (int)__reduce_add_sync(kFull, (unsigned)sm);
+        lp = __reduce_min_sync(kFull, lp);
+        lm = __reduce_min_sync(kFull, lm);
+        const int c0 = __shfl_sync(kFull, cnt_p[0], 0);
+        const int cv = __shfl_sync(kFull, cnt_m[0], 0);
+        const uint32_t p0 = __shfl_sync(kFull, pos_p[0], 0);
+        const uint32_t pv = __shfl_sync(kFull, pos_m[0], 0);
+        const int32_t rec[kClassicFields] = {
+            c0, cv, sp, sm, (int32_t)(c0 > 0 ? p0 : kLargePos),
+            (int32_t)(cv > 0 ? pv : kLargePos), (int32_t)lp, (int32_t)lm};
+        int32_t* dst = a.partials + (size_t)s * kClassicFields;
+#pragma unroll
+        for (int f = 0; f < kClassicFields; ++f)
+            if (lane == f) dst[f] = rec[f];
+#ifdef FC2T_CLASSIC_STAMPS
+        if (lane == 0 && fc2t_cstamps) {
+            CSTAMP(at + 4, lp ^ lm);
+            fc2t_cstamps[at + 5] = fc2t_cstamps[at + 6] = fc2t_cstamps[at + 4];
+        }
+#endif
+        return;
     }
 
     if (a.count) {
@@ -650,7 +704,8 @@ extern "C" int fc2t_classic_k1(const ClassicArgs* a) {
                  a->ext_rows < 1 ||
                  reinterpret_cast<uintptr_t>(a->extras) % 16 ||
                  reinterpret_cast<uintptr_t>(a->ext) % 8)) ||
-        (!ext && a->extras != nullptr) || (stats && a->slots != nullptr))
+        (!ext && a->extras != nullptr) || (stats && a->slots != nullptr) ||
+        (a->partials != nullptr && stats))
         return -(int)cudaErrorInvalidValue;
     const int err = check_device(a->device);
     if (err) return err;

@@ -38,6 +38,13 @@
 // No shared memory, no tensor cores, no TMA: nothing is shared between
 // anchors, and the loads are data-dependent 32-byte rows.
 //
+// On an index shard of the sharded engine (parallel/sharded.py) the same
+// kernel runs in partials mode: each anchor's nine partials of
+// exact_partials, the shard's part of the reference's exact_anchor_stats
+// with axis_name (find_circ2_tpu/ops/anchor_align.py:340, its psum/pmin
+// at :424-438), go to a record row; csrc/shard_k1.cu combines the
+// shards' records and finishes.
+//
 // Kept bit for bit: when a key's two buckets are one bucket both probes
 // match its slot and their counts add (ROADMAP.md §3); a dirty anchor
 // (a code >= 4) is looked up on its codes with those zeroed, is not
@@ -56,6 +63,11 @@
 
 // The arguments of one call, packed by ops/anchor_align.py into one
 // buffer.
+// Two modes: the finish (partials == nullptr) writes the hits and
+// `resolved`; the partials mode (an index shard's part, partials !=
+// nullptr, the hit pointers null) writes each anchor's kExactFields
+// record and stops before the finish: no guard and no `clean`, which
+// belong to csrc/shard_k1.cu's finish over every shard.
 struct ExactArgs {
     const uint8_t* anchors;   // [n, anchor_len] codes
     const int32_t* table;     // [rows, SLOTS * LANES] cuckoo table
@@ -69,11 +81,12 @@ struct ExactArgs {
     int32_t* second_mm;       // [n]
     int32_t* qual;            // [n]
     uint8_t* resolved;        // [n] bool
+    int32_t* partials;        // [n, kExactFields], or null
     void* stream;
     long long rows;           // table rows; a bucket at or past it reads empty
     int n, anchor_len, prefix_len, max_bucket, max_anchor_mm, device;
 };
-static_assert(sizeof(ExactArgs) == 136, "layout packed by ops/anchor_align");
+static_assert(sizeof(ExactArgs) == 144, "layout packed by ops/anchor_align");
 
 // Built with FC2T_DETECT_STAMPS (ops/anchor_align.exact_stage_cycles),
 // the first lane of each warp records its SM clock at the start and after
@@ -125,58 +138,14 @@ constexpr unsigned kFull = 0xffffffffu;
 constexpr int kNbrLanes = 4;
 static_assert(kNbrLanes == fc2t::kLanes, "a slot is one int4 a table");
 constexpr int kMaxAnchor = 32;
+static_assert(kMaxAnchor == fc2t::kMaxKeyLen, "keys are 64-bit");
+// A shard's record in partials mode (ops/anchor_align.EXACT_OPS' order):
+// found, then count and least position of each orientation, exact and
+// 1-mm ball; positions as uint32 bit patterns.
+constexpr int kExactFields = 9;
 // A slot's matches, and its two 7-bit counts, packed into one sum: at
 // most four matches (two slots, two probes of one coincident bucket).
 constexpr int kCfShift = 3, kCrShift = 13;
-
-// The anchor's codes as one base-4 number, code j (those >= 4 as 0) the
-// digit of 4^(al - 1 - j), and whether every code is below 4. An anchor
-// row on 4 bytes of a length that is a multiple of 4 is read as words,
-// all in flight at once; any other byte by byte.
-__device__ __forceinline__ unsigned long long forward(const uint8_t* anc,
-                                                      int al, bool& clean) {
-    unsigned long long f = 0;
-    bool ok = true;
-    if ((al & 3) == 0 && (reinterpret_cast<uintptr_t>(anc) & 3) == 0) {
-        const auto* w = reinterpret_cast<const uint32_t*>(anc);
-        const int nw = al >> 2;
-        uint32_t x[kMaxAnchor / 4];
-#pragma unroll
-        for (int t = 0; t < kMaxAnchor / 4; ++t)
-            x[t] = t < nw ? __ldg(w + t) : 0u;
-#pragma unroll
-        for (int t = 0; t < kMaxAnchor / 4; ++t) {
-            if (t < nw) {
-                // 0xff in each byte whose code is below 4.
-                const uint32_t lt = __vcmpltu4(x[t], 0x04040404u);
-                ok = ok && lt == kFull;
-                const uint32_t q = x[t] & lt;
-                f = f << 8 | (q << 6 & 0xc0u) | (q >> 4 & 0x30u) |
-                    (q >> 14 & 0x0cu) | (q >> 24 & 0x03u);
-            }
-        }
-    } else {
-        for (int j = 0; j < al; ++j) {
-            const unsigned c = anc[j];
-            ok = ok && c < 4;
-            f = f << 2 | (c < 4 ? c : 0u);
-        }
-    }
-    clean = ok;
-    return f;
-}
-
-// The reverse complement's number: the digits complemented, in reverse
-// order.
-__device__ __forceinline__ unsigned long long reverse_complement(
-    unsigned long long f, int al) {
-    const unsigned long long all =
-        al == 32 ? ~0ull : (1ull << (2 * al)) - 1ull;
-    constexpr unsigned long long kEven = 0x5555555555555555ull;
-    unsigned long long r = __brevll(~f & all);
-    r = (r >> 1 & kEven) | (r & kEven) << 1;  // each digit's bits back
-    return r >> (64 - 2 * al);
-}
 
 // x over the four lanes of an anchor, summed or least.
 template <typename T>
@@ -207,23 +176,17 @@ exact_kernel(const __grid_constant__ ExactArgs a) {
     const size_t at = (size_t)warp * kExactStamps;
 #endif
     ESTAMP(at, 0);
-    const int al = a.anchor_len, sk = al - a.prefix_len;
+    const int al = a.anchor_len;
 
     // _exact_keys: the forward key (p12, s8) and its reverse complement's,
     // on the codes with those >= 4 zeroed; the lane's probe's salt and
     // the bucket count fly with the codes.
     const uint32_t salt = (uint32_t)a.meta[probe];
     const uint32_t n_buckets = (uint32_t)a.meta[2];
-    bool clean;
-    const unsigned long long f = forward(a.anchors + (size_t)i * al, al,
-                                         clean);
-    const unsigned long long r = reverse_complement(f, al);
-    const unsigned long long low = (1ull << (2 * sk)) - 1ull;
-    const unsigned long long p12 = f >> (2 * sk), s8 = f & low;
-    const unsigned long long p12r = r >> (2 * sk), s8r = r & low;
-    const bool swap = p12r < p12 || (p12r == p12 && s8r < s8);
-    const unsigned long long cp = swap ? p12r : p12;
-    const unsigned long long cs = swap ? s8r : s8;
+    const fc2t::ExactKey key =
+        fc2t::exact_key(a.anchors + (size_t)i * al, al, a.prefix_len);
+    const bool clean = key.clean, swap = key.swap;
+    const unsigned long long cp = key.cp, cs = key.cs;
     ESTAMP(at + 1, (unsigned)(cp ^ cs) ^ salt ^ n_buckets);
 
     // The lane's row: its probe's bucket in its table.
@@ -287,6 +250,22 @@ exact_kernel(const __grid_constant__ ExactArgs a) {
     const bool found = (cnt & ((1 << kCfShift) - 1)) != 0;
     const long long cf = cnt >> kCfShift & ((1 << (kCrShift - kCfShift)) - 1);
     const long long cr = cnt >> kCrShift;
+    if (a.partials) {
+        // Partials mode: the shard's record, lane `sub` writing fields
+        // sub and sub + 4 (and lane 0 the ninth), then nothing more.
+        if (real) {
+            const int32_t rec[kExactFields] = {
+                found, (int32_t)cf, (int32_t)pf, (int32_t)cr, (int32_t)pr,
+                (int32_t)s1f, (int32_t)m1f, (int32_t)s1r, (int32_t)m1r};
+            int32_t* dst = a.partials + (size_t)i * kExactFields;
+#pragma unroll
+            for (int f = 0; f < kExactFields; ++f)
+                if ((f & (kLanesPerAnchor - 1)) == sub) dst[f] = rec[f];
+        }
+        ESTAMP(at + 3, found);
+        ESTAMP(at + 4, 0);
+        return;
+    }
 
     // exact_finish, on every lane: the guard on the exact counts, the
     // orientation of the query, the frozen best-hit selection and the

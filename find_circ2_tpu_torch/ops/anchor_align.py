@@ -22,8 +22,15 @@ on their own devices. The reference runs every shard in its own program
 and combines with psum/pmin inside; here one process drives all of a
 data row's shards, so each function is a per-shard part (gathers and
 probes on the shard's device), an integer sum/min/any over the shards on
-the anchors' device (`_combine`), and a global finish. The single-table
-forms are the same with one shard and nothing between the two parts.
+the anchors' device, and a global finish. On CPU tensors that is the
+plain `exact_partials` or `candidate_stats`, `_combine` and
+`exact_finish` or `finalize_hits`; on the card each shard's part is a
+record an anchor from a partials mode of the probe's or the
+enumeration's kernel (`exact_records`, `classic_records`), copied into
+one [shards, n, fields] buffer on the anchors' device, and the combine
+and finish are one kernel (`shard_finish`, csrc/shard_k1.cu). The
+single-table forms are the same with one shard and nothing between the
+two parts.
 
 Global positions are uint32 in the reference; here they are int64
 holding the same values (the table's int32 lanes carry the bit pattern,
@@ -50,6 +57,8 @@ LARGE_MM = 255
 LARGE_POS = M32
 # csrc/exact_stats.cu's limit on the anchor length (its keys are 64-bit).
 MAX_ANCHOR_LEN = 32
+# csrc/shard_k1.cu's limit on the index shards a combine takes.
+MAX_SHARDS = 64
 
 # csrc/classic_k1.cu's limits: V = 1 + 3a variants, two a lane of a warp;
 # the §2b extras of K <= 16 hits (explore's kernel takes no more).
@@ -63,6 +72,9 @@ _FILL = -2 ** 31
 exact_launches = 0      # exact_anchor_stats
 classic_launches = 0    # classic_anchor_stats and refill_slice
 compact_launches = 0    # fallback_slice
+exact_record_launches = 0    # exact_records (a shard's probe partials)
+classic_record_launches = 0  # classic_records (a shard's enumeration)
+finish_launches = 0          # shard_finish (the cross-shard combine)
 
 
 def read_anchors(reads: torch.Tensor, lens: torch.Tensor, cfg: Config):
@@ -318,6 +330,12 @@ def _exact_keys(anchors, cfg: Config):
 # How exact_partials' fields combine across index shards: `found`, then
 # count and first position of each orientation, exact and 1-mm ball.
 EXACT_OPS = ("any", "sum", "min", "sum", "min", "sum", "min", "sum", "min")
+# classic_records' fields (csrc/classic_k1.cu kClassicFields) and how they
+# combine: the counts of the exact slots 0 and V, each strand half's
+# summed count, then the least first position with a count above 0 of
+# slot 0, slot V, slots 1..V-1 and slots V+1..2V-1.
+CLASSIC_OPS = ("sum",) * 4 + ("min",) * 4
+EXACT_FIELDS, CLASSIC_FIELDS = len(EXACT_OPS), len(CLASSIC_OPS)
 
 
 def exact_partials(table, ntable, meta, cp, cs):
@@ -392,20 +410,38 @@ def exact_finish(partials, clean, swap, cfg: Config):
     return hits, found | ~clean
 
 
+def _all_cpu(shards, *tensors) -> bool:
+    return all(t.is_cpu for t in (*tensors, *(x for shard in shards
+                                              for x in shard
+                                              if x is not None)))
+
+
 def exact_anchor_stats_sharded(shards, anchors, cfg: Config):
     """K1 v4 over prefix-range index shards [(table, ntable, meta)],
     each on its own device: per-shard partials, combined on the anchors'
     device, then the global finish. Equals exact_anchor_stats on the
-    whole table."""
+    whole table. On CPU tensors the plain parts; otherwise each shard's
+    exact_records and one shard_finish (kernels, no wait)."""
+    if _all_cpu(shards, anchors):
+        return _exact_sharded_ref(shards, anchors, cfg)
+    records = _shard_records(
+        shards, lambda t, nt, m, a, out=None: exact_records(t, nt, m, a, cfg,
+                                                             out),
+        anchors.shape[0], EXACT_FIELDS, anchors.device, (anchors,))
+    return shard_finish(records, anchors, cfg)
+
+
+def _exact_sharded_ref(shards, anchors, cfg: Config):
+    """exact_anchor_stats_sharded's plain parts on any device."""
     clean, swap, cp, cs = _exact_keys(anchors, cfg)
     parts = _on_shards(shards, exact_partials, (cp, cs), anchors.device)
     return exact_finish(_combine(parts, EXACT_OPS), clean, swap, cfg)
 
 
 def exact_anchor_stats_ref(table, ntable, meta, anchors, cfg: Config):
-    """Plain version of exact_anchor_stats: the sharded form on one
-    shard."""
-    return exact_anchor_stats_sharded([(table, ntable, meta)], anchors, cfg)
+    """Plain version of exact_anchor_stats: the sharded form's plain parts
+    on one shard."""
+    return _exact_sharded_ref([(table, ntable, meta)], anchors, cfg)
 
 
 def exact_anchor_stats(table, ntable, meta, anchors, cfg: Config):
@@ -458,7 +494,7 @@ def _launch_exact(args: tuple, cfg: Config, lib=None):
     """exact_anchor_stats on CUDA tensors: one C call into `lib` (default:
     the kernel library), made with the tensors' device current."""
     global exact_launches
-    table, ntable, meta, anchors = args
+    anchors = args[3]
     _check_exact(*args, cfg)
     n = anchors.shape[0]
     dev = anchors.device
@@ -473,19 +509,31 @@ def _launch_exact(args: tuple, cfg: Config, lib=None):
     resolved = empty(torch.bool)
     if n == 0:
         return hits, resolved
+    exact_launches += _exact_call(lib, args, cfg,
+                                  [x.data_ptr() for x in (*hits, resolved)],
+                                  0, "exact_anchor_stats launch")
+    return hits, resolved
+
+
+def _exact_call(lib, args: tuple, cfg: Config, outs: list, partials: int,
+                what: str) -> int:
+    """One C call of csrc/exact_stats.cu into `lib` (default: the kernel
+    library) with the anchors' device current: the eight hit and
+    `resolved` pointers `outs` (zeros in partials mode) and the records'
+    pointer `partials` (0 for the finish). Returns the launches."""
+    table, ntable, meta, anchors = args
     lib = lib or _build.load()
     index = anchors.get_device()
     with torch.cuda.device(index):
         got = lib.fc2t_exact_stats(_build.EXACT_ARGS.pack(
             anchors.data_ptr(), table.data_ptr(), ntable.data_ptr(),
-            meta.data_ptr(), *(x.data_ptr() for x in hits),
-            resolved.data_ptr(), torch._C._cuda_getCurrentRawStream(index),
-            table.shape[0], n, cfg.anchor_len, cfg.prefix_len,
+            meta.data_ptr(), *outs, partials,
+            torch._C._cuda_getCurrentRawStream(index), table.shape[0],
+            anchors.shape[0], cfg.anchor_len, cfg.prefix_len,
             cfg.max_bucket, cfg.max_anchor_mm, index))
     if got < 0:
-        _build.check(-got, "exact_anchor_stats launch")
-    exact_launches += got
-    return hits, resolved
+        _build.check(-got, what)
+    return got
 
 
 def classic_anchor_stats_ref(table, meta, anchors, cfg: Config, ext=None,
@@ -594,7 +642,7 @@ def _check_classic(table, meta, anchors, cfg: Config, ext, ext_id, slots,
         if (slots.dtype != torch.int64 or slots.dim() != 1
                 or slots.shape[0] > n or any(
                     f.dtype != d or tuple(f.shape) != (n,)
-                    for f, d in zip(hits, want))):
+                    for f, d in zip(hits or (), want))):
             raise ValueError(f"refill_slice: want int64 slots [<= {n}] and "
                              f"AnchorHits fields [{n}] of finalize_hits' "
                              "dtypes")
@@ -602,11 +650,13 @@ def _check_classic(table, meta, anchors, cfg: Config, ext, ext_id, slots,
 
 def _launch_classic(table, meta, anchors, cfg: Config, ext=None,
                     ext_id=None, stats: bool = False, slots=None, hits=None,
-                    lib=None):
+                    lib=None, records=None):
     """classic_anchor_stats (or, with `slots`, refill_slice into `hits`)
     on CUDA tensors: one C call into `lib` (default: the kernel library),
-    made with the tensors' device current. Returns (hits, stats)."""
-    global classic_launches
+    made with the tensors' device current. Returns (hits, stats). With
+    `records` (int32 [n, CLASSIC_FIELDS]) the partials mode: each slot's
+    record goes there instead of its hits (hits None)."""
+    global classic_launches, classic_record_launches
     _check_classic(table, meta, anchors, cfg, ext, ext_id, slots, hits)
     dev = anchors.device
     n = anchors.shape[0] if slots is None else slots.shape[0]
@@ -614,7 +664,9 @@ def _launch_classic(table, meta, anchors, cfg: Config, ext=None,
     def empty(*shape, dtype=torch.int32):
         return torch.empty(shape, dtype=dtype, device=dev)
 
-    if hits is None:
+    if records is not None:
+        hits = AnchorHits(*(None,) * len(AnchorHits._fields))
+    elif hits is None:
         hits = AnchorHits(aligned=empty(n, dtype=torch.bool),
                           pos=empty(n, dtype=torch.int64), strand=empty(n),
                           mm=empty(n), n_best=empty(n), second_mm=empty(n),
@@ -638,15 +690,18 @@ def _launch_classic(table, meta, anchors, cfg: Config, ext=None,
     with torch.cuda.device(index):
         got = lib.fc2t_classic_k1(_build.CLASSIC_ARGS.pack(
             anchors.data_ptr(), table.data_ptr(), meta.data_ptr(),
-            ptr(ext_id), ptr(ext), ptr(slots), *(x.data_ptr() for x in hits),
+            ptr(ext_id), ptr(ext), ptr(slots), *(ptr(x) for x in hits),
             ptr(count), ptr(first_pos), ptr(extras),
             torch._C._cuda_getCurrentRawStream(index), table.shape[0],
             0 if ext is None else ext.shape[0], n, cfg.anchor_len,
             cfg.prefix_len, cfg.max_bucket, cfg.max_anchor_mm,
-            0 if ext is None else K1, index, 0))
+            0 if ext is None else K1, index, 0, ptr(records)))
     if got < 0:
         _build.check(-got, "classic_anchor_stats launch")
-    classic_launches += got
+    if records is None:
+        classic_launches += got
+    else:
+        classic_record_launches += got
     return hits, out
 
 
@@ -700,6 +755,269 @@ def _launch_compact(resolved, k: int, lib=None):
         _build.check(-got, "fallback_slice launch")
     compact_launches += got
     return idx, overflow
+
+
+def _i32(x: torch.Tensor) -> torch.Tensor:
+    """Integers (uint32 values or counts, any dtype) -> their int32 bit
+    patterns."""
+    x = x.to(torch.int64) & M32
+    return ((x ^ 0x80000000) - 0x80000000).to(torch.int32)
+
+
+def exact_records_ref(table, ntable, meta, anchors, cfg: Config):
+    """Plain version of exact_records: exact_partials on the anchors'
+    canonical keys, as int32 [n, EXACT_FIELDS] (positions as uint32 bit
+    patterns, `found` 0 or 1)."""
+    _, _, cp, cs = _exact_keys(anchors, cfg)
+    return torch.stack([_i32(x) for x in exact_partials(table, ntable, meta,
+                                                        cp, cs)], dim=1)
+
+
+def exact_records(table, ntable, meta, anchors, cfg: Config, out=None):
+    """One index shard's part of exact_anchor_stats: each anchor's record
+    of EXACT_OPS' fields, int32 [n, EXACT_FIELDS], before the guard, the
+    `clean` mask and the finish (shard_finish does those over every
+    shard). CPU tensors take the plain version; CUDA tensors launch
+    csrc/exact_stats.cu in partials mode on the current stream (one
+    launch, no wait) or raise. Either writes into `out` (a contiguous
+    int32 [n, EXACT_FIELDS]) when one is given."""
+    if all(t.is_cpu for t in (table, ntable, meta, anchors)):
+        return _into(out, exact_records_ref(table, ntable, meta, anchors,
+                                            cfg))
+    return _launch_exact_records((table, ntable, meta, anchors), cfg, out)
+
+
+def _into(out, got):
+    """`got`, or copied into `out` when one is given."""
+    return got if out is None else out.copy_(got)
+
+
+def _check_records(out, n: int, fields: int, like, what: str) -> None:
+    if out is not None and (out.dtype != torch.int32
+                            or tuple(out.shape) != (n, fields)
+                            or not out.is_contiguous()
+                            or out.device != like.device):
+        raise ValueError(f"{what}: want a contiguous int32 out [{n}, "
+                         f"{fields}] on {like.device}, got {out.dtype} "
+                         f"{list(out.shape)} on {out.device}")
+
+
+def _launch_exact_records(args: tuple, cfg: Config, out=None, lib=None):
+    """exact_records on CUDA tensors: one C call into `lib` (default: the
+    kernel library), made with the tensors' device current."""
+    global exact_record_launches
+    anchors = args[3]
+    _check_exact(*args, cfg)
+    n = anchors.shape[0]
+    _check_records(out, n, EXACT_FIELDS, anchors, "exact_records")
+    if out is None:
+        out = torch.empty((n, EXACT_FIELDS), dtype=torch.int32,
+                          device=anchors.device)
+    if n:
+        exact_record_launches += _exact_call(
+            lib, args, cfg, [0] * 8, out.data_ptr(), "exact_records launch")
+    return out
+
+
+def classic_records_ref(table, meta, anchors, cfg: Config, slots=None):
+    """Plain version of classic_records: candidate_stats of anchors (or
+    of anchors[slots]) reduced to CLASSIC_OPS' fields, int32 [n,
+    CLASSIC_FIELDS] (positions as uint32 bit patterns, LARGE_POS where no
+    slot has a count)."""
+    if slots is not None:
+        anchors = anchors[slots]
+    count, first_pos = candidate_stats(table, meta, anchors, cfg)[:2]
+    V = count.shape[1] // 2
+
+    def least(lo, hi):
+        return torch.where(count[:, lo:hi] > 0, first_pos[:, lo:hi],
+                           LARGE_POS).amin(1)
+
+    cols = (count[:, 0], count[:, V], count[:, :V].sum(1),
+            count[:, V:].sum(1), least(0, 1), least(V, V + 1), least(1, V),
+            least(V + 1, 2 * V))
+    return torch.stack([_i32(c) for c in cols], dim=1)
+
+
+def classic_records(table, meta, anchors, cfg: Config, slots=None,
+                    out=None):
+    """One index shard's part of the classic enumeration: each anchor's
+    (with `slots`, int64 [k], each slot's anchor's) record of CLASSIC_OPS'
+    fields, int32 [n or k, CLASSIC_FIELDS], the `valid` mask and each
+    slot's guard applied on the shard, as candidate_stats applies them.
+    CPU tensors take the plain version; CUDA tensors launch
+    csrc/classic_k1.cu in partials mode on the current stream (one
+    launch, no wait) or raise. Either writes into `out` when one is
+    given."""
+    given = [t for t in (table, meta, anchors, slots) if t is not None]
+    if all(t.is_cpu for t in given):
+        return _into(out, classic_records_ref(table, meta, anchors, cfg,
+                                              slots))
+    return _launch_classic_records(table, meta, anchors, cfg, slots, out)
+
+
+def _launch_classic_records(table, meta, anchors, cfg: Config, slots=None,
+                            out=None, lib=None):
+    """classic_records on CUDA tensors: one C call, with the tensors'
+    device current."""
+    n = anchors.shape[0] if slots is None else slots.shape[0]
+    _check_records(out, n, CLASSIC_FIELDS, anchors, "classic_records")
+    if out is None:
+        out = torch.empty((n, CLASSIC_FIELDS), dtype=torch.int32,
+                          device=anchors.device)
+    _launch_classic(table, meta, anchors, cfg, slots=slots, lib=lib,
+                    records=out)
+    return out
+
+
+def shard_finish_ref(records, anchors, cfg: Config, slots=None, hits=None):
+    """Plain version of shard_finish: new tensors."""
+    u = records.to(torch.int64)
+
+    def comb(j, op):
+        x = u[:, :, j]
+        return (x.sum(0) if op == "sum" else (x & M32).amin(0)
+                if op == "min" else (x != 0).any(0))
+
+    if records.shape[2] == EXACT_FIELDS:
+        parts = tuple(comb(j, op) for j, op in enumerate(EXACT_OPS))
+        clean, swap, _, _ = _exact_keys(anchors, cfg)
+        return exact_finish(parts, clean, swap, cfg)
+    c0, cv, sp, sm, p0, pv, pp, pm = (comb(j, op)
+                                      for j, op in enumerate(CLASSIC_OPS))
+    # finalize_hits on the records: mm is 0 only at the exact slots.
+    n_exact, total = c0 + cv, sp + sm
+    any_exact, any_at_all = n_exact > 0, total > 0
+    m0 = torch.where(any_exact, 0, torch.where(any_at_all, 1, LARGE_MM))
+    n_best = torch.where(any_exact, n_exact, total)
+    strand = torch.where(torch.where(any_exact, c0 > 0, sp > 0), 0,
+                         torch.where(any_at_all, 1, 2))
+
+    def on_strand(plus, minus):
+        return torch.where(strand == 0, plus,
+                           torch.where(strand == 1, minus, LARGE_POS))
+
+    pos = torch.where(m0 == 0, on_strand(p0, pv),
+                      torch.where(m0 == 1, on_strand(pp, pm), LARGE_POS))
+    sub = _hits(m0, n_best, total, n_exact, strand, pos, cfg)
+    return sub if slots is None else _scatter(hits, slots, sub)
+
+
+def shard_finish(records, anchors, cfg: Config, slots=None, hits=None):
+    """The cross-shard combine and finish of K1's shard records, int32
+    [shards, n, fields] on the anchors' device. Exact records
+    (EXACT_FIELDS, exact_records) sum, take the least or any over the
+    shards, then exact_finish with the anchors' `clean` and `swap`:
+    (AnchorHits [n], resolved bool [n]). Classic records (CLASSIC_FIELDS,
+    classic_records) combine, then finalize_hits: AnchorHits [n], or with
+    `slots` (int64 [n], distinct) `hits` with row s's written at
+    slots[s] (refill_slice's contract: on the card in place, into fresh
+    outputs that nothing else holds). CPU tensors take the plain version;
+    CUDA tensors launch csrc/shard_k1.cu on the current stream (one
+    launch, no wait) or raise."""
+    given = [t for t in (records, anchors, slots) if t is not None]
+    if all(t.is_cpu for t in given + list(hits or ())):
+        return shard_finish_ref(records, anchors, cfg, slots, hits)
+    return _launch_finish(records, anchors, cfg, slots, hits)
+
+
+def _check_finish(records, anchors, cfg: Config, slots, hits) -> None:
+    """Raise unless csrc/shard_k1.cu takes these tensors and `cfg`."""
+    dev = records.device
+    given = [t for t in (records, anchors, slots) if t is not None]
+    for t in given + list(hits or ()):
+        if t.device != dev or not t.is_contiguous():
+            raise ValueError(f"shard_finish: want contiguous tensors on "
+                             f"{dev}, one CUDA device, got one on "
+                             f"{t.device}")
+    if dev.type != "cuda":
+        raise ValueError(f"shard_finish: records on {dev}; the kernel takes "
+                         "one CUDA device (CPU tensors take the plain "
+                         "version)")
+    exact = records.dim() == 3 and records.shape[2] == EXACT_FIELDS
+    a = cfg.anchor_len
+    if (records.dtype != torch.int32 or records.dim() != 3
+            or records.shape[2] not in (EXACT_FIELDS, CLASSIC_FIELDS)
+            or not 1 <= records.shape[0] <= MAX_SHARDS
+            or not a <= MAX_ANCHOR_LEN
+            or exact != (anchors is not None)
+            or (exact and (anchors.dtype != torch.uint8
+                           or tuple(anchors.shape) != (records.shape[1], a)
+                           or slots is not None))
+            or (slots is None) != (hits is None)):
+        raise ValueError(f"shard_finish: want int32 records [1..{MAX_SHARDS}"
+                         f", n, {EXACT_FIELDS}] with uint8 anchors [n, {a}], "
+                         f"or [.., n, {CLASSIC_FIELDS}] without; slots with "
+                         f"hits; got {records.dtype} {list(records.shape)}")
+    if slots is not None:
+        n = hits.pos.shape[0]
+        want = (torch.bool, torch.int64) + (torch.int32,) * 5
+        if (slots.dtype != torch.int64
+                or tuple(slots.shape) != (records.shape[1],)
+                or slots.shape[0] > n or any(
+                    f.dtype != d or tuple(f.shape) != (n,)
+                    for f, d in zip(hits, want))):
+            raise ValueError(f"shard_finish: want int64 slots "
+                             f"[{records.shape[1]}] and AnchorHits fields "
+                             f"[{n}] of finalize_hits' dtypes")
+
+
+def _launch_finish(records, anchors, cfg: Config, slots=None, hits=None,
+                   lib=None):
+    """shard_finish on CUDA tensors: one C call into `lib` (default: the
+    kernel library), made with the records' device current."""
+    global finish_launches
+    _check_finish(records, anchors, cfg, slots, hits)
+    S, n, fields = records.shape
+    dev = records.device
+
+    def empty(dtype):
+        return torch.empty(n, dtype=dtype, device=dev)
+
+    resolved = None
+    if hits is None:
+        hits = AnchorHits(aligned=empty(torch.bool), pos=empty(torch.int64),
+                          strand=empty(torch.int32), mm=empty(torch.int32),
+                          n_best=empty(torch.int32),
+                          second_mm=empty(torch.int32),
+                          qual=empty(torch.int32))
+    if anchors is not None:
+        resolved = empty(torch.bool)
+    if n:
+        def ptr(t):
+            return 0 if t is None else t.data_ptr()
+
+        lib = lib or _build.load()
+        index = records.get_device()
+        with torch.cuda.device(index):
+            got = lib.fc2t_shard_finish(_build.SHARD_ARGS.pack(
+                records.data_ptr(), ptr(anchors), ptr(slots),
+                *(x.data_ptr() for x in hits), ptr(resolved),
+                torch._C._cuda_getCurrentRawStream(index), n, S, fields,
+                cfg.anchor_len, cfg.prefix_len, cfg.max_bucket,
+                cfg.max_anchor_mm, index, 0))
+        if got < 0:
+            _build.check(-got, "shard_finish launch")
+        finish_launches += got
+    return hits if anchors is None else (hits, resolved)
+
+
+def _shard_records(shards, make, n: int, fields: int, device, args: tuple):
+    """Every shard's records, int32 [len(shards), n, fields] on `device`:
+    make(*shard, *args, out=) on the shard's device, straight into its
+    row of the buffer when that is the shard's device, else into a new
+    tensor there, copied over (no wait)."""
+    buf = torch.empty((len(shards), n, fields), dtype=torch.int32,
+                      device=device)
+    for s, shard in enumerate(shards):
+        dev = shard[0].device
+        if dev == device:
+            make(*shard, *args, out=buf[s])
+        else:
+            got = make(*shard, *(a.to(dev, non_blocking=True)
+                                 for a in args))
+            buf[s].copy_(got, non_blocking=True)
+    return buf
 
 
 # The stages of csrc/classic_k1.cu between its stage clocks
@@ -758,7 +1076,14 @@ def exact_stage_cycles(table, ntable, meta, anchors, cfg: Config):
 def align_anchors_sharded(shards, anchors, cfg: Config) -> AnchorHits:
     """Classic K1 over index shards [(table, meta)]: each shard's
     (count, first_pos), summed and minimized on the anchors' device,
-    then finalize_hits (plain per-shard partials)."""
+    then finalize_hits. On CPU tensors the plain parts; otherwise each
+    shard's classic_records and one shard_finish (kernels, no wait)."""
+    if not _all_cpu(shards, anchors):
+        records = _shard_records(
+            shards, lambda t, m, a, out=None: classic_records(
+                t, m, a, cfg, out=out),
+            anchors.shape[0], CLASSIC_FIELDS, anchors.device, (anchors,))
+        return shard_finish(records, None, cfg)
     parts = _on_shards(shards, lambda t, m, a: candidate_stats(t, m, a, cfg),
                        (anchors,), anchors.device)
     mm_v, strand_v = parts[0][2:]
@@ -815,19 +1140,36 @@ def _fast_pair(exact, compact, refill, anchors_a, anchors_b, cfg: Config):
     return (*_split(hits, B), overflow)
 
 
+def refill_slice_sharded(shards, anchors, slots, hits: AnchorHits,
+                         cfg: Config) -> AnchorHits:
+    """refill_slice over index shards [(table, meta)]: `hits` with the
+    classic hits of anchors[slots] written at `slots`. On CPU tensors the
+    plain parts, into new tensors; otherwise each shard's classic_records
+    in slot mode and one shard_finish that writes into `hits` in place
+    (kernels, no wait), as refill_slice does."""
+    if _all_cpu(shards, anchors, slots, *hits):
+        return _scatter(hits, slots, align_anchors_sharded(
+            shards, anchors[slots], cfg))
+    records = _shard_records(
+        shards, lambda t, m, a, s, out=None: classic_records(
+            t, m, a, cfg, slots=s, out=out),
+        slots.shape[0], CLASSIC_FIELDS, anchors.device, (anchors, slots))
+    return shard_finish(records, None, cfg, slots=slots, hits=hits)
+
+
 def align_anchor_pair_fast_sharded(shards, anchors_a, anchors_b,
                                    cfg: Config):
-    """align_anchor_pair_fast over index shards [(table, ntable, meta)]
-    (plain per-shard partials, combined). The fallback slice is compacted
-    on the combined `resolved`, so every shard enumerates the same
-    anchors, and its statistics combine as the classic path's."""
+    """align_anchor_pair_fast over index shards [(table, ntable, meta)].
+    The fallback slice is compacted on the combined `resolved`
+    (fallback_slice, the compaction kernel on the card), so every shard
+    enumerates the same anchors, and its statistics combine as the
+    classic path's."""
     classic = [(t, m) for t, _, m in shards]
-
     return _fast_pair(
         lambda both: exact_anchor_stats_sharded(shards, both, cfg),
-        fallback_slice_ref,
-        lambda both, idx, hits: _scatter(hits, idx, align_anchors_sharded(
-            classic, both[idx], cfg)),
+        fallback_slice,
+        lambda both, idx, hits: refill_slice_sharded(classic, both, idx,
+                                                     hits, cfg),
         anchors_a, anchors_b, cfg)
 
 

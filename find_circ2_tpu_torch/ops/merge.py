@@ -12,12 +12,18 @@ included: the sort is stable (the fill rows take their key fields from
 the last sorted row), and empty segments keep the reference's
 identities (sum 0, min int32 max, max int32 min). start/end are uint32
 positions carried in int64, as in the port's detect results.
+
+On CPU tensors both take the plain version (`_sort_combine`, after
+`merge_junctions_ref`'s table build); on CUDA tensors each is one call
+of the hand-written kernel csrc/merge.cu (its header says how it sorts),
+which builds merge_junctions' table in its load pass.
 """
 
 from __future__ import annotations
 
 import torch
 
+from find_circ2_tpu_torch import _build
 from find_circ2_tpu_torch.config import Config, ST_JUNCTION
 
 BIGDEF = 2 ** 30
@@ -28,6 +34,26 @@ SUM_FIELDS = ("n_reads", "uniq_bridges", "n_strand_match")
 MAX_FIELDS = ("best_qual_left", "best_qual_right")
 MIN_FIELDS = ("edits", "overlap", "n_bp")
 ALL_FIELDS = ("valid",) + KEY_FIELDS + SUM_FIELDS + MAX_FIELDS + MIN_FIELDS
+# csrc/merge.cu's kOneBlock: above this many rows the sort runs across
+# blocks, with its keys and order in device memory.
+ONE_BLOCK_ROWS = 8192
+# What merge_junctions reads of a detect result besides lens, with the
+# kernel's dtypes ("multi" may be absent).
+RESULT_FIELDS = {"status": torch.int32, "kind": torch.int32,
+                 "chrom": torch.int32, "start": torch.int64,
+                 "end": torch.int64, "sense": torch.int32,
+                 "qual_left": torch.int32, "qual_right": torch.int32,
+                 "align_strand": torch.int32, "edits": torch.int32,
+                 "overlap": torch.int32, "n_bp": torch.int32,
+                 "multi": torch.int32}
+# The table's dtypes, in and out.
+TABLE_DTYPES = {name: (torch.bool if name == "valid" else torch.int64
+                       if name in ("start", "end") else torch.int32)
+                for name in ALL_FIELDS}
+
+# Kernel launches (csrc/merge.cu) since the last reset (set to 0 to
+# reset): one a call up to ONE_BLOCK_ROWS rows, more above.
+launches = 0
 
 
 def _lexsort(keys) -> torch.Tensor:
@@ -93,7 +119,16 @@ def merge_junctions(res: dict, lens: torch.Tensor, cfg: Config) -> dict:
 
     Multi-hit-flagged rows (SPEC §2b) are excluded when present: their
     single-best junction is provisional; the host slow path re-calls and
-    re-adds them."""
+    re-adds them. CPU tensors take the plain version; CUDA tensors launch
+    csrc/merge.cu on the current stream (no wait) or raise."""
+    src = {k: res[k] for k in RESULT_FIELDS if k in res}
+    if all(t.is_cpu for t in (lens, *src.values())):
+        return merge_junctions_ref(res, lens, cfg)
+    return _launch_merge(dict(src, lens=lens), cfg)
+
+
+def merge_junctions_ref(res: dict, lens: torch.Tensor, cfg: Config) -> dict:
+    """Plain version of merge_junctions: the table, then _sort_combine."""
     live = (res["status"] == ST_JUNCTION) & (lens > 0)
     if "multi" in res:
         live = live & (res["multi"] == 0)
@@ -117,6 +152,81 @@ def merge_junctions(res: dict, lens: torch.Tensor, cfg: Config) -> dict:
 
 def merge_tables(tables: dict) -> dict:
     """Re-merge a stack of merged tables (fields shaped [K, N]) into one
-    table of length K*N."""
-    return _sort_combine({name: tables[name].reshape(-1)
-                          for name in ALL_FIELDS})
+    table of length K*N. CPU tensors take the plain version
+    (_sort_combine); CUDA tensors launch csrc/merge.cu on the current
+    stream (no wait) or raise."""
+    flat = {name: tables[name].reshape(-1) for name in ALL_FIELDS}
+    if all(t.is_cpu for t in flat.values()):
+        return _sort_combine(flat)
+    return _launch_merge(flat)
+
+
+def _check_merge(src: dict) -> int:
+    """Raise unless csrc/merge.cu takes these columns; return their
+    length."""
+    result = "valid" not in src
+    want = (dict(RESULT_FIELDS, lens=torch.int32) if result
+            else TABLE_DTYPES)
+    first = src["lens" if result else "valid"]
+    n = first.shape[0] if first.dim() == 1 else -1
+    for k, t in src.items():
+        if (k not in want or t.dtype != want[k] or t.dim() != 1
+                or t.shape[0] != n or not t.is_contiguous()
+                or t.device != first.device):
+            raise ValueError(
+                f"merge: want contiguous 1-d columns of one length on one "
+                f"CUDA device, dtypes {want}; got {k} {t.dtype} "
+                f"{list(t.shape)} on {t.device}")
+    if first.device.type != "cuda":
+        raise ValueError(f"merge: columns on {first.device}; the kernel "
+                         "takes one CUDA device (CPU tensors take the "
+                         "plain version)")
+    if n >= 2 ** 31:
+        raise ValueError(f"merge: {n} rows, the kernel takes < 2^31")
+    return n
+
+
+def _launch_merge(src: dict, cfg: Config | None = None, lib=None) -> dict:
+    """merge_junctions (`src` a detect result's RESULT_FIELDS and lens,
+    with `cfg`) or merge_tables (`src` a flat table) on CUDA tensors: one
+    C call into `lib` (default: the kernel library), made with the
+    columns' device current."""
+    global launches
+    n = _check_merge(src)
+    result = "valid" not in src
+    first = src["lens" if result else "valid"]
+    dev = first.device
+    out = {k: torch.empty(n, dtype=d, device=dev)
+           for k, d in TABLE_DTYPES.items()}
+    if n == 0:
+        return out
+    P = 1 << (n - 1).bit_length()
+    scratch = ((torch.empty(P, dtype=torch.int64, device=dev),
+                torch.empty(P, dtype=torch.int64, device=dev),
+                torch.empty(P, dtype=torch.int32, device=dev))
+               if P > ONE_BLOCK_ROWS else ())
+
+    def ptr(name):
+        t = src.get(name)
+        return 0 if t is None else t.data_ptr()
+
+    if result:
+        rows = ([0] + [ptr(k) for k in KEY_FIELDS] + [0] * len(SUM_FIELDS)
+                + [ptr("qual_left"), ptr("qual_right")]
+                + [ptr(k) for k in MIN_FIELDS]
+                + [ptr(k) for k in ("status", "lens", "multi",
+                                    "align_strand")])
+    else:
+        rows = [ptr(k) for k in ALL_FIELDS] + [0] * 4
+    lib = lib or _build.load()
+    index = first.get_device()
+    with torch.cuda.device(index):
+        got = lib.fc2t_merge(_build.MERGE_ARGS.pack(
+            *rows, *(out[k].data_ptr() for k in ALL_FIELDS),
+            *(t.data_ptr() for t in scratch), *([0] * (3 - len(scratch))),
+            torch._C._cuda_getCurrentRawStream(index), n, ST_JUNCTION,
+            cfg.min_uniq_qual if result else 0, index, 0))
+    if got < 0:
+        _build.check(-got, "merge launch")
+    launches += got
+    return out

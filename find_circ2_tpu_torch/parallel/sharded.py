@@ -3,19 +3,24 @@ for the hierarchical merge (reference: find_circ2_tpu/parallel/sharded.py).
 
 Reads split across data rows; the seed index shards by k-mer prefix
 range (index/hashtable.shard_query_table) across the index axis. Each
-data row runs K1 on its row's index shards, every table and
-neighbour-table fetch through the row gather of its shard's device, and
-combines the shards' integer partials on the row's first device
-(ops/anchor_align `*_sharded`); the rest of the detect step runs once
-there. Results equal the single-device path bit for bit.
+data row runs K1 on its row's index shards and combines the shards'
+integer partials on the row's first device (ops/anchor_align
+`*_sharded`); the rest of the detect step runs once there. On the card
+each shard's part is a partials-mode launch of the probe's or the
+enumeration's kernel on the shard's device, writing one record an
+anchor into the row's [shards, n, fields] buffer, and the combine and
+finish are one kernel (csrc/shard_k1.cu); on the CPU the plain parts.
+Results equal the single-device path bit for bit.
 
 The reference runs one program per slot, with psum/pmin collectives
 inside; here one process drives every slot of its mesh block, so the
 combine is a sum or minimum over stacked partials, with no host sync.
 
-`detect_merged` collapses each data row's results into a junction table
-(ops/merge, K-h), re-merges the rows' tables, and with a "dhost" axis
-merges each dhost group first and the groups' collapsed tables after.
+`detect_merged` collapses each data row's classic results (the packed
+rows of detect's core, unpacked on the row's device) into a junction
+table (ops/merge, K-h: csrc/merge.cu on the card), re-merges the rows'
+tables, and with a "dhost" axis merges each dhost group first and the
+groups' collapsed tables after.
 Across processes (parallel/distributed.py) the tables cross on host
 copies over gloo and merge on the card.
 """
@@ -27,10 +32,11 @@ import time
 
 import numpy as np
 import torch
+from torch.profiler import record_function
 
 from find_circ2_tpu_torch.config import Config
 from find_circ2_tpu_torch.index.build import SeedIndex
-from find_circ2_tpu_torch.index.hashtable import (build_neighbor_table,
+from find_circ2_tpu_torch.index.hashtable import (M32, build_neighbor_table,
                                                   build_query_table,
                                                   shard_neighbor_tables,
                                                   shard_query_table)
@@ -39,7 +45,8 @@ from find_circ2_tpu_torch.models.pipeline import (revcomp_batch,
                                                   unpack_results)
 from find_circ2_tpu_torch.ops.anchor_align import (
     align_anchor_pair_fast_sharded, align_anchor_pair_sharded, read_anchors)
-from find_circ2_tpu_torch.ops.detect import detect_core, detect_core_packed
+from find_circ2_tpu_torch.ops.detect import (PACK_FIELDS, detect_core,
+                                            detect_core_packed)
 from find_circ2_tpu_torch.ops.merge import (ALL_FIELDS, merge_junctions,
                                             merge_tables)
 from find_circ2_tpu_torch.ops.packed import pack_words
@@ -135,15 +142,19 @@ class ShardedEngine:
 
     def _align_row(self, row: _Row, reads, lens, classic: bool):
         """One data row's K1 over its index shards: (hits_a, hits_b,
-        overflow), overflow None on the classic path."""
+        overflow), overflow None on the classic path. The phases carry
+        the profiler labels read_anchors, k1_exact and k1_fallback, or
+        k1_classic, as the single device's programs do."""
         cfg = self.cfg
-        anchors_a, anchors_b = read_anchors(reads, lens, cfg)
+        with record_function("read_anchors"):
+            anchors_a, anchors_b = read_anchors(reads, lens, cfg)
         if self.fast and not classic:
             return align_anchor_pair_fast_sharded(row.shards, anchors_a,
                                                   anchors_b, cfg)
-        return (*align_anchor_pair_sharded(
-            [(t, m) for t, _, m in row.shards], anchors_a, anchors_b, cfg),
-            None)
+        with record_function("k1_classic"):
+            return (*align_anchor_pair_sharded(
+                [(t, m) for t, _, m in row.shards], anchors_a, anchors_b,
+                cfg), None)
 
     def _detect_row(self, row: _Row, reads, lens, rc,
                     classic: bool = False) -> dict:
@@ -161,9 +172,11 @@ class ShardedEngine:
         """One data row's packed rows: K1, then detect_core_packed (the
         kernel on the card)."""
         hits_a, hits_b, overflow = self._align_row(row, reads, lens, classic)
-        return detect_core_packed(row.words, self.nbases, row.chrom_offsets,
-                                  reads, lens, rc, hits_a, hits_b, overflow,
-                                  self.cfg, self.prefilter)
+        with record_function("detect_core"):
+            return detect_core_packed(row.words, self.nbases,
+                                      row.chrom_offsets, reads, lens, rc,
+                                      hits_a, hits_b, overflow, self.cfg,
+                                      self.prefilter)
 
     def _packed(self, reads, lens, classic: bool) -> torch.Tensor:
         dev = self.rows[0].device
@@ -195,14 +208,24 @@ class ShardedEngine:
         """The classic path's packed rows (the fallback-overflow redo)."""
         return self._packed(reads, lens, classic=True)
 
+    def _merge_row(self, row: _Row, reads, lens, rc) -> dict:
+        """One data row's classic detect result as merge_junctions reads
+        it: its packed rows (detect_core_packed, the kernel on the card)
+        unpacked on the row's device, start and end back to int64."""
+        packed = self._packed_row(row, reads, lens, rc, classic=True)
+        res = {k: packed[:, i].contiguous()
+               for i, k in enumerate(PACK_FIELDS[:-1])}
+        for k in ("start", "end"):
+            res[k] = res[k].to(torch.int64) & M32
+        return res
+
     def detect_merged(self, reads: np.ndarray, lens: np.ndarray) -> dict:
         """Sharded classic detect, then the junction merge over data rows,
         dhost groups and processes; one table of the global batch's
         length, on the host. Multi-hit-flagged reads are left out of the
         table (ops/merge.merge_junctions)."""
         dev = self.rows[0].device
-        tables = [merge_junctions(self._detect_row(*part, classic=True),
-                                  part[2], self.cfg)
+        tables = [merge_junctions(self._merge_row(*part), part[2], self.cfg)
                   for part in self._split(reads, lens)]
 
         def stack(ts):

@@ -37,7 +37,9 @@ from find_circ2_tpu_torch.index.hashtable import (CNT_BITS, EMPTY_KEY,
                                                   LANES, S8_MASK, SLOTS,
                                                   build_neighbor_table,
                                                   build_query_table,
-                                                  mix_hash)
+                                                  mix_hash,
+                                                  shard_neighbor_tables,
+                                                  shard_query_table)
 from find_circ2_tpu_torch.io.genome import Genome
 from find_circ2_tpu_torch.models.pipeline import revcomp_batch
 from find_circ2_tpu_torch.ops.anchor_align import (AnchorHits, _exact_keys,
@@ -487,3 +489,34 @@ def slice_flags(n: int, unresolved: int, k, cfg: Config = Config(),
     flags = np.ones(lead + n, bool)
     flags[lead + rng.choice(n, unresolved, replace=False)] = False
     return flags, min(cfg.exact_fallback_slots, n) if k is None else k
+
+
+# The index shard counts of the sharded K1's checks (the CPU tests hold
+# each against the JAX package on 8 virtual devices).
+SHARD_COUNTS = (1, 2, 4, 8)
+
+
+def shard_tables(case: DetectCase, counts=SHARD_COUNTS,
+                 cfg: Config = Config()) -> dict:
+    """The case genome's index carved into prefix-range shards as the
+    sharded engine carves it (shard_query_table, and the neighbour table
+    built once on the full table and relocated): {n_shards: (tables
+    [S, T, 8], ntables [S, T, 8], metas [S, 3])}, numpy int32. The
+    index is built anew from the genome, without the case's planted
+    table edits (coincident buckets, doubled ext ids)."""
+    index = build_index(case.genome, cfg)
+    index.qtable = build_query_table(index, cfg, extras=False)
+    index.qtable.ntable = build_neighbor_table(index, cfg)
+    out = {}
+    for n in counts:
+        tables, metas = shard_query_table(index, n, cfg)
+        out[n] = (tables, shard_neighbor_tables(index.qtable, tables), metas)
+    return out
+
+
+def shard_args(tables, ntables, metas, devices) -> list:
+    """Shards [(table, ntable, meta)] as the sharded K1 takes them, shard
+    i on devices[i]."""
+    return [tuple(torch.from_numpy(np.ascontiguousarray(x[i])).to(dev)
+                  for x in (tables, ntables, metas))
+            for i, dev in enumerate(devices)]

@@ -283,6 +283,180 @@ def test_stamped_detect_kernels_match_plain_on_card(case, cuda_device):
         assert (cyc >= 0).all() and (cyc.sum(1) > 0).all()
 
 
+def _shard_kernels(case, tables, device, slots=(4, 1024)):
+    """The sharded K1's kernels on the case's anchors over `tables`' shards,
+    all on `device`, against their plain versions on the same tensors:
+    each shard's records (exact, classic, classic on a slice), the finish
+    of the stacked records (exact; classic, full and written at slots in
+    place), and the sharded forms against the CPU's plain parts (the
+    exact-first pair at each fallback slice size, the classic pair)."""
+    sh = detect_cases.shard_args(*tables, [device] * tables[0].shape[0])
+    anchors = torch.from_numpy(case.anchors).to(device)
+    n = anchors.shape[0]
+    slot = torch.arange(n - 1, -1, -3, device=device)
+    exact = torch.stack([ta.exact_records(*s, anchors, CFG) for s in sh])
+    classic = torch.stack([ta.classic_records(t, m, anchors, CFG)
+                           for t, _, m in sh])
+    sliced = torch.stack([ta.classic_records(t, m, anchors, CFG, slot)
+                          for t, _, m in sh])
+    torch.cuda.synchronize(device)
+    for got, want in ((exact, [ta.exact_records_ref(*s, anchors, CFG)
+                               for s in sh]),
+                      (classic, [ta.classic_records_ref(t, m, anchors, CFG)
+                                 for t, _, m in sh]),
+                      (sliced, [ta.classic_records_ref(t, m, anchors, CFG,
+                                                       slot)
+                                for t, _, m in sh])):
+        assert torch.equal(got, torch.stack(want))
+    assert _same_hits(ta.shard_finish(exact, anchors, CFG),
+                      ta.shard_finish_ref(exact, anchors, CFG))
+    assert all(torch.equal(a, b) for a, b in zip(
+        ta.shard_finish(classic, None, CFG),
+        ta.shard_finish_ref(classic, None, CFG)))
+    hits = ta.shard_finish(exact, anchors, CFG)[0]
+    want = ta.shard_finish_ref(sliced, None, CFG, slot, hits)
+    got = ta.shard_finish(sliced, None, CFG, slot, hits)
+    assert all(a is b for a, b in zip(got, hits))
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+    half = n // 2
+    cpu = detect_cases.shard_args(*tables, ["cpu"] * tables[0].shape[0])
+    for k in slots:
+        cfg = dataclasses.replace(CFG, exact_fallback_slots=k)
+        pair = (case.anchors[:half], case.anchors[half:2 * half])
+        got = ta.align_anchor_pair_fast_sharded(
+            sh, *(torch.from_numpy(x).to(device) for x in pair), cfg)
+        want = ta.align_anchor_pair_fast_sharded(
+            cpu, *(torch.from_numpy(x) for x in pair), cfg)
+        assert all(torch.equal(a.cpu(), b) for a, b in zip(
+            [*got[0], *got[1], got[2]], [*want[0], *want[1], want[2]]))
+    got = ta.align_anchor_pair_sharded(
+        [(t, m) for t, _, m in sh], anchors[:half], anchors[half:2 * half],
+        CFG)
+    want = ta.align_anchor_pair_sharded(
+        [(t, m) for t, _, m in cpu], anchors[:half].cpu(),
+        anchors[half:2 * half].cpu(), CFG)
+    assert all(torch.equal(a.cpu(), b) for a, b in zip([*got[0], *got[1]],
+                                                       [*want[0], *want[1]]))
+
+
+@pytest.mark.cuda
+def test_shard_kernels_match_plain_on_card(case, cuda_device):
+    """On the card, at 1, 2, 4 and 8 index shards of the case's genome,
+    the partials modes of the probe and the enumeration, the cross-shard
+    finish (csrc/shard_k1.cu) and the sharded forms equal their plain
+    versions (the fallback slice overflowing at 4 slots); each wrapper
+    launches once a call and the single-table kernels' counts stay."""
+    shards = detect_cases.shard_tables(case, detect_cases.SHARD_COUNTS, CFG)
+    before = (ta.exact_record_launches, ta.classic_record_launches,
+              ta.finish_launches, ta.exact_launches, ta.classic_launches)
+    for tables in shards.values():
+        _shard_kernels(case, tables, cuda_device)
+    got = [ta.exact_record_launches - before[0],
+           ta.classic_record_launches - before[1],
+           ta.finish_launches - before[2], ta.exact_launches - before[3],
+           ta.classic_launches - before[4]]
+    # At S shards: the direct calls, S exact and 2S classic records and
+    # four finishes; each of the two fast pairs S exact and S classic
+    # records and two finishes; the classic pair S records and a finish.
+    S = sum(shards)
+    assert got == [3 * S, 5 * S, 9 * len(shards), 0, 0], got
+
+
+def _merge_tensors(name, n, seed, device):
+    from find_circ2_tpu_torch.utils.merge_cases import merge_case
+    res, lens = merge_case(name, n, seed)
+    return ({k: torch.from_numpy(v.astype(np.int64) if v.dtype == np.uint32
+                                 else v).to(device) for k, v in res.items()},
+            torch.from_numpy(lens).to(device))
+
+
+@pytest.mark.cuda
+def test_merge_kernel_matches_plain_on_card(cuda_device):
+    """csrc/merge.cu equals the plain merge on all N rows, fill rows
+    included, on every utils/merge_cases case at N = 1 and 97, the 2x2
+    engine's 2,048 and 4,096, the one-block limit 8,192 and 8,193 and
+    20,000 rows past it (the sort across blocks); merge_tables on two and
+    three stacked tables; one launch a call up to the limit."""
+    from find_circ2_tpu_torch.ops import merge as tm
+    from find_circ2_tpu_torch.utils.merge_cases import CASES
+    for n in (1, 97, 2048, 4096, 8192, 8193, 20000):
+        for i, name in enumerate(CASES):
+            res, lens = _merge_tensors(name, n, i + n, cuda_device)
+            before = tm.launches
+            got = tm.merge_junctions(res, lens, CFG)
+            torch.cuda.synchronize()
+            assert (tm.launches == before + 1) == (n <= tm.ONE_BLOCK_ROWS)
+            want = tm.merge_junctions_ref(res, lens, CFG)
+            assert {k: v.dtype for k, v in got.items()} == tm.TABLE_DTYPES
+            for k in tm.ALL_FIELDS:
+                assert torch.equal(got[k], want[k]), (name, n, k)
+            for K in (2, 3):
+                stack = {k: torch.stack([got[k]] * K) for k in got}
+                got2 = tm.merge_tables(stack)
+                want2 = tm._sort_combine({k: v.reshape(-1)
+                                          for k, v in stack.items()})
+                for k in tm.ALL_FIELDS:
+                    assert torch.equal(got2[k], want2[k]), (name, n, K, k)
+
+
+def _batchify(reads, cfg, bs):
+    from find_circ2_tpu_torch.io.twobit import seq_to_codes
+    arr = np.full((bs, cfg.max_read_len), detect_cases.RPAD_CODE, np.uint8)
+    lens = np.zeros(bs, np.int32)
+    kept = [s for _, s in reads
+            if 2 * cfg.anchor_len <= len(s) <= cfg.max_read_len][:bs]
+    for i, s in enumerate(kept):
+        codes = seq_to_codes(s)
+        arr[i, :codes.size] = codes
+        lens[i] = codes.size
+    return arr, lens
+
+
+@pytest.mark.cuda
+def test_sharded_engine_on_two_cards(two_cards):
+    """A 1x2 sharded engine with its index shards on cuda:0 and cuda:1
+    (the records of the shard on cuda:1 cross to cuda:0, the row's
+    device) gives the single device's detect rows, and its packed rows
+    and detect_merged equal the same engine on the CPU, all N rows."""
+    from find_circ2_tpu_torch.index.build import build_index
+    from find_circ2_tpu_torch.parallel.mesh import make_mesh
+    from find_circ2_tpu_torch.parallel.sharded import ShardedEngine
+    from find_circ2_tpu_torch.utils.simulate import simulate
+    torch.cuda.set_device(0)
+    cfg = dataclasses.replace(CFG, batch_size=64)
+    sim = simulate(seed=33, n_circ=5, n_linear=3, reads_per_junction=3,
+                   n_contiguous=10, n_random=6, err_rate=0.3)
+    idx = build_index(sim.genome, cfg)
+    reads, lens = _batchify(sim.reads, cfg, 64)
+    devs = [torch.device("cuda", 0), two_cards]
+    eng = ShardedEngine(sim.genome, idx, make_mesh(2, (1, 2), devs), cfg)
+    cpu = ShardedEngine(sim.genome, idx, make_mesh(2, (1, 2), ["cpu"] * 2),
+                        cfg)
+    assert eng.rows[0].shards[1][0].device == two_cards
+    before = (ta.exact_record_launches, ta.finish_launches)
+    for fn in ("dispatch_packed", "redo_packed"):
+        assert torch.equal(getattr(eng, fn)(reads, lens).cpu(),
+                           getattr(cpu, fn)(reads, lens))
+    assert ta.exact_record_launches - before[0] == 2
+    assert ta.finish_launches - before[1] >= 3
+    got, want = eng.detect_merged(reads, lens), cpu.detect_merged(reads,
+                                                                   lens)
+    assert all(np.array_equal(got[k], want[k]) for k in want)
+    dindex = tp.DeviceIndex.build(sim.genome, idx, cfg, device=devs[0])
+    single = tp.detect_batch(dindex.words, dindex.nbases, dindex.table,
+                             dindex.meta, dindex.chrom_offsets,
+                             torch.from_numpy(reads).to(devs[0]),
+                             torch.from_numpy(lens).to(devs[0]), cfg, True)
+    out = eng.detect(reads, lens)
+    live = lens > 0
+    for k, v in single.items():
+        v = v.cpu().numpy()
+        mask = live[:, None] if v.ndim == 2 else live
+        assert np.array_equal(np.where(mask, out[k], 0),
+                              np.where(mask, v, 0)), k
+    assert torch.cuda.current_device() == 0
+
+
 @pytest.mark.cuda
 def test_classic_kernels_on_second_card(case, two_cards):
     """With cuda:0 current, the enumeration and the compaction run on

@@ -507,7 +507,7 @@ def test_library_hash_covers_headers(tmp_path, monkeypatch):
     assert len(seen) == 3
     assert {os.path.basename(s) for s in _build._sources()} == {
         "classic_k1.cu", "detect.cu", "exact_stats.cu", "explore.cu",
-        "gather_rows.cu"}
+        "gather_rows.cu", "merge.cu", "shard_k1.cu"}
 
 
 def test_profiler_labels_split_a_batch(case):
