@@ -21,9 +21,9 @@ Phases, each fatal on failure:
      the sharded K1's kernels (the partials modes of the probe and the
      enumeration, `exact_records` and `classic_records`, and the
      cross-shard finish `shard_finish`) and the sharded forms over 1, 2, 4
-     and 8 index shards of that batch's genome; K-h's kernel
+     and 8 index shards of that batch's genome; K-h's kernels
      (`merge_junctions`, `merge_tables`) on every `merge_cases` case at
-     MERGE_SIZES rows, past its one-block limit too;
+     MERGE_SIZES rows, one tile, its edges and many tiles;
   4. the port's `find_circ` CLI on test_data/ must reproduce the golden
      BED and stats byte for byte;
   5. the main path at real size: `run --filter` on the 16 Mbp RNase-R
@@ -80,11 +80,13 @@ Phases, each fatal on failure:
      and device_dispatch); on every batch the engine's packed rows and
      `detect_merged` (all rows) with the kernels equal the plain
      versions, `detect_merged` equals the single device's detect and
-     merge, and the merge kernel launches once a data row and once for
-     their tables; the first batch forced through the redo; one batch's
-     device activities by label, kernels against plain; each new
-     kernel timed at the engine's shapes (as called, device alone, the
-     plain version's busy time, bound), K-h at B / 2, B and 4 B rows;
+     merge, and the merge makes one C call a data row and one for their
+     tables, each launching the kernels its rows imply; the first batch
+     forced through the redo; one batch's device activities by label,
+     kernels against plain; each new kernel timed at the engine's shapes
+     (as called, device alone, the plain version's busy time, bound),
+     K-h at B / 2, B and 4 B rows with the SM cycles of its stages at B
+     / 2 and one stable torch.argsort of B / 2 and 4 B int64 beside it;
      `find_circ --mesh 2x2` and `--nproc 2` (two processes over gloo on
      the one card) reproduce the golden bytes.
 
@@ -151,17 +153,20 @@ CLASSIC_OPS_PER_VARIANT = 150
 COMPACT_OPS_PER_ANCHOR = 30
 # The int32 operations of csrc/shard_k1.cu's combine, a record of one
 # shard, and of its finish, an anchor; and of csrc/merge.cu, one key
-# comparison of the sort (a comparison sort needs N log2 N of them) and
-# one row's combine (its loads, head, scan, shuffles and atomics),
-# counted from the sources.
+# comparison (a 16-byte shared load, two 128-bit compares, the select and
+# the count; a comparison sort needs N log2 N of them) and one row's
+# load, key, record, scatter and combine (its head, scan, five shuffle
+# levels of eight fields and atomics), counted from the source.
 FINISH_OPS_PER_RECORD = 12
 FINISH_OPS_PER_ANCHOR = 60
-MERGE_OPS_PER_COMPARE = 8
-MERGE_OPS_PER_ROW = 120
+MERGE_OPS_PER_COMPARE = 10
+MERGE_OPS_PER_ROW = 240
 # K-h's row counts held against the plain merge in phase 3: one row, a
-# ragged few, a 2x2 engine's data row (B / 2) and two rows' tables (B),
-# csrc/merge.cu's one-block limit and past it (the sort across blocks).
-MERGE_SIZES = (1, 97, 2048, 4096, 8192, 8193, 20000)
+# ragged few, one tile of csrc/merge.cu (ops/merge.TILE_ROWS, 128) and its
+# neighbours, a 2x2 engine's data row (B / 2) and two rows' tables (B),
+# many tiles (6,000 and 20,000, not powers of two), and the sizes PR 11's
+# one-block limit split (8,192, 8,193).
+MERGE_SIZES = (1, 97, 127, 128, 129, 2048, 4096, 6000, 8192, 8193, 20000)
 # The detect_cases batch (seed, rows) and each edge case's rows
 # (detect_cases.EDGE_CASES), the fallback slice of the forced
 # classic redo, and the anchor sets drawn from the genome for the probe's
@@ -642,7 +647,7 @@ def _plain_k1():
 
 
 def check_merge_cases(device, card: str) -> dict:
-    """K-h's kernel (csrc/merge.cu) against the plain merge on every
+    """K-h's kernels (csrc/merge.cu) against the plain merge on every
     utils/merge_cases case at each of MERGE_SIZES rows: merge_junctions,
     and merge_tables of two and of three copies of its table, all N rows,
     fill rows included. Returns the largest difference (0)."""
@@ -652,6 +657,9 @@ def check_merge_cases(device, card: str) -> dict:
     from find_circ2_tpu_torch.utils.merge_cases import CASES, merge_case
     cfg = Config()
     out = {}
+    if MERGE_SIZES[2:5] != tuple(tm.TILE_ROWS + d for d in (-1, 0, 1)):
+        fail(f"MERGE_SIZES {MERGE_SIZES} miss the tile's edges "
+             f"({tm.TILE_ROWS} rows)")
     for n in MERGE_SIZES:
         for i, name in enumerate(CASES):
             res, lens = merge_case(name, n, i + n)
@@ -669,7 +677,7 @@ def check_merge_cases(device, card: str) -> dict:
 
             hold_plain(merges, plain_merge, f"the {name} merge case at {n} "
                        "rows", out, "merge_err")
-    log(f"K-h's kernel (merge_junctions, merge_tables of 2 and 3 tables) "
+    log(f"K-h's kernels (merge_junctions, merge_tables of 2 and 3 tables) "
         f"equals the plain merge on all rows of every merge case "
         f"({', '.join(CASES)}) at {', '.join(map(str, MERGE_SIZES))} rows, "
         f"exactly, on {card}")
@@ -2091,7 +2099,7 @@ def check_sharded(fq, sim, genome, index, dindex, cfg, streams, truth,
                 (ta, "classic_launches"), (ta, "compact_launches"),
                 (ta, "exact_record_launches"),
                 (ta, "classic_record_launches"), (ta, "finish_launches"),
-                (tm, "launches"))
+                (tm, "launches"), (tm, "calls"))
     for mod, name in counters:
         setattr(mod, name, 0)
     agg, times, wall = stream(True)
@@ -2180,7 +2188,7 @@ def check_sharded(fq, sim, genome, index, dindex, cfg, streams, truth,
     reads = [(n, s) for n, s in sim.reads
              if 2 * cfg.anchor_len <= len(s) <= cfg.max_read_len]
     bs, n_rows, faults = cfg.batch_size, 0, []
-    err, merge_calls = 0, 0
+    err, merge_calls, merge_kernels = 0, 0, 0
     for lo in range(0, len(reads), bs):
         part = reads[lo:lo + bs]
         arr, lens = encode_batch([s for _, s in part], bs, cfg.max_read_len)
@@ -2216,9 +2224,10 @@ def check_sharded(fq, sim, genome, index, dindex, cfg, streams, truth,
                        for k in one if np.any(one[k][i] != many[k][i])}))
         lens_kept = np.where(np.isin(np.arange(bs), differ), 0,
                              lens).astype(np.int32)
-        before = tm.launches
+        before = (tm.calls, tm.launches)
         merged = eng.detect_merged(arr, lens_kept)
-        merge_calls += tm.launches - before
+        merge_calls += tm.calls - before[0]
+        merge_kernels += tm.launches - before[1]
         with plain_detect(), plain_merge():
             merged_plain = eng.detect_merged(arr, lens_kept)
         kept_t = torch.from_numpy(lens_kept).to(dindex.device)
@@ -2244,15 +2253,23 @@ def check_sharded(fq, sim, genome, index, dindex, cfg, streams, truth,
         n_rows += n
     out["merged_batches"] = -(-len(reads) // bs)
     out["probe_faults"] = faults
-    out["merge_launches"] = merge_calls
-    if merge_calls != out["merged_batches"] * (rows + 1):
-        fail(f"detect_merged launched the merge kernel {merge_calls} times "
-             f"in {out['merged_batches']} batches: want one for each of "
-             f"{rows} data rows and one for their tables")
+    # One C call a data row (bs / rows rows) and one for their tables (bs
+    # rows), each launching the kernels its rows imply.
+    out["merge_calls"] = merge_calls
+    out["merge_launches"] = merge_kernels
+    want_kernels = out["merged_batches"] * (
+        rows * tm.merge_kernels(bs // rows) + tm.merge_kernels(bs))
+    if (merge_calls != out["merged_batches"] * (rows + 1)
+            or merge_kernels != want_kernels):
+        fail(f"detect_merged made {merge_calls} merge calls launching "
+             f"{merge_kernels} kernels in {out['merged_batches']} batches: "
+             f"want one call for each of {rows} data rows and one for "
+             f"their tables, {want_kernels} kernels")
     log(f"detect_merged with the kernels equals it with the plain versions "
         f"(all rows) and detect_batch + merge_junctions (valid rows) on all "
-        f"{out['merged_batches']} batches ({n_rows} junction rows; the "
-        f"merge kernel launched {merge_calls} times), merge_junctions with "
+        f"{out['merged_batches']} batches ({n_rows} junction rows; "
+        f"{merge_calls} merge calls launched {merge_kernels} kernels), "
+        f"merge_junctions with "
         f"the kernel equals the plain merge on all rows; the engine's "
         f"packed rows (exact-first and classic) with the kernels equal the "
         f"plain versions' on every batch; classic rows equal read for read "
@@ -2458,14 +2475,18 @@ def time_shard(eng, batches, cfg, card: str) -> dict:
 
 
 def merge_times(res, lens, cfg, card: str) -> dict:
-    """K-h on one stream batch's single-device detect result: the kernel
+    """K-h on one stream batch's single-device detect result: the kernels
     (csrc/merge.cu) beside the plain merge (plain_merge) with
     _time_shape, at the 2x2 engine's shapes, merge_junctions on a data
     row's B / 2 rows and merge_tables of two such tables (B rows); at the
-    whole batch's B rows; and merge_tables of eight tables, past the
-    kernel's one-block limit. The bound: each field read once and each
-    written once over the HBM rate, or N log2 N key comparisons and a
-    combine a row over the int32 rate."""
+    whole batch's B rows; and merge_tables of eight tables (4 B rows).
+    The bound: each field read once and each written once over the HBM
+    rate, or N log2 N key comparisons (MERGE_OPS_PER_COMPARE each, what
+    a comparison sort needs) and MERGE_OPS_PER_ROW a row over the int32
+    rate. Then the SM cycles of each stage at B / 2 rows (merge_stages)
+    and, as a yardstick of one library sort pass of one key, one stable
+    torch.argsort of B / 2 and of 4 B random int64 on the device alone
+    (CUDA-graph replay); the port never calls it."""
     import math
     import torch
     from find_circ2_tpu_torch.ops.merge import merge_junctions, merge_tables
@@ -2511,6 +2532,41 @@ def merge_times(res, lens, cfg, card: str) -> dict:
                 return fn(i)
         out[name] = _time_shape(fn, plain, 3, lambda i, b=b: b)
         _log_shape(f"K-h {name}", out[name], card)
+    out["stages"] = merge_stages(*half, cfg, f"a data row's {B // 2} rows",
+                                 card)
+    g = torch.Generator(device=lens.device).manual_seed(3)
+    out["argsort_ms"] = {}
+    for N in (B // 2, 4 * B):
+        x = torch.randint(0, 2 ** 62, (N,), dtype=torch.int64,
+                          device=lens.device, generator=g)
+
+        def sort(i, x=x):
+            return torch.argsort(x, stable=True)
+        out["argsort_ms"][str(N)] = min(graph_ms(sort, range(3)),
+                                        graph_ms(sort, range(3)))
+    log("one stable torch.argsort of random int64 on the device alone "
+        "(K-h's yardstick, not used by the port): " + "; ".join(
+            f"{N} rows {ms:.5f} ms" for N, ms in out["argsort_ms"].items())
+        + f"; on {card}")
+    return out
+
+
+def merge_stages(res, lens, cfg, what: str, card: str) -> dict:
+    """Where K-h spends its time: the measurement build of csrc/merge.cu
+    (ops/merge.merge_stage_cycles), its table held against the plain
+    merge's, and per stage the median, 90th percentile and maximum of the
+    SM clock cycles over the tiles."""
+    import torch
+    from find_circ2_tpu_torch.ops import merge as tm
+    got, cyc = tm.merge_stage_cycles(res, lens, cfg)
+    want = tm.merge_junctions_ref(res, lens, cfg)
+    if not all(torch.equal(got[k], want[k]) for k in tm.ALL_FIELDS):
+        fail(f"the stamped merge differs from the plain merge on {what}")
+    out = _quantiles(cyc, tm.STAGES)
+    log(f"merge stages on {what}, SM clock cycles a tile ({tm.TILE_ROWS} "
+        f"rows a tile; median / p90 / max): " + "; ".join(
+            f"{k} {m:.0f} / {p:.0f} / {x:.0f}"
+            for k, (m, p, x) in out.items()) + f"; on {card}")
     return out
 
 
@@ -2834,7 +2890,7 @@ def main() -> int:
              "shard_err"),
             ("merge", "merge.cu", "find_circ2_tpu/ops/merge.py:36",
              mt["main"], tuple(k for k in mt if k not in mt["main"]
-                               and k != "main"), "merge_err")):
+                               and k.startswith("merge_")), "merge_err")):
         recs = st if name != "merge" else mt
         kernels.append({
             "name": name, "route": "cuda",
@@ -2850,7 +2906,14 @@ def main() -> int:
             "library_ms": None,
             "shapes": {s: {k: recs[s][k] for k in keys + ("bound_by",
                                                            "sets")}
-                       for s in (*main, *other)}})
+                       for s in (*main, *other)},
+            # K-h's `launches` count kernels (merge_kernels(n) a C call:
+            # three above one tile); `calls` its C calls; its stage
+            # cycles at a data row's rows and its argsort yardstick.
+            **({"launches_are": "kernels", "calls": sd["merge_calls"],
+                "stage_cycles": {k: v[0] for k, v in mt["stages"].items()},
+                "argsort_ms": mt["argsort_ms"]} if name == "merge"
+               else {})})
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -25,9 +25,10 @@ BUILD_DIR = os.path.join(os.path.dirname(_HERE), "build", "kernels")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC")
 # The measurement build: csrc/explore.cu, csrc/classic_k1.cu,
-# csrc/detect.cu and csrc/exact_stats.cu record per-stage clocks.
+# csrc/detect.cu, csrc/exact_stats.cu and csrc/merge.cu record per-stage
+# clocks.
 STAMP_FLAGS = ("-DFC2T_EXPLORE_STAMPS", "-DFC2T_CLASSIC_STAMPS",
-               "-DFC2T_DETECT_STAMPS")
+               "-DFC2T_DETECT_STAMPS", "-DFC2T_MERGE_STAMPS")
 
 _lib = None
 _stamped = None
@@ -122,6 +123,9 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.fc2t_shard_finish.restype = ctypes.c_int
     lib.fc2t_merge.argtypes = [ctypes.c_char_p]
     lib.fc2t_merge.restype = ctypes.c_int
+    # Rows in; the scratch bytes fc2t_merge wants for them out.
+    lib.fc2t_merge_scratch_bytes.argtypes = [ctypes.c_longlong]
+    lib.fc2t_merge_scratch_bytes.restype = ctypes.c_longlong
     return lib
 
 
@@ -136,8 +140,8 @@ def load() -> ctypes.CDLL:
 def load_stamped() -> ctypes.CDLL:
     """The measurement build of the kernel library (STAMP_FLAGS), built on
     first call; it also has fc2t_explore_stamps(void*),
-    fc2t_classic_stamps(void*), fc2t_detect_stamps(void*) and
-    fc2t_exact_stamps(void*)."""
+    fc2t_classic_stamps(void*), fc2t_detect_stamps(void*),
+    fc2t_exact_stamps(void*) and fc2t_merge_stamps(void*)."""
     global _stamped
     if _stamped is None:
         lib = _bind(ctypes.CDLL(build(NVCC_FLAGS + STAMP_FLAGS)))
@@ -151,7 +155,8 @@ def load_stamped() -> ctypes.CDLL:
 # The measurement build's entries that point a kernel's stage clocks at a
 # buffer (null: nowhere); each returns 0 or minus a CUDA error.
 STAMP_ENTRIES = ("fc2t_explore_stamps", "fc2t_classic_stamps",
-                 "fc2t_detect_stamps", "fc2t_exact_stamps")
+                 "fc2t_detect_stamps", "fc2t_exact_stamps",
+                 "fc2t_merge_stamps")
 
 
 def stamped(entry: str, rows: int, stages: int, like, launch):
@@ -217,9 +222,9 @@ SHARD_ARGS = struct.Struct("<12Qq8i")
 # csrc/merge.cu's MergeArgs: valid, kind, chrom, start, end, sense, the
 # three sum, two maximum and three minimum fields, status, lens, multi,
 # align_strand; the outputs in the same order as the table's fields; the
-# sort's key_hi, key_lo and order; stream; n; then st_junction,
+# scratch buffer; stream; n, the scratch's bytes; then st_junction,
 # min_uniq_qual, device, reserved.
-MERGE_ARGS = struct.Struct("<36Qq4i")
+MERGE_ARGS = struct.Struct("<34Q2q4i")
 
 
 def check(err: int, what: str) -> None:

@@ -15,8 +15,9 @@ positions carried in int64, as in the port's detect results.
 
 On CPU tensors both take the plain version (`_sort_combine`, after
 `merge_junctions_ref`'s table build); on CUDA tensors each is one call
-of the hand-written kernel csrc/merge.cu (its header says how it sorts),
-which builds merge_junctions' table in its load pass.
+of the hand-written kernels of csrc/merge.cu (its header says how they
+sort and combine across the SMs), which build merge_junctions' table in
+their load pass.
 """
 
 from __future__ import annotations
@@ -34,9 +35,13 @@ SUM_FIELDS = ("n_reads", "uniq_bridges", "n_strand_match")
 MAX_FIELDS = ("best_qual_left", "best_qual_right")
 MIN_FIELDS = ("edits", "overlap", "n_bp")
 ALL_FIELDS = ("valid",) + KEY_FIELDS + SUM_FIELDS + MAX_FIELDS + MIN_FIELDS
-# csrc/merge.cu's kOneBlock: above this many rows the sort runs across
-# blocks, with its keys and order in device memory.
-ONE_BLOCK_ROWS = 8192
+# csrc/merge.cu's kTile: the rows of a tile (a block sorts one, ranks one
+# against the other tiles, combines one).
+TILE_ROWS = 128
+# The stages of csrc/merge.cu between its stage clocks
+# (FC2T_MERGE_STAMPS), a tile's: merge_tiles' two, merge_rank's two,
+# merge_combine's one.
+STAGES = ("load and key build", "tile sort", "rank", "scatter", "combine")
 # What merge_junctions reads of a detect result besides lens, with the
 # kernel's dtypes ("multi" may be absent).
 RESULT_FIELDS = {"status": torch.int32, "kind": torch.int32,
@@ -51,9 +56,16 @@ TABLE_DTYPES = {name: (torch.bool if name == "valid" else torch.int64
                        if name in ("start", "end") else torch.int32)
                 for name in ALL_FIELDS}
 
-# Kernel launches (csrc/merge.cu) since the last reset (set to 0 to
-# reset): one a call up to ONE_BLOCK_ROWS rows, more above.
+# Kernels launched (csrc/merge.cu, merge_kernels(n) a call) and C calls
+# of fc2t_merge made since the last reset (set to 0 to reset).
 launches = 0
+calls = 0
+
+
+def merge_kernels(n: int) -> int:
+    """The kernels one C call launches on n rows: merge_tiles and
+    merge_combine, and merge_rank between them above one tile."""
+    return 0 if n <= 0 else 2 if n <= TILE_ROWS else 3
 
 
 def _lexsort(keys) -> torch.Tensor:
@@ -190,8 +202,9 @@ def _launch_merge(src: dict, cfg: Config | None = None, lib=None) -> dict:
     """merge_junctions (`src` a detect result's RESULT_FIELDS and lens,
     with `cfg`) or merge_tables (`src` a flat table) on CUDA tensors: one
     C call into `lib` (default: the kernel library), made with the
-    columns' device current."""
-    global launches
+    columns' device current, with one scratch buffer of the size the
+    library asks for."""
+    global launches, calls
     n = _check_merge(src)
     result = "valid" not in src
     first = src["lens" if result else "valid"]
@@ -200,11 +213,9 @@ def _launch_merge(src: dict, cfg: Config | None = None, lib=None) -> dict:
            for k, d in TABLE_DTYPES.items()}
     if n == 0:
         return out
-    P = 1 << (n - 1).bit_length()
-    scratch = ((torch.empty(P, dtype=torch.int64, device=dev),
-                torch.empty(P, dtype=torch.int64, device=dev),
-                torch.empty(P, dtype=torch.int32, device=dev))
-               if P > ONE_BLOCK_ROWS else ())
+    lib = lib or _build.load()
+    nbytes = lib.fc2t_merge_scratch_bytes(n)
+    scratch = torch.empty(nbytes, dtype=torch.uint8, device=dev)
 
     def ptr(name):
         t = src.get(name)
@@ -218,15 +229,29 @@ def _launch_merge(src: dict, cfg: Config | None = None, lib=None) -> dict:
                                     "align_strand")])
     else:
         rows = [ptr(k) for k in ALL_FIELDS] + [0] * 4
-    lib = lib or _build.load()
     index = first.get_device()
     with torch.cuda.device(index):
         got = lib.fc2t_merge(_build.MERGE_ARGS.pack(
             *rows, *(out[k].data_ptr() for k in ALL_FIELDS),
-            *(t.data_ptr() for t in scratch), *([0] * (3 - len(scratch))),
-            torch._C._cuda_getCurrentRawStream(index), n, ST_JUNCTION,
-            cfg.min_uniq_qual if result else 0, index, 0))
+            scratch.data_ptr(), torch._C._cuda_getCurrentRawStream(index),
+            n, nbytes, ST_JUNCTION, cfg.min_uniq_qual if result else 0,
+            index, 0))
     if got < 0:
         _build.check(-got, "merge launch")
+    calls += 1
     launches += got
     return out
+
+
+def merge_stage_cycles(res: dict, lens: torch.Tensor, cfg: Config):
+    """merge_junctions on CUDA tensors through the measurement build of
+    csrc/merge.cu: (its table, int64 [tiles, len(STAGES)] SM clock cycles
+    of each tile's stages, each from its start to its end on one SM's
+    clock64; a tile of TILE_ROWS rows; rank and scatter 0 on one tile).
+    One C call, counted on `calls` and `launches`."""
+    src = dict({k: res[k] for k in RESULT_FIELDS if k in res}, lens=lens)
+    tiles = -(-lens.shape[0] // TILE_ROWS)
+    got, cyc = _build.stamped("fc2t_merge_stamps", tiles,
+                              2 * len(STAGES) - 1, lens,
+                              lambda lib: _launch_merge(src, cfg, lib))
+    return got, cyc[:, ::2]

@@ -17,7 +17,16 @@ tests can hold csrc/merge.cu against the plain version on them:
   row;
 - "big": every start and end at or above 2^31;
 - "stable": equal keys at rows far apart and dead rows whose raw fields
-  differ, so the fill rows show which row the stable sort put last.
+  differ, so the fill rows show which row the stable sort put last;
+- "long-runs": in key order, runs of equal live keys of lengths T - 1,
+  T and T + 1 and one of several tiles (T = ops/merge.TILE_ROWS, the
+  kernel's tile), with short runs between them, so runs start at
+  offsets on both sides of the tiles' edges; the rows come shuffled,
+  with a tenth more rows dead (they sort after the runs);
+- "tile-edge": in key order, heads exactly at the tiles' edges (a key a
+  tile), then live rows whose masked key equals the dead rows' (kind
+  256, chrom 0, the rest 0) with dead rows among them at each tile's
+  first, middle and last row, so a head follows each dead row.
 
 N = 1 is any case at n = 1.
 """
@@ -27,9 +36,10 @@ from __future__ import annotations
 import numpy as np
 
 from find_circ2_tpu_torch.config import ST_JUNCTION
+from find_circ2_tpu_torch.ops.merge import TILE_ROWS
 
 CASES = ("random", "all-dead", "one-key", "dups", "distinct", "big",
-         "stable")
+         "stable", "long-runs", "tile-edge")
 BIG = np.array([5, 2 ** 31 - 3, 2 ** 31, 2 ** 31 + 9, 2 ** 32 - 7],
                np.uint32)
 
@@ -89,4 +99,35 @@ def merge_case(name: str, n: int, seed: int) -> tuple[dict, np.ndarray]:
         for k in ("kind", "chrom", "sense"):
             res[k][dead] = rng.integers(0, 1000, int(dead.sum()))
         res["start"][dead] = rng.choice(BIG, int(dead.sum()))
+    elif name == "long-runs":
+        T = TILE_ROWS
+        n_live = n - n // 10
+        runs, pattern = [], (T - 1, 3, T, 5, T + 1, 7, 3 * T + 11, 2)
+        while sum(runs) < n_live:
+            runs.extend(pattern)
+        key = np.concatenate([np.repeat(np.arange(len(runs)), runs)[:n_live],
+                              np.zeros(n - n_live, np.int64)])
+        order = rng.permutation(n)
+        res.update(live, kind=np.zeros(n, np.int32),
+                   chrom=np.ones(n, np.int32),
+                   start=(BIG[2] + key[order]).astype(np.uint32),
+                   end=np.full(n, BIG[3]), sense=np.ones(n, np.int32))
+        lens[:] = 100
+        res["status"][order >= n_live] = 3
+    elif name == "tile-edge":
+        T = TILE_ROWS
+        tile, r = np.arange(n) // T, np.arange(n) % T
+        even = tile % 2 == 0
+        res.update(live, kind=np.where(even, 0, 256).astype(np.int32),
+                   chrom=np.where(even, 1, 0).astype(np.int32),
+                   start=np.where(even, BIG[1] + tile, 0).astype(np.uint32),
+                   end=np.where(even, BIG[4], 0).astype(np.uint32),
+                   sense=np.zeros(n, np.int32))
+        lens[:] = 100
+        edge = ~even & ((r == 0) | (r == T // 2) | (r == T - 1))
+        res["status"][edge & (r == 0)] = 3
+        res["multi"][edge & (r == T // 2)] = 1
+        lens[edge & (r == T - 1)] = 0
+        for k in ("kind", "chrom", "sense"):
+            res[k][edge] = rng.integers(0, 1000, int(edge.sum()))
     return res, lens

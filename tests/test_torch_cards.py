@@ -370,22 +370,30 @@ def _merge_tensors(name, n, seed, device):
             torch.from_numpy(lens).to(device))
 
 
+# K-h's row counts on the card: one row, a ragged few, one tile
+# (ops/merge.TILE_ROWS, 128) and its neighbours, the 2x2 engine's 2,048
+# and 4,096, and many tiles past them.
+MERGE_ROWS = (1, 97, 127, 128, 129, 2048, 4096, 8192, 8193, 20000)
+
+
 @pytest.mark.cuda
 def test_merge_kernel_matches_plain_on_card(cuda_device):
     """csrc/merge.cu equals the plain merge on all N rows, fill rows
-    included, on every utils/merge_cases case at N = 1 and 97, the 2x2
-    engine's 2,048 and 4,096, the one-block limit 8,192 and 8,193 and
-    20,000 rows past it (the sort across blocks); merge_tables on two and
-    three stacked tables; one launch a call up to the limit."""
+    included, on every utils/merge_cases case at each of MERGE_ROWS rows
+    (one tile, its edges, and the rank across tiles); merge_tables on two
+    and three stacked tables; one C call a merge, launching
+    merge_kernels(n) kernels."""
     from find_circ2_tpu_torch.ops import merge as tm
     from find_circ2_tpu_torch.utils.merge_cases import CASES
-    for n in (1, 97, 2048, 4096, 8192, 8193, 20000):
+    assert MERGE_ROWS[2:5] == tuple(tm.TILE_ROWS + d for d in (-1, 0, 1))
+    for n in MERGE_ROWS:
         for i, name in enumerate(CASES):
             res, lens = _merge_tensors(name, n, i + n, cuda_device)
-            before = tm.launches
+            before = (tm.calls, tm.launches)
             got = tm.merge_junctions(res, lens, CFG)
             torch.cuda.synchronize()
-            assert (tm.launches == before + 1) == (n <= tm.ONE_BLOCK_ROWS)
+            assert (tm.calls, tm.launches) == (
+                before[0] + 1, before[1] + tm.merge_kernels(n))
             want = tm.merge_junctions_ref(res, lens, CFG)
             assert {k: v.dtype for k, v in got.items()} == tm.TABLE_DTYPES
             for k in tm.ALL_FIELDS:
@@ -397,6 +405,26 @@ def test_merge_kernel_matches_plain_on_card(cuda_device):
                                           for k, v in stack.items()})
                 for k in tm.ALL_FIELDS:
                     assert torch.equal(got2[k], want2[k]), (name, n, K, k)
+
+
+@pytest.mark.cuda
+def test_stamped_merge_kernel_matches_plain_on_card(cuda_device):
+    """The measurement build of csrc/merge.cu computes what the plain
+    merge does, on one tile and on many, and its stage cycles come back
+    one row a tile, none negative, each row's sum positive; rank and
+    scatter are 0 on one tile."""
+    from find_circ2_tpu_torch.ops import merge as tm
+    for n in (97, 2048, 8193):
+        res, lens = _merge_tensors("long-runs", n, n, cuda_device)
+        got, cyc = tm.merge_stage_cycles(res, lens, CFG)
+        want = tm.merge_junctions_ref(res, lens, CFG)
+        for k in tm.ALL_FIELDS:
+            assert torch.equal(got[k], want[k]), (n, k)
+        assert cyc.shape == (-(-n // tm.TILE_ROWS), len(tm.STAGES))
+        assert (cyc >= 0).all() and (cyc.sum(1) > 0).all()
+        rank = tm.STAGES.index("rank")
+        assert bool((cyc[:, rank:rank + 2] == 0).all()) == (
+            n <= tm.TILE_ROWS)
 
 
 def _batchify(reads, cfg, bs):
