@@ -19,9 +19,12 @@ Phases, each fatal on failure:
      kernels on each of `detect_cases.EDGE_CASES` (reads up to 301 bases
      in rows off 4 bytes, 40 chromosomes, anchors of 18 and 16 bases);
      the sharded K1's kernels (the partials modes of the probe and the
-     enumeration, `exact_records` and `classic_records`, and the
-     cross-shard finish `shard_finish`) and the sharded forms over 1, 2, 4
-     and 8 index shards of that batch's genome; K-h's kernels
+     enumeration, `exact_records` and `classic_records`, each shard
+     looking up only the keys it owns, and the cross-shard finish
+     `shard_finish`) and the sharded forms over 1, 2, 4 and 8 index
+     shards of that batch's genome and of keys at every cut between the
+     shards' key ranges, the records also of every key and of each
+     shard's keys on the whole table; K-h's kernels
      (`merge_junctions`, `merge_tables`) on every `merge_cases` case at
      MERGE_SIZES rows, one tile, its edges and many tiles;
   4. the port's `find_circ` CLI on test_data/ must reproduce the golden
@@ -85,6 +88,11 @@ Phases, each fatal on failure:
      forced through the redo; one batch's device activities by label,
      kernels against plain; each new kernel timed at the engine's shapes
      (as called, device alone, the plain version's busy time, bound),
+     the record kernels on each index shard and summed over a data row,
+     beside their bounds at the rows each shard owns and at every key's
+     and the random-row floor at the rate gather_rows reaches on the
+     shard's table, with their stage clocks looking up every key and the
+     shard's own, and again on 4 shards carved from the same index,
      K-h at B / 2, B and 4 B rows with the SM cycles of its stages at B
      / 2 and one stable torch.argsort of B / 2 and 4 B int64 beside it;
      `find_circ --mesh 2x2` and `--nproc 2` (two processes over gloo on
@@ -567,74 +575,91 @@ def check_classic_cases(device, card: str) -> dict:
 
 
 def check_shard_cases(device, card: str) -> dict:
-    """The sharded K1's kernels against their plain versions on a
-    detect_cases batch's anchors (PINNED_ANCHORS and DIRTY_AT among them),
-    over 1, 2, 4 and 8 index shards of the case's genome on the card:
-    each shard's records (exact_records; classic_records, full and in
-    slot mode), the finish of the stacked records (shard_finish: exact;
-    classic, full and written at slots in place), and the sharded forms
-    (the exact-first pair at REDO_SLOTS slots, where it overflows, and at
-    exact_fallback_slots; the classic pair). Returns the largest
-    difference (0)."""
+    """The sharded K1's kernels against their plain versions, exactly,
+    over 1, 2, 4 and 8 index shards of the case's genome on the card, on
+    a detect_cases batch's anchors (PINNED_ANCHORS and DIRTY_AT among
+    them) and on detect_cases.range_edge_case's anchors (keys at every
+    cut between the shards' key ranges and one below it): each shard's
+    records (exact_records; classic_records, full and in slot mode) of
+    the keys it owns, of every key, and of its keys on the whole table
+    (which holds every key, so a key outside the range that was looked
+    up would show); the finish of the stacked records (shard_finish:
+    exact; classic, full and written at slots in place); and the sharded
+    forms (the exact-first pair at REDO_SLOTS slots, where it overflows
+    on the detect_cases batch, and at exact_fallback_slots; the classic
+    pair). Returns the largest difference (0)."""
     import dataclasses
     import torch
     from find_circ2_tpu_torch.config import Config
     from find_circ2_tpu_torch.ops import anchor_align as ta
     from find_circ2_tpu_torch.utils import detect_cases
     cfg = Config()
-    case = detect_cases.detect_case(DETECT_CASE_SEED, DETECT_CASE_ROWS, cfg)
-    anchors = torch.from_numpy(case.anchors).to(device)
-    n = anchors.shape[0]
-    half = n // 2
-    slot = torch.arange(n - 1, -1, -3, device=device)
+    cases = {"detect_cases": detect_cases.detect_case(
+                 DETECT_CASE_SEED, DETECT_CASE_ROWS, cfg),
+             "range-edge": detect_cases.range_edge_case(DETECT_CASE_SEED,
+                                                        cfg)}
     out = {}
-    for S, tables in detect_cases.shard_tables(
-            case, detect_cases.SHARD_COUNTS, cfg).items():
-        sh = detect_cases.shard_args(*tables, [device] * S)
-        classic = [(t, m) for t, _, m in sh]
-        what = f"the detect_cases anchors over {S} index shards"
+    for name, case in cases.items():
+        anchors = torch.from_numpy(case.anchors).to(device)
+        n = anchors.shape[0]
+        half = n // 2
+        slot = torch.arange(n - 1, -1, -3, device=device)
+        carved = detect_cases.shard_tables(case, detect_cases.SHARD_COUNTS,
+                                           cfg)
+        whole = detect_cases.shard_args(*carved[1], [device], cfg)[0]
+        for S, tables in carved.items():
+            sh = detect_cases.shard_args(*tables, [device] * S, cfg)
+            what = f"the {name} anchors over {S} index shards"
+            owns = [s.owns for s in sh]
 
-        def records():
-            return (torch.stack([ta.exact_records(*x, anchors, cfg)
-                                 for x in sh]),
-                    torch.stack([ta.classic_records(t, m, anchors, cfg)
-                                 for t, m in classic]),
-                    torch.stack([ta.classic_records(t, m, anchors, cfg, slot)
-                                 for t, m in classic]))
+            def records(shards=sh, owns=owns):
+                return tuple(torch.stack(x) for x in zip(*(
+                    (ta.exact_records(*s[:3], anchors, cfg, owns=o),
+                     ta.classic_records(s.table, s.meta, anchors, cfg,
+                                        owns=o),
+                     ta.classic_records(s.table, s.meta, anchors, cfg, slot,
+                                        owns=o))
+                    for s, o in zip(shards, owns))))
 
-        hold_plain(records, plain_shard, f"{what} (records)", out,
-                   "shard_err")
-        exact, full, sliced = records()
+            for where, args in (("own keys", (sh, owns)),
+                                ("every key", (sh, [None] * S)),
+                                ("own keys on the whole table",
+                                 ([whole] * S, owns))):
+                hold_plain(lambda: records(*args), plain_shard,
+                           f"{what} (records of {where})", out, "shard_err")
+            exact, full, sliced = records()
 
-        def finish():
-            hits, resolved = ta.shard_finish(exact, anchors, cfg)
-            fresh = ta.AnchorHits(*(x.clone() for x in hits))
-            return (hits, resolved, ta.shard_finish(full, None, cfg),
-                    ta.shard_finish(sliced, None, cfg, slot, fresh))
+            def finish():
+                hits, resolved = ta.shard_finish(exact, anchors, cfg)
+                fresh = ta.AnchorHits(*(x.clone() for x in hits))
+                return (hits, resolved, ta.shard_finish(full, None, cfg),
+                        ta.shard_finish(sliced, None, cfg, slot, fresh))
 
-        hold_plain(finish, plain_shard, f"{what} (finish)", out, "shard_err")
-        flags = []
-        for k in (REDO_SLOTS, cfg.exact_fallback_slots):
-            c = dataclasses.replace(cfg, exact_fallback_slots=k)
-            hold_plain(lambda: ta.align_anchor_pair_fast_sharded(
-                sh, anchors[:half], anchors[half:2 * half], c),
-                _plain_k1, f"{what} (the exact-first pair, {k} slots)",
-                out, "shard_err")
-            flags.append(bool(ta.align_anchor_pair_fast_sharded(
-                sh, anchors[:half], anchors[half:2 * half], c)[2]))
-        hold_plain(lambda: ta.align_anchor_pair_sharded(
-            classic, anchors[:half], anchors[half:2 * half], cfg),
-            _plain_k1, f"{what} (the classic pair)", out, "shard_err")
-        if flags != [True, False]:
-            fail(f"the sharded fallback slice's overflow flags {flags} at "
-                 f"{REDO_SLOTS} and {cfg.exact_fallback_slots} slots")
-    log(f"the sharded K1's kernels (exact_records, classic_records full "
-        f"and in slot mode, shard_finish exact, classic and at slots) and "
-        f"the sharded forms (the exact-first pair at {REDO_SLOTS} slots, "
-        f"overflowing, and at {cfg.exact_fallback_slots}; the classic "
-        f"pair) equal their plain versions on the {n} detect_cases anchors "
-        f"over {', '.join(map(str, detect_cases.SHARD_COUNTS))} index "
-        f"shards, exactly, on {card}")
+            hold_plain(finish, plain_shard, f"{what} (finish)", out,
+                       "shard_err")
+            flags = []
+            for k in (REDO_SLOTS, cfg.exact_fallback_slots):
+                c = dataclasses.replace(cfg, exact_fallback_slots=k)
+                hold_plain(lambda: ta.align_anchor_pair_fast_sharded(
+                    sh, anchors[:half], anchors[half:2 * half], c),
+                    _plain_k1, f"{what} (the exact-first pair, {k} slots)",
+                    out, "shard_err")
+                flags.append(bool(ta.align_anchor_pair_fast_sharded(
+                    sh, anchors[:half], anchors[half:2 * half], c)[2]))
+            hold_plain(lambda: ta.align_anchor_pair_sharded(
+                sh, anchors[:half], anchors[half:2 * half], cfg),
+                _plain_k1, f"{what} (the classic pair)", out, "shard_err")
+            if name == "detect_cases" and flags != [True, False]:
+                fail(f"the sharded fallback slice's overflow flags {flags} "
+                     f"at {REDO_SLOTS} and {cfg.exact_fallback_slots} slots")
+        log(f"the sharded K1's kernels (exact_records, classic_records full "
+            f"and in slot mode, of each shard's own keys, of every key and "
+            f"of each shard's keys on the whole table; shard_finish exact, "
+            f"classic and at slots) and the sharded forms (the exact-first "
+            f"pair at {REDO_SLOTS} and {cfg.exact_fallback_slots} slots; the "
+            f"classic pair) equal their plain versions on the {n} {name} "
+            f"anchors over {', '.join(map(str, detect_cases.SHARD_COUNTS))} "
+            f"index shards, exactly, on {card}")
     return out
 
 
@@ -1207,12 +1232,13 @@ def plain_shard():
     saved = (ta._launch_exact_records, ta._launch_classic_records,
              ta._launch_finish)
     ta._launch_exact_records = (
-        lambda args, cfg, out=None, lib=None:
-        ta._into(out, ta.exact_records_ref(*args, cfg)))
+        lambda args, cfg, out=None, lib=None, owns=None:
+        ta._into(out, ta.exact_records_ref(*args, cfg, owns)))
     ta._launch_classic_records = (
-        lambda table, meta, anchors, cfg, slots=None, out=None, lib=None:
+        lambda table, meta, anchors, cfg, slots=None, out=None, lib=None,
+        owns=None:
         ta._into(out, ta.classic_records_ref(table, meta, anchors, cfg,
-                                             slots)))
+                                             slots, owns)))
     ta._launch_finish = (
         lambda records, anchors, cfg, slots=None, hits=None, lib=None:
         ta.shard_finish_ref(records, anchors, cfg, slots, hits))
@@ -2065,7 +2091,7 @@ def check_sharded(fq, sim, genome, index, dindex, cfg, streams, truth,
     eng = ShardedEngine(genome, index,
                         make_mesh(4, (2, 2), [dindex.device] * 4), cfg)
     out["setup_s"] = dict(eng.setup_s, total=time.perf_counter() - t0)
-    copies = {id(t) for row in eng.rows for t, _, _ in row.shards}
+    copies = {id(s.table) for row in eng.rows for s in row.shards}
     if not eng.fast or eng.n_data != 2 or len(copies) != 2:
         fail(f"2x2 engine: fast={eng.fast}, {eng.n_data} data rows, "
              f"{len(copies)} table copies (want True, 2, 2)")
@@ -2331,7 +2357,7 @@ def check_sharded(fq, sim, genome, index, dindex, cfg, streams, truth,
                 f"{k} {v['activities']} / {v['device_ms']:.3f} / "
                 f"{v['host_ms']:.3f}" for k, v in g.items()
                 if isinstance(v, dict) and k != "total") + f"; on {card}")
-    out["times"] = time_shard(eng, seen["batches"], cfg, card)
+    out["times"] = time_shard(eng, seen["batches"], index, cfg, card)
     out["merge"] = merge_times(single, torch.from_numpy(lens_kept).to(
         dindex.device), cfg, card)
     return out
@@ -2370,23 +2396,68 @@ def _log_shape(name: str, rec: dict, card: str, extra: str = "") -> None:
         f"{100 * rec['bound_ms'] / rec['ms']:.1f}% of it{extra}; on {card}")
 
 
-def records_bound(n: int, cfg, exact: bool, slots: bool = False) -> dict:
+def records_bound(n: int, cfg, exact: bool, slots: bool = False,
+                  rows: int | None = None) -> dict:
     """The least time the card could take for one shard's records of n
     anchors (or slots): bytes, each read once (the anchors' codes, the
-    rows they look up: four 32-byte rows an anchor for the probe, two a
-    canonical variant for the enumeration; meta; the slots) and the
-    records written; int32 operations as the single-table kernels'."""
+    rows they look up, meta, the slots) and the records written; int32
+    operations as the single-table kernels', a looked-up anchor or
+    variant. The rows: `rows` 32-byte rows (owned_rows: those of the keys
+    the shard owns), or by default every key's, four an anchor for the
+    probe and two a canonical variant for the enumeration, as a shard
+    that looks up every key fetches them."""
     from find_circ2_tpu_torch.ops.anchor_align import (CLASSIC_FIELDS,
                                                        EXACT_FIELDS)
     a = cfg.anchor_len
     V = 1 + 3 * a
+    if rows is None:
+        rows = n * (4 if exact else 2 * V)
     if exact:
-        nbytes, ops = n * (a + 4 * 32 + 4 * EXACT_FIELDS), \
-            EXACT_OPS_PER_ANCHOR * n
+        nbytes, ops = n * (a + 4 * EXACT_FIELDS), \
+            EXACT_OPS_PER_ANCHOR * rows // 4
     else:
-        nbytes, ops = n * (a + 2 * V * 32 + 4 * CLASSIC_FIELDS), \
-            CLASSIC_OPS_PER_VARIANT * V * n
-    return _bound(nbytes + 4 * 3 + (8 * n if slots else 0), ops)
+        nbytes, ops = n * (a + 4 * CLASSIC_FIELDS), \
+            CLASSIC_OPS_PER_VARIANT * rows // 2
+    return _bound(nbytes + 32 * rows + 4 * 3 + (8 * n if slots else 0), ops)
+
+
+def owned_rows(anchors, cfg, owns, variants: bool) -> int:
+    """The 32-byte rows a shard's records fetch for `anchors` when it
+    looks up only the keys of `owns` (None: every key): four an anchor
+    whose canonical exact key it owns (both probes of the table and of
+    the neighbour table), or two a canonical variant it owns."""
+    from find_circ2_tpu_torch.ops import anchor_align as ta
+    if variants:
+        p12, s8, p12r, s8r, _ = ta.enumerate_variants(anchors, cfg)
+        cp = ta._canonical((p12, s8), (p12r, s8r))[1]
+        return 2 * int(ta._owned(cp, owns).sum())
+    return 4 * int(ta._owned(ta._exact_keys(anchors, cfg)[2], owns).sum())
+
+
+def table_row_rate(table, what: str, card: str) -> float:
+    """Random rows a second, device alone (graph_ms), that gather_rows
+    moves from `table` at 2^20 rows a call, over enough index sets that
+    their rows exceed the L2 four times: row_rate's measure, on a shard's
+    own table instead of a 2^24-row random one."""
+    import torch
+    from find_circ2_tpu_torch.ops import gather_rows as gr
+    n = 1 << 20
+    sets = -(-4 * L2_BYTES // (n * 4 * table.shape[1]))
+    g = torch.Generator(device=table.device).manual_seed(3)
+    idxs = [torch.randint(0, table.shape[0], (n,), device=table.device,
+                          generator=g) for _ in range(sets)]
+    got = gr.gather_rows(table, idxs[0])
+    torch.cuda.synchronize()
+    if not torch.equal(got, gr.gather_rows_ref(table, idxs[0])):
+        fail(f"gather_rows differs from index_select on {what}")
+    ms = min(graph_ms(lambda i: gr.gather_rows(table, i), idxs)
+             for _ in range(2))
+    rate = n / (ms / 1e3)
+    log(f"gather_rows on {what} ({table.shape[0]:,} rows of "
+        f"{4 * table.shape[1]} bytes): {n:,} random rows in {ms:.5f} ms "
+        f"device alone, {rate / 1e9:.3f} G rows/s ({sets} index sets; "
+        f"exact match); on {card}")
+    return rate
 
 
 def finish_bound(shards: int, n: int, fields: int, cfg,
@@ -2405,72 +2476,276 @@ def finish_bound(shards: int, n: int, fields: int, cfg,
                   + FINISH_OPS_PER_ANCHOR * n)
 
 
-def time_shard(eng, batches, cfg, card: str) -> dict:
-    """The sharded K1's kernels at the 2x2 engine's shapes, on the first
-    data row of each stream batch (both anchors of its B / 2 reads) and
-    that row's first index shard: each with _time_shape beside its plain
-    version and bound. Shapes: the probe's records (exact_records), their
-    finish over the row's shards (shard_finish, exact), the fallback
-    slice's records (classic_records in slot mode, on the compaction of
-    the finish's `resolved`) and their finish at the slots, and the
-    redo's records and finish (classic, every anchor)."""
+# The record kernels' shapes at the 2x2 engine's data row, each a shard:
+# the probe's records, the fallback slice's (slot mode) and the redo's.
+RECORD_SHAPES = ("exact_records", "slot_records", "redo_records")
+
+
+def _record_inputs(sh, batches, eng, cfg) -> tuple:
+    """Per stream batch, the first data row's anchors (both anchors of its
+    B / 2 reads), the probe's records over the row's shards `sh`, their
+    finish's hits and fallback slice (the compaction of `resolved`), and
+    the slice's and the redo's classic records over `sh`."""
     import torch
     from find_circ2_tpu_torch.ops import anchor_align as ta
-    row = eng.rows[0]
-    sh = row.shards
-    classic = [(t, m) for t, _, m in sh]
-    t0, nt0, m0 = sh[0]
     sets, exact, hits, idx, slot, full = [], [], [], [], [], []
     for arr, lens in batches:
         _, reads, lens_t, _ = eng._split(arr, lens)[0]
         both = torch.cat(ta.read_anchors(reads, lens_t, cfg))
         k = min(cfg.exact_fallback_slots, both.shape[0])
-        e = torch.stack([ta.exact_records(*x, both, cfg) for x in sh])
+        e = torch.stack([ta.exact_records(*s[:3], both, cfg, owns=s.owns)
+                         for s in sh])
         h, resolved = ta.shard_finish(e, both, cfg)
         i = ta.fallback_slice(resolved, k)[0]
         sets.append(both)
         exact.append(e)
         hits.append(h)
         idx.append(i)
-        slot.append(torch.stack([ta.classic_records(t, m, both, cfg, i)
-                                 for t, m in classic]))
-        full.append(torch.stack([ta.classic_records(t, m, both, cfg)
-                                 for t, m in classic]))
+        slot.append(torch.stack([ta.classic_records(
+            s.table, s.meta, both, cfg, i, owns=s.owns) for s in sh]))
+        full.append(torch.stack([ta.classic_records(
+            s.table, s.meta, both, cfg, owns=s.owns) for s in sh]))
+    return sets, exact, hits, idx, slot, full
+
+
+def _record_kernels(shard, sets, idx, cfg) -> dict:
+    """RECORD_SHAPES on one shard, each (kernel(i), plain(i), the
+    anchors of set i, slot mode) over the input sets."""
+    from find_circ2_tpu_torch.ops import anchor_align as ta
+    t, nt, m, o = shard
+    return {
+        "exact_records": (
+            lambda i: ta.exact_records(t, nt, m, sets[i], cfg, owns=o),
+            lambda i: ta.exact_records_ref(t, nt, m, sets[i], cfg, o),
+            lambda i: sets[i], False),
+        "slot_records": (
+            lambda i: ta.classic_records(t, m, sets[i], cfg, idx[i],
+                                         owns=o),
+            lambda i: ta.classic_records_ref(t, m, sets[i], cfg, idx[i], o),
+            lambda i: sets[i][idx[i]], True),
+        "redo_records": (
+            lambda i: ta.classic_records(t, m, sets[i], cfg, owns=o),
+            lambda i: ta.classic_records_ref(t, m, sets[i], cfg, owns=o),
+            lambda i: sets[i], False)}
+
+
+def _owned_bounds(name: str, anchors, slots: bool, owns, cfg,
+                  rate: float) -> dict:
+    """A record shape's bound at the rows its shard owns, counted from
+    the data (owned_rows), the bound at every key's rows, and the
+    random-row floor: the owned rows at the shard table's rate."""
+    exact = name == "exact_records"
+    rows = owned_rows(anchors, cfg, owns, not exact)
+    n = anchors.shape[0]
+    rec = records_bound(n, cfg, exact, slots, rows)
+    rec.update(rows=rows,
+               all_rows_bound_ms=records_bound(n, cfg, exact,
+                                               slots)["bound_ms"],
+               row_floor_ms=1e3 * rows / rate)
+    return rec
+
+
+def _log_records(name: str, rec: dict, card: str) -> None:
+    _log_shape(name, rec, card, f"; every key {rec['every_key_ms']:.5f} "
+               f"ms; {rec['rows']:,.0f} rows owned, "
+               f"bound at every key's rows {rec['all_rows_bound_ms']:.6f} "
+               f"ms, random-row floor {rec['row_floor_ms']:.6f} ms")
+
+
+def shard_stages(sh, sets, idx, cfg, card: str) -> dict:
+    """Where the record kernels' warps spend their time on each shard of
+    the data row, looking up every key and only the keys the
+    shard owns: the measurement builds (ops/anchor_align
+    exact_stage_cycles, classic_stage_cycles with `records`) on the first
+    input set, each held against its plain version, and per stage the
+    median, 90th percentile and maximum of the SM cycles over the warps."""
+    from find_circ2_tpu_torch.ops import anchor_align as ta
+    out = {}
+    for i, s in enumerate(sh):
+        for mode, owns in (("every key", None), ("own keys", s.owns)):
+            runs = {
+                "exact_records": (
+                    lambda: ta.exact_stage_cycles(
+                        *s[:3], sets[0], cfg, records=True, owns=owns),
+                    lambda: ta.exact_records_ref(*s[:3], sets[0], cfg, owns),
+                    ta.EXACT_STAGES),
+                "slot_records": (
+                    lambda: ta.classic_stage_cycles(
+                        s.table, s.meta, sets[0], cfg, slots=idx[0],
+                        records=True, owns=owns),
+                    lambda: ta.classic_records_ref(s.table, s.meta, sets[0],
+                                                   cfg, idx[0], owns),
+                    ta.CLASSIC_STAGES[:4]),
+                "redo_records": (
+                    lambda: ta.classic_stage_cycles(
+                        s.table, s.meta, sets[0], cfg, records=True,
+                        owns=owns),
+                    lambda: ta.classic_records_ref(s.table, s.meta, sets[0],
+                                                   cfg, owns=owns),
+                    ta.CLASSIC_STAGES[:4])}
+            for name, (stamped, plain, stages) in runs.items():
+                got, cyc = stamped()
+                if not _equal_all(got, plain()):
+                    fail(f"the stamped {name} kernel differs from its plain "
+                         f"version on shard {i} ({mode})")
+                q = _quantiles(cyc[:, :len(stages)], stages)
+                out[f"{name}/{i}/{mode}"] = q
+                log(f"{name} stages on index shard {i} of {len(sh)}, "
+                    f"{mode}, SM clock cycles a warp (median / p90 / max): "
+                    + "; ".join(f"{k} {m:.0f} / {p:.0f} / {x:.0f}"
+                                for k, (m, p, x) in q.items())
+                    + f"; on {card}")
+    return out
+
+
+def time_shard(eng, batches, index, cfg, card: str) -> dict:
+    """The sharded K1's kernels at the 2x2 engine's shapes, on the first
+    data row of each stream batch (both anchors of its B / 2 reads): each
+    with _time_shape beside its plain version and bound. Shapes: on each
+    of the row's index shards, the probe's records (exact_records), the
+    fallback slice's records (classic_records in slot mode, on the
+    compaction of the finish's `resolved`) and the redo's (classic,
+    every anchor), each beside its bound at the rows the shard owns, the
+    bound at every key's rows and the random-row floor at the rate
+    gather_rows reaches on that shard's table, and timed also looking up
+    every key (`every_key_ms`); each shape's sum over the row's shards
+    (`*_row`); the finishes over the row's shards
+    (shard_finish: exact, at the slots, the redo's). Shard 0's shapes
+    keep their names. Then the stage clocks (shard_stages) and the
+    records on 4 shards carved from the same index (time_four_shards)."""
+    import torch
+    from find_circ2_tpu_torch.ops import anchor_align as ta
+    sh = eng.rows[0].shards
+    sets, exact, hits, idx, slot, full = _record_inputs(sh, batches, eng,
+                                                        cfg)
     n, S = sets[0].shape[0], len(sh)
     k = idx[0].shape[0]
     E, C = ta.EXACT_FIELDS, ta.CLASSIC_FIELDS
-    shapes = {
-        "exact_records": (
-            lambda i: ta.exact_records(t0, nt0, m0, sets[i], cfg),
-            lambda i: ta.exact_records_ref(t0, nt0, m0, sets[i], cfg),
-            lambda i: records_bound(n, cfg, True)),
+    rates = [table_row_rate(s.table, f"index shard {i} of the 2x2 engine",
+                            card) for i, s in enumerate(sh)]
+    out = {"rates": rates}
+    keys = ("ms", "every_key_ms", "plain_ms", "called_ms", "plain_called_ms",
+            "bound_ms", "all_rows_bound_ms", "row_floor_ms", "rows")
+    for i, s in enumerate(sh):
+        every = _record_kernels(s._replace(owns=None), sets, idx, cfg)
+        for name, (kernel, plain, of, slots) in _record_kernels(
+                s, sets, idx, cfg).items():
+            got = f"{name}_{i}" if i else name
+            bounds = [_owned_bounds(name, of(j), slots, s.owns, cfg,
+                                    rates[i]) for j in range(len(sets))]
+            # The same kernel looking up every key, before and after the
+            # shard's own keys, on the same inputs.
+            e1 = graph_ms(every[name][0], range(len(sets)))
+            rec = _time_shape(kernel, plain, len(sets), bounds.__getitem__)
+            rec["every_key_ms"] = min(e1, graph_ms(every[name][0],
+                                                   range(len(sets))))
+            for key in ("rows", "all_rows_bound_ms", "row_floor_ms"):
+                rec[key] = sum(b[key] for b in bounds) / len(sets)
+            out[got] = rec
+            _log_records(f"sharded {name} on index shard {i} of {S} ({n} "
+                         f"anchors of a data row, {k} slots)", rec, card)
+    for name in RECORD_SHAPES:
+        recs = [out[name]] + [out[f"{name}_{i}"] for i in range(1, S)]
+        row = {key: sum(r[key] for r in recs) for key in keys}
+        row.update(sets=len(sets), bound_by=recs[0]["bound_by"])
+        out[f"{name}_row"] = row
+        log(f"sharded {name}, the {S} shards of a data row summed: device "
+            f"alone {row['ms']:.5f} ms (" + " + ".join(
+                f"{r['ms']:.5f}" for r in recs) + f"; every key "
+            f"{row['every_key_ms']:.5f} ms: " + " + ".join(
+                f"{r['every_key_ms']:.5f}" for r in recs) + f") vs plain "
+            f"{row['plain_ms']:.5f} ms; as called {row['called_ms']:.5f} "
+            f"ms; bound at the owned rows {row['bound_ms']:.6f} ms, at "
+            f"every key's {row['all_rows_bound_ms']:.6f} ms, random-row "
+            f"floor {row['row_floor_ms']:.6f} ms ({row['rows']:,.0f} rows); "
+            f"on {card}")
+    finishes = {
         "exact_finish": (
             lambda i: ta.shard_finish(exact[i], sets[i], cfg),
             lambda i: ta.shard_finish_ref(exact[i], sets[i], cfg),
             lambda i: finish_bound(S, n, E, cfg)),
-        "slot_records": (
-            lambda i: ta.classic_records(t0, m0, sets[i], cfg, idx[i]),
-            lambda i: ta.classic_records_ref(t0, m0, sets[i], cfg, idx[i]),
-            lambda i: records_bound(k, cfg, False, slots=True)),
         "slot_finish": (
             lambda i: ta.shard_finish(slot[i], None, cfg, idx[i], hits[i]),
             lambda i: ta.shard_finish_ref(slot[i], None, cfg, idx[i],
                                           hits[i]),
             lambda i: finish_bound(S, k, C, cfg, slots=True)),
-        "redo_records": (
-            lambda i: ta.classic_records(t0, m0, sets[i], cfg),
-            lambda i: ta.classic_records_ref(t0, m0, sets[i], cfg),
-            lambda i: records_bound(n, cfg, False)),
         "redo_finish": (
             lambda i: ta.shard_finish(full[i], None, cfg),
             lambda i: ta.shard_finish_ref(full[i], None, cfg),
             lambda i: finish_bound(S, n, C, cfg)),
     }
-    out = {}
-    for name, (kernel, plain, bound) in shapes.items():
+    for name, (kernel, plain, bound) in finishes.items():
         out[name] = _time_shape(kernel, plain, len(sets), bound)
         _log_shape(f"sharded {name} ({n} anchors of a data row, {k} "
                    f"slots, {S} shards)", out[name], card)
+    out["stages"] = shard_stages(sh, sets, idx, cfg, card)
+    out["four"] = time_four_shards(index, sets, idx, cfg, card)
+    return out
+
+
+def time_four_shards(index, sets, idx, cfg, card: str) -> dict:
+    """The record kernels on 4 index shards carved from the 2x2 engine's
+    index (shard_query_table, then shard_neighbor_tables relocating its
+    neighbour table; seconds of each), on the same anchors and slices:
+    each shard's RECORD_SHAPES held against the plain version on the
+    first set and timed device alone (graph_ms) beside its bounds and its
+    random-row floor (the rate on its table), and each shape's sum over
+    the 4 shards."""
+    import torch
+    from find_circ2_tpu_torch.index.hashtable import (shard_neighbor_tables,
+                                                      shard_query_table)
+    from find_circ2_tpu_torch.utils import detect_cases
+    t0 = time.perf_counter()
+    tables, metas = shard_query_table(index, 4, cfg)
+    carve = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    ntables = shard_neighbor_tables(index.qtable, tables)
+    relocate = time.perf_counter() - t0
+    dev = sets[0].device
+    sh = detect_cases.shard_args(tables, ntables, metas, [dev] * 4, cfg)
+    del tables, ntables
+    log(f"4 index shards carved from the filter stack's table in "
+        f"{carve:.3f} s, its neighbour table relocated in {relocate:.3f} s, "
+        f"on the host; shard table rows {sh[0].table.shape[0]:,}; on {card}")
+    out = {"carve_s": carve, "relocate_s": relocate, "shards": []}
+    for i, s in enumerate(sh):
+        rate = table_row_rate(s.table, f"index shard {i} of 4", card)
+        got = {"rate": rate}
+        every = _record_kernels(s._replace(owns=None), sets, idx, cfg)
+        for name, (kernel, plain, of, slots) in _record_kernels(
+                s, sets, idx, cfg).items():
+            if not torch.equal(kernel(0), plain(0)):
+                fail(f"{name} differs from its plain version on index shard "
+                     f"{i} of 4")
+            rec = dict(ms=graph_ms(kernel, range(len(sets))),
+                       every_key_ms=graph_ms(every[name][0],
+                                             range(len(sets))))
+            bounds = [_owned_bounds(name, of(j), slots, s.owns, cfg, rate)
+                      for j in range(len(sets))]
+            for key in ("bound_ms", "rows", "all_rows_bound_ms",
+                        "row_floor_ms"):
+                rec[key] = sum(b[key] for b in bounds) / len(sets)
+            got[name] = rec
+            log(f"{name} on index shard {i} of 4 ({len(sets)} input sets): "
+                f"device alone {rec['ms']:.5f} ms (graph), every key "
+                f"{rec['every_key_ms']:.5f} ms; bound at the "
+                f"owned rows {rec['bound_ms']:.6f} ms ({rec['rows']:,.0f} "
+                f"rows), at every key's {rec['all_rows_bound_ms']:.6f} ms, "
+                f"random-row floor {rec['row_floor_ms']:.6f} ms; exact "
+                f"match; on {card}")
+        out["shards"].append(got)
+    for name in RECORD_SHAPES:
+        recs = [g[name] for g in out["shards"]]
+        out[f"{name}_row"] = {key: sum(r[key] for r in recs)
+                              for key in recs[0]}
+        r = out[f"{name}_row"]
+        log(f"{name}, the 4 shards of a data row summed: device alone "
+            f"{r['ms']:.5f} ms (" + " + ".join(f"{x['ms']:.5f}" for x in recs)
+            + f"), every key {r['every_key_ms']:.5f} ms; bound at the owned "
+            f"rows {r['bound_ms']:.6f} ms, random-"
+            f"row floor {r['row_floor_ms']:.6f} ms; on {card}")
+    del sh
+    torch.cuda.empty_cache()
     return out
 
 
@@ -2877,13 +3152,21 @@ def main() -> int:
     # each shape beside it. No one PyTorch call computes any of them.
     sd = path["sharded"]
     st, mt = sd["times"], sd["merge"]
+    # A record kernel's own numbers are index shard 0's; its other shapes
+    # add shard 1 (`_1`) and the row's two shards summed (`_row`), each
+    # with the time looking up every key, the bound at
+    # every key's rows and the random-row floor.
+    extra = ("every_key_ms", "all_rows_bound_ms", "row_floor_ms", "rows")
     for name, source, replaces, main, other, err in (
             ("exact_records", "exact_stats.cu",
              "find_circ2_tpu/ops/anchor_align.py:340",
-             {"exact_records": 1}, (), "shard_err"),
+             {"exact_records": 1}, ("exact_records_1", "exact_records_row"),
+             "shard_err"),
             ("classic_records", "classic_k1.cu",
              "find_circ2_tpu/ops/anchor_align.py:140",
-             {"slot_records": 1}, ("redo_records",), "shard_err"),
+             {"slot_records": 1}, ("slot_records_1", "slot_records_row",
+                                   "redo_records", "redo_records_1",
+                                   "redo_records_row"), "shard_err"),
             ("shard_finish", "shard_k1.cu",
              "find_circ2_tpu/ops/anchor_align.py:286",
              {"exact_finish": 1, "slot_finish": 1}, ("redo_finish",),
@@ -2905,7 +3188,8 @@ def main() -> int:
                                         for s in main) else "operations"),
             "library_ms": None,
             "shapes": {s: {k: recs[s][k] for k in keys + ("bound_by",
-                                                           "sets")}
+                                                           "sets") + extra
+                           if k in recs[s]}
                        for s in (*main, *other)},
             # K-h's `launches` count kernels (merge_kernels(n) a C call:
             # three above one tile); `calls` its C calls; its stage

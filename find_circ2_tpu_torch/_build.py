@@ -198,16 +198,16 @@ DETECT_ARGS = struct.Struct("<18Qq8i")
 
 # csrc/exact_stats.cu's ExactArgs: anchors, table, ntable, meta, then the
 # outputs aligned, pos, strand, mm, n_best, second_mm, qual, resolved,
-# partials; stream, rows; then n, anchor_len, prefix_len, max_bucket,
-# max_anchor_mm, device.
-EXACT_ARGS = struct.Struct("<14Qq6i")
+# partials; stream, rows; lo, hi (the canonical p12 range looked up);
+# then n, anchor_len, prefix_len, max_bucket, max_anchor_mm, device.
+EXACT_ARGS = struct.Struct("<14Qq2q6i")
 
 # csrc/classic_k1.cu's ClassicArgs: anchors, table, meta, ext_id, ext,
 # slots, then the outputs aligned, pos, strand, mm, n_best, second_mm,
 # qual, count, first_pos, extras; stream; rows, ext_rows; then n,
 # anchor_len, prefix_len, max_bucket, max_anchor_mm, ext_width, device,
-# reserved; then partials.
-CLASSIC_ARGS = struct.Struct("<17Q2q8iQ")
+# reserved; lo, hi (the canonical p12 range looked up); then partials.
+CLASSIC_ARGS = struct.Struct("<17Q2q8i2qQ")
 
 # csrc/classic_k1.cu's CompactArgs: resolved, slots, overflow, stream; n,
 # k; device, reserved.

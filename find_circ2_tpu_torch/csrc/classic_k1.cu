@@ -19,7 +19,21 @@
 // partials mode: the shard's part of candidate_stats reduced to the
 // eight numbers a slot's finish reads (the reference's finalize_hits
 // with axis_name psums and pmins the whole [n, 2V] arrays), which
-// csrc/shard_k1.cu combines over the shards and finishes.
+// csrc/shard_k1.cu combines over the shards and finishes. A shard holds
+// only the keys whose canonical p12 lies in its range [lo, hi)
+// (ops/anchor_align.key_ranges), so there a variant whose canonical key
+// lies outside issues no hash and no row load and counts 0 with
+// LARGE_POS, as a key the shard lacks does. Substitutions keep p12 at
+// the suffix positions of the canonical orientation, so an anchor's
+// owner shard sees most of its 61 variants and the others a few: the
+// rows in flight on a shard fall from all of a data row's to about its
+// share. A warp still takes one slot, however few of its variants the
+// shard owns: the slice and the redo are bound by the rate of random
+// rows (classic_stage_cycles' row round trip), which the skipped loads
+// relieve, and a warp that took several slots would serialise their
+// key builds (PERF.md gives the stage clocks of both partials modes).
+// The range test is compiled into the partials mode only (kRanged): on
+// one table it cost the redo's warps time for nothing.
 // The plain versions are about 270 eager kernels a detect batch's
 // fallback slice and 546 an explore chunk's K1.
 //
@@ -124,9 +138,11 @@ struct ClassicArgs {
     long long ext_rows;       // a row id at or past it reads LARGE_POS
     int n, anchor_len, prefix_len, max_bucket, max_anchor_mm, ext_width,
         device, reserved;
+    long long lo, hi;         // the canonical p12 looked up; a key outside
+                              // [lo, hi) reads as absent, with no load
     int32_t* partials;        // [n, kClassicFields], or null
 };
-static_assert(sizeof(ClassicArgs) == 192, "layout packed by ops/anchor_align");
+static_assert(sizeof(ClassicArgs) == 208, "layout packed by ops/anchor_align");
 
 // A shard's record in partials mode: the counts of the two exact slots
 // (0 and V), the counts summed over each strand half, and the least
@@ -188,6 +204,9 @@ constexpr int kPerLane = 2;                // variants a lane: V <= 64
 constexpr int kMaxAnchor = 21;             // V = 1 + 3a <= 32 * kPerLane
 constexpr int kMaxExtWidth = 15;           // K - 1, explore's K <= 16
 constexpr int kCompactThreads = 1024;
+// The range of a call that looks up every key (ops/anchor_align.EVERY_KEY):
+// [0, kEveryKey).
+constexpr long long kEveryKey = 0x7fffffffffffffff;
 constexpr int kFlagsPerWord = 8;           // one 8-byte load of `resolved`
 constexpr int kCachedWords = 4;            // a thread's words in registers
 // The enumeration's shared-memory carveout with the extras, in percent of
@@ -234,8 +253,9 @@ __host__ __device__ constexpr size_t warp_smem_words(int V, int W) {
 }
 
 // Slot s's anchor, by the warp; `stage` is the warp's shared memory.
-// kExtras: the call has the extras (ext_id and ext).
-template <bool kExtras>
+// kExtras: the call has the extras (ext_id and ext); kRanged: it looks up
+// only the keys in [lo, hi) (the partials mode).
+template <bool kExtras, bool kRanged>
 __device__ __forceinline__ void enumerate(const ClassicArgs& a, int s,
                                           int lane, uint32_t* stage) {
 #ifdef FC2T_CLASSIC_STAMPS
@@ -299,11 +319,16 @@ __device__ __forceinline__ void enumerate(const ClassicArgs& a, int s,
         swp[t] = rp < fp || (rp == fp && rs < fs);
         cp[t] = swp[t] ? rp : fp;
         cs[t] = (uint32_t)(swp[t] ? rs : fs);
+        // A key outside [lo, hi) (another index shard's) is not looked up.
+        const bool own =
+            act[t] && (!kRanged || (cp[t] >= a.lo && cp[t] < a.hi));
 #pragma unroll
         for (int p = 0; p < 2; ++p) {
             const uint32_t h =
-                mix_hash((uint32_t)cp[t], cs[t], salt[p]) % n_buckets;
-            const bool in = act[t] && (long long)h < a.rows;
+                !kRanged || own
+                    ? mix_hash((uint32_t)cp[t], cs[t], salt[p]) % n_buckets
+                    : 0u;
+            const bool in = own && (long long)h < a.rows;
             const int4* tr = reinterpret_cast<const int4*>(a.table) +
                              (size_t)h * kSlots;
             hb[t][p] = h;
@@ -560,7 +585,7 @@ __device__ __forceinline__ void enumerate(const ClassicArgs& a, int s,
 #endif
 }
 
-template <bool kExtras>
+template <bool kExtras, bool kRanged>
 __global__ void __launch_bounds__(kThreads)
 classic_kernel(const __grid_constant__ ClassicArgs a) {
     extern __shared__ __align__(16) uint32_t smem_all[];
@@ -569,7 +594,7 @@ classic_kernel(const __grid_constant__ ClassicArgs a) {
         smem_all + (size_t)w * warp_smem_words(1 + 3 * a.anchor_len,
                                                 2 * a.ext_width);
     const int s = blockIdx.x * kWarps + w;
-    if (s < a.n) enumerate<kExtras>(a, s, lane, stage);
+    if (s < a.n) enumerate<kExtras, kRanged>(a, s, lane, stage);
 }
 
 // The flags of word `wd` of `resolved` (flags 8 wd .. 8 wd + 7, a byte
@@ -705,7 +730,8 @@ extern "C" int fc2t_classic_k1(const ClassicArgs* a) {
                  reinterpret_cast<uintptr_t>(a->extras) % 16 ||
                  reinterpret_cast<uintptr_t>(a->ext) % 8)) ||
         (!ext && a->extras != nullptr) || (stats && a->slots != nullptr) ||
-        (a->partials != nullptr && stats))
+        (a->partials != nullptr && stats) ||
+        (a->partials == nullptr && (a->lo != 0 || a->hi != kEveryKey)))
         return -(int)cudaErrorInvalidValue;
     const int err = check_device(a->device);
     if (err) return err;
@@ -722,14 +748,16 @@ extern "C" int fc2t_classic_k1(const ClassicArgs* a) {
             return -(int)cudaErrorInvalidDevice;
         if (!carved[a->device]) {
             const cudaError_t c = cudaFuncSetAttribute(
-                classic_kernel<true>,
+                classic_kernel<true, false>,
                 cudaFuncAttributePreferredSharedMemoryCarveout, kCarveout);
             if (c != cudaSuccess) return -(int)c;
             carved[a->device] = true;
         }
-        classic_kernel<true><<<blocks, kThreads, shared, stream>>>(*a);
+        classic_kernel<true, false><<<blocks, kThreads, shared, stream>>>(*a);
+    } else if (a->partials) {
+        classic_kernel<false, true><<<blocks, kThreads, 0, stream>>>(*a);
     } else {
-        classic_kernel<false><<<blocks, kThreads, 0, stream>>>(*a);
+        classic_kernel<false, false><<<blocks, kThreads, 0, stream>>>(*a);
     }
     const cudaError_t e = cudaGetLastError();
     return e == cudaSuccess ? 1 : -(int)e;

@@ -45,6 +45,25 @@
 // at :424-438), go to a record row; csrc/shard_k1.cu combines the
 // shards' records and finishes.
 //
+// A shard holds only the keys whose canonical p12 lies in its range
+// [lo, hi) (ops/anchor_align.key_ranges), so the partials mode looks up
+// only those: an anchor whose key lies outside issues no hash and no row
+// load, and its record is that of a key the shard lacks (found 0, counts
+// 0, positions LARGE_POS). Before, a data row of S shards fetched S
+// times the rows of one table, S - 1 of every S known to be empty. The
+// key is built before the hash, so the test costs nothing before the
+// round trip. The owned anchors are not packed into fewer warps (a
+// ballot and popc would do it): the grid is under one wave, so the
+// kernel takes as long as its slowest warp's chain, code load, key,
+// row round trip, fold and write, and packing cannot shorten that chain;
+// it would only leave warps idle. What ownership buys is rows: at 2
+// shards every warp that owns none of its 8 anchors skips the round
+// trip, and the rows in flight on the card fall to the shard's share.
+// The stage clocks of both modes, every key and the shard's range, are
+// in PERF.md (exact_stage_cycles with `records`). The range test is
+// compiled into the partials mode only (kRanged); the finish on one
+// table is the kernel it was.
+//
 // Kept bit for bit: when a key's two buckets are one bucket both probes
 // match its slot and their counts add (ROADMAP.md §3); a dirty anchor
 // (a code >= 4) is looked up on its codes with those zeroed, is not
@@ -84,9 +103,11 @@ struct ExactArgs {
     int32_t* partials;        // [n, kExactFields], or null
     void* stream;
     long long rows;           // table rows; a bucket at or past it reads empty
+    long long lo, hi;         // the canonical p12 looked up; a key outside
+                              // [lo, hi) reads as absent, with no load
     int n, anchor_len, prefix_len, max_bucket, max_anchor_mm, device;
 };
-static_assert(sizeof(ExactArgs) == 144, "layout packed by ops/anchor_align");
+static_assert(sizeof(ExactArgs) == 160, "layout packed by ops/anchor_align");
 
 // Built with FC2T_DETECT_STAMPS (ops/anchor_align.exact_stage_cycles),
 // the first lane of each warp records its SM clock at the start and after
@@ -143,6 +164,9 @@ static_assert(kMaxAnchor == fc2t::kMaxKeyLen, "keys are 64-bit");
 // found, then count and least position of each orientation, exact and
 // 1-mm ball; positions as uint32 bit patterns.
 constexpr int kExactFields = 9;
+// The range of a call that looks up every key (ops/anchor_align.EVERY_KEY):
+// [0, kEveryKey).
+constexpr long long kEveryKey = 0x7fffffffffffffff;
 // A slot's matches, and its two 7-bit counts, packed into one sum: at
 // most four matches (two slots, two probes of one coincident bucket).
 constexpr int kCfShift = 3, kCrShift = 13;
@@ -159,6 +183,8 @@ __device__ __forceinline__ uint32_t anchor_min(uint32_t x) {
     return min(x, __shfl_xor_sync(kFull, x, 2));
 }
 
+// kRanged: the partials mode, which looks up only the keys in [lo, hi).
+template <bool kRanged>
 __global__ void __launch_bounds__(kThreads)
 exact_kernel(const __grid_constant__ ExactArgs a) {
     const int lane = threadIdx.x & 31;
@@ -189,9 +215,13 @@ exact_kernel(const __grid_constant__ ExactArgs a) {
     const unsigned long long cp = key.cp, cs = key.cs;
     ESTAMP(at + 1, (unsigned)(cp ^ cs) ^ salt ^ n_buckets);
 
-    // The lane's row: its probe's bucket in its table.
-    const uint32_t h = mix_hash((uint32_t)cp, (uint32_t)cs, salt) % n_buckets;
-    const bool in = (long long)h < a.rows;
+    // The lane's row: its probe's bucket in its table; none for a key
+    // outside [lo, hi), which another index shard owns.
+    const bool own =
+        !kRanged || ((long long)cp >= a.lo && (long long)cp < a.hi);
+    const uint32_t h =
+        own ? mix_hash((uint32_t)cp, (uint32_t)cs, salt) % n_buckets : 0u;
+    const bool in = own && (long long)h < a.rows;
     const int4* row = reinterpret_cast<const int4*>(nbr ? a.ntable : a.table) +
                       (size_t)h * kSlots;
     const int4 empty = nbr ? make_int4(0, 0, 0, 0) : make_int4(-1, 0, 0, 0);
@@ -332,7 +362,8 @@ extern "C" int fc2t_exact_stats(const ExactArgs* a) {
     if (a->n <= 0) return 0;
     if (a->anchor_len < 1 || a->anchor_len > kMaxAnchor ||
         a->prefix_len < 1 || a->prefix_len >= a->anchor_len ||
-        a->anchor_len - a->prefix_len > 8 || a->rows < 1)
+        a->anchor_len - a->prefix_len > 8 || a->rows < 1 ||
+        (a->partials == nullptr && (a->lo != 0 || a->hi != kEveryKey)))
         return -(int)cudaErrorInvalidValue;
     int dev = -1;
     cudaError_t err = cudaGetDevice(&dev);
@@ -340,8 +371,11 @@ extern "C" int fc2t_exact_stats(const ExactArgs* a) {
     if (dev != a->device) return -(int)cudaErrorInvalidDevice;
     const unsigned blocks =
         (unsigned)((a->n + kAnchorsPerBlock - 1) / kAnchorsPerBlock);
-    exact_kernel<<<blocks, kThreads, 0,
-                   static_cast<cudaStream_t>(a->stream)>>>(*a);
+    const cudaStream_t stream = static_cast<cudaStream_t>(a->stream);
+    if (a->partials)
+        exact_kernel<true><<<blocks, kThreads, 0, stream>>>(*a);
+    else
+        exact_kernel<false><<<blocks, kThreads, 0, stream>>>(*a);
     err = cudaGetLastError();
     return err == cudaSuccess ? 1 : -(int)err;
 }

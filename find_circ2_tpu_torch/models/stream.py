@@ -41,11 +41,15 @@ class _RescuePool:
     rescue, and §2b multi-hit when explore is off; the port's
     models/multihit.call_reads_multi_batch) off the critical path. Fork
     shares genome and index copy-on-write; the child runs numpy only and
-    never touches CUDA or torch. Any
-    failure (no fork, crash, timeout) permanently falls back to
-    in-process calls — results are identical either way."""
+    never touches CUDA or torch. The pool forks after the device is up,
+    and a child forked while another thread held a lock can hang: so the
+    worker must answer a ping within PING_S at start-up, or the run goes
+    inline from the start instead of losing TIMEOUT_S on its first
+    batch. Any failure (no fork, no answer, crash, timeout) permanently
+    falls back to in-process calls — results are identical either way."""
 
     TIMEOUT_S = 120.0
+    PING_S = 10.0
 
     def __init__(self, genome, index, cfg, prefilter: bool) -> None:
         self.args = (genome, index, cfg, prefilter)
@@ -56,8 +60,9 @@ class _RescuePool:
             global _RESCUE_STATE
             _RESCUE_STATE = self.args
             self.pool = ctx.Pool(1)
+            self.pool.apply_async(_rescue_ping).get(timeout=self.PING_S)
         except Exception:
-            self.pool = None
+            self._disable()
 
     def submit(self, items):
         if self.pool is None:
@@ -96,6 +101,10 @@ class _RescuePool:
 
 
 _RESCUE_STATE = None
+
+
+def _rescue_ping() -> bool:
+    return True
 
 
 def _rescue_entry(items):

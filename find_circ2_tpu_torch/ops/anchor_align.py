@@ -17,8 +17,12 @@ one's plain version (`*_ref`); the plain versions fetch rows through
 `ops.gather_rows`.
 
 The `*_sharded` forms take the index as prefix-range shards (the
-sharded engine, parallel/sharded.py), each a list of per-shard tables
-on their own devices. The reference runs every shard in its own program
+sharded engine, parallel/sharded.py), a list of `Shard`s: each shard's
+tables on its own device and the range of the canonical keys it owns
+(`key_ranges`). A key outside a shard's range is looked up nowhere on
+it: on the card its hash and row loads are skipped, and it reads as a
+key the shard does not hold, which it is. The reference runs every
+shard in its own program
 and combines with psum/pmin inside; here one process drives all of a
 data row's shards, so each function is a per-shard part (gathers and
 probes on the shard's device), an integer sum/min/any over the shards on
@@ -67,6 +71,43 @@ MAX_EXTRAS_HITS = 16
 # The reference's jnp.take fill for a row past an int32 table: every lane
 # INT32_MIN, so no key matches it.
 _FILL = -2 ** 31
+
+
+class KeyRange(NamedTuple):
+    """The canonical p12 values [lo, hi) of the keys an index shard owns."""
+    lo: int
+    hi: int
+
+
+# What a single table, or a shard given without a range, owns: every key
+# (the kernels' lo and hi, int64).
+EVERY_KEY = KeyRange(0, 2 ** 63 - 1)
+
+
+class Shard(NamedTuple):
+    """One index shard as the sharded K1 takes it, its tensors on the
+    shard's device: the cuckoo table, the neighbour table (None: the
+    classic path only), meta, and the keys it owns (None: every key)."""
+    table: torch.Tensor
+    ntable: torch.Tensor | None
+    meta: torch.Tensor
+    owns: KeyRange | None = None
+
+
+def key_ranges(n_buckets: int, n_shards: int) -> list[KeyRange]:
+    """The keys each prefix-range shard owns, by the cut of
+    index/hashtable.shard_query_table: shard i holds the canonical keys
+    whose p12 lies in [i S, (i + 1) S), S = ceil(n_buckets / n_shards)."""
+    S = -(-n_buckets // n_shards)
+    return [KeyRange(i * S, (i + 1) * S) for i in range(n_shards)]
+
+
+def _owned(cp, owns: KeyRange | None):
+    """Whether each canonical p12 lies in `owns` (None: every key)."""
+    if owns is None:
+        return torch.ones_like(cp, dtype=torch.bool)
+    return (cp >= owns.lo) & (cp < owns.hi)
+
 
 # Kernel launches since the last reset (set to 0 to reset), by wrapper.
 exact_launches = 0      # exact_anchor_stats
@@ -125,17 +166,19 @@ def _canonical(fw, rc):
             torch.where(swap, s8r, s8))
 
 
-def _bucket_rows(tables, cp, cs, meta):
+def _bucket_rows(tables, cp, cs, meta, owns: KeyRange | None = None):
     """Rows of each table at the two cuckoo probes of keys (cp, cs):
     one gather launch for both probes and every table (`gather_rows` for
     one table, `gather_rows_multi` for two), so each bucket index is
-    loaded once. A bucket at or past the tables' rows reads as the
-    reference's jnp.take fill (_FILL), which holds no key. Returns, per
-    table, the pair (probe-0 rows, probe-1 rows), each [*cp.shape, W]."""
+    loaded once. A bucket at or past the tables' rows, and both buckets
+    of a key outside `owns`, read as the reference's jnp.take fill
+    (_FILL), which holds no key. Returns, per table, the pair (probe-0
+    rows, probe-1 rows), each [*cp.shape, W]."""
     n_buckets = meta[2].to(torch.int64) & M32
     h = torch.cat([mix_hash(cp, cs, meta[s].to(torch.int64) & M32)
                    % n_buckets for s in (0, 1)]).reshape(-1)
-    past = h >= min(t.shape[0] for t in tables)
+    past = ((h >= min(t.shape[0] for t in tables))
+            | ~_owned(cp, owns).reshape(-1).repeat(2))
     h = torch.where(past, 0, h)
     rows = ([gather_rows(tables[0], h)] if len(tables) == 1
             else gather_rows_multi(tables, h))
@@ -184,7 +227,7 @@ def variant_metadata(cfg: Config, device=None):
 
 
 def candidate_stats(table, meta, anchors, cfg: Config, ext=None,
-                    ext_id=None):
+                    ext_id=None, owns: KeyRange | None = None):
     """Per-variant (count, first_pos) [B, 2V] — first V slots the '+'
     strand variants, last V their reverse complements — plus the static
     (mm_v, strand_v) [2V]. Two 32-byte bucket rows per canonical
@@ -194,12 +237,14 @@ def candidate_stats(table, meta, anchors, cfg: Config, ext=None,
     patterns, `ext_id` int32 [T, SLOTS]; ops/explore), a fifth value
     `extras` int64 [B, 2V, K-1] holds each strand slot's positions 2..K
     of its hit list (LARGE_POS padded): the matching slot's ext row id,
-    then that row, swapped into '+'/'-' slots like count/first_pos."""
+    then that row, swapped into '+'/'-' slots like count/first_pos.
+    A variant whose canonical key lies outside `owns` reads as absent:
+    count 0, first_pos LARGE_POS."""
     p12, s8, p12r, s8r, valid = enumerate_variants(anchors, cfg)
     swap, cp, cs = _canonical((p12, s8), (p12r, s8r))
     want_ext = ext is not None
     rows = _bucket_rows((table, ext_id) if want_ext else (table,), cp, cs,
-                        meta)
+                        meta, owns)
 
     def probe(g, e):
         g = g.reshape(*cp.shape, SLOTS, LANES)
@@ -250,12 +295,12 @@ def candidate_stats(table, meta, anchors, cfg: Config, ext=None,
 
 
 def _on_shards(shards, fn, args, device):
-    """fn(*shard, *args) on each index shard's own device; each result
+    """fn(shard, *args) on each index shard's own device; each result
     tuple comes back to `device` (the data row's first device)."""
     outs = []
     for shard in shards:
-        dev = shard[0].device
-        got = fn(*shard, *(a.to(dev, non_blocking=True) for a in args))
+        dev = shard.table.device
+        got = fn(shard, *(a.to(dev, non_blocking=True) for a in args))
         outs.append(tuple(x.to(device, non_blocking=True) for x in got))
     return outs
 
@@ -338,13 +383,15 @@ CLASSIC_OPS = ("sum",) * 4 + ("min",) * 4
 EXACT_FIELDS, CLASSIC_FIELDS = len(EXACT_OPS), len(CLASSIC_OPS)
 
 
-def exact_partials(table, ntable, meta, cp, cs):
+def exact_partials(table, ntable, meta, cp, cs,
+                   owns: KeyRange | None = None):
     """One index shard's part of exact_anchor_stats: the table and
     neighbour-table rows of the canonical keys (cp, cs) at both probes,
     reduced to (found, cnt_f, pos_f, cnt_r, pos_r, s1_f, minpos1_f, s1_r,
     minpos1_r). A key lives on one shard, in at most one slot of one of
-    its two buckets; elsewhere counts are 0 and positions LARGE_POS."""
-    (g1, g2), (n1, n2) = _bucket_rows((table, ntable), cp, cs, meta)
+    its two buckets; elsewhere counts are 0 and positions LARGE_POS, and
+    so for a key outside `owns`, whose rows are not read."""
+    (g1, g2), (n1, n2) = _bucket_rows((table, ntable), cp, cs, meta, owns)
 
     def probe(g, n):
         g = g.reshape(-1, SLOTS, LANES)
@@ -411,22 +458,23 @@ def exact_finish(partials, clean, swap, cfg: Config):
 
 
 def _all_cpu(shards, *tensors) -> bool:
-    return all(t.is_cpu for t in (*tensors, *(x for shard in shards
-                                              for x in shard
-                                              if x is not None)))
+    return all(t.is_cpu for t in (*tensors, *(
+        x for s in shards for x in (s.table, s.ntable, s.meta)
+        if x is not None)))
 
 
 def exact_anchor_stats_sharded(shards, anchors, cfg: Config):
-    """K1 v4 over prefix-range index shards [(table, ntable, meta)],
-    each on its own device: per-shard partials, combined on the anchors'
-    device, then the global finish. Equals exact_anchor_stats on the
-    whole table. On CPU tensors the plain parts; otherwise each shard's
-    exact_records and one shard_finish (kernels, no wait)."""
+    """K1 v4 over prefix-range index shards (`Shard`s with their
+    neighbour tables), each on its own device: per-shard partials of the
+    keys it owns, combined on the anchors' device, then the global
+    finish. Equals exact_anchor_stats on the whole table. On CPU tensors
+    the plain parts; otherwise each shard's exact_records and one
+    shard_finish (kernels, no wait)."""
     if _all_cpu(shards, anchors):
         return _exact_sharded_ref(shards, anchors, cfg)
     records = _shard_records(
-        shards, lambda t, nt, m, a, out=None: exact_records(t, nt, m, a, cfg,
-                                                             out),
+        shards, lambda s, a, out=None: exact_records(
+            s.table, s.ntable, s.meta, a, cfg, out, s.owns),
         anchors.shape[0], EXACT_FIELDS, anchors.device, (anchors,))
     return shard_finish(records, anchors, cfg)
 
@@ -434,14 +482,15 @@ def exact_anchor_stats_sharded(shards, anchors, cfg: Config):
 def _exact_sharded_ref(shards, anchors, cfg: Config):
     """exact_anchor_stats_sharded's plain parts on any device."""
     clean, swap, cp, cs = _exact_keys(anchors, cfg)
-    parts = _on_shards(shards, exact_partials, (cp, cs), anchors.device)
+    parts = _on_shards(shards, lambda s, p, q: exact_partials(
+        s.table, s.ntable, s.meta, p, q, s.owns), (cp, cs), anchors.device)
     return exact_finish(_combine(parts, EXACT_OPS), clean, swap, cfg)
 
 
 def exact_anchor_stats_ref(table, ntable, meta, anchors, cfg: Config):
     """Plain version of exact_anchor_stats: the sharded form's plain parts
     on one shard."""
-    return _exact_sharded_ref([(table, ntable, meta)], anchors, cfg)
+    return _exact_sharded_ref([Shard(table, ntable, meta)], anchors, cfg)
 
 
 def exact_anchor_stats(table, ntable, meta, anchors, cfg: Config):
@@ -516,11 +565,12 @@ def _launch_exact(args: tuple, cfg: Config, lib=None):
 
 
 def _exact_call(lib, args: tuple, cfg: Config, outs: list, partials: int,
-                what: str) -> int:
+                what: str, owns: KeyRange | None = None) -> int:
     """One C call of csrc/exact_stats.cu into `lib` (default: the kernel
     library) with the anchors' device current: the eight hit and
-    `resolved` pointers `outs` (zeros in partials mode) and the records'
-    pointer `partials` (0 for the finish). Returns the launches."""
+    `resolved` pointers `outs` (zeros in partials mode), the records'
+    pointer `partials` (0 for the finish) and the keys looked up, `owns`
+    (None: every key). Returns the launches."""
     table, ntable, meta, anchors = args
     lib = lib or _build.load()
     index = anchors.get_device()
@@ -529,8 +579,8 @@ def _exact_call(lib, args: tuple, cfg: Config, outs: list, partials: int,
             anchors.data_ptr(), table.data_ptr(), ntable.data_ptr(),
             meta.data_ptr(), *outs, partials,
             torch._C._cuda_getCurrentRawStream(index), table.shape[0],
-            anchors.shape[0], cfg.anchor_len, cfg.prefix_len,
-            cfg.max_bucket, cfg.max_anchor_mm, index))
+            *(owns or EVERY_KEY), anchors.shape[0], cfg.anchor_len,
+            cfg.prefix_len, cfg.max_bucket, cfg.max_anchor_mm, index))
     if got < 0:
         _build.check(-got, what)
     return got
@@ -650,12 +700,13 @@ def _check_classic(table, meta, anchors, cfg: Config, ext, ext_id, slots,
 
 def _launch_classic(table, meta, anchors, cfg: Config, ext=None,
                     ext_id=None, stats: bool = False, slots=None, hits=None,
-                    lib=None, records=None):
+                    lib=None, records=None, owns: KeyRange | None = None):
     """classic_anchor_stats (or, with `slots`, refill_slice into `hits`)
     on CUDA tensors: one C call into `lib` (default: the kernel library),
     made with the tensors' device current. Returns (hits, stats). With
     `records` (int32 [n, CLASSIC_FIELDS]) the partials mode: each slot's
-    record goes there instead of its hits (hits None)."""
+    record of the keys of `owns` (None: every key) goes there instead of
+    its hits (hits None)."""
     global classic_launches, classic_record_launches
     _check_classic(table, meta, anchors, cfg, ext, ext_id, slots, hits)
     dev = anchors.device
@@ -695,7 +746,8 @@ def _launch_classic(table, meta, anchors, cfg: Config, ext=None,
             torch._C._cuda_getCurrentRawStream(index), table.shape[0],
             0 if ext is None else ext.shape[0], n, cfg.anchor_len,
             cfg.prefix_len, cfg.max_bucket, cfg.max_anchor_mm,
-            0 if ext is None else K1, index, 0, ptr(records)))
+            0 if ext is None else K1, index, 0, *(owns or EVERY_KEY),
+            ptr(records)))
     if got < 0:
         _build.check(-got, "classic_anchor_stats launch")
     if records is None:
@@ -764,27 +816,33 @@ def _i32(x: torch.Tensor) -> torch.Tensor:
     return ((x ^ 0x80000000) - 0x80000000).to(torch.int32)
 
 
-def exact_records_ref(table, ntable, meta, anchors, cfg: Config):
+def exact_records_ref(table, ntable, meta, anchors, cfg: Config,
+                      owns: KeyRange | None = None):
     """Plain version of exact_records: exact_partials on the anchors'
     canonical keys, as int32 [n, EXACT_FIELDS] (positions as uint32 bit
     patterns, `found` 0 or 1)."""
     _, _, cp, cs = _exact_keys(anchors, cfg)
-    return torch.stack([_i32(x) for x in exact_partials(table, ntable, meta,
-                                                        cp, cs)], dim=1)
+    return torch.stack([_i32(x) for x in exact_partials(
+        table, ntable, meta, cp, cs, owns)], dim=1)
 
 
-def exact_records(table, ntable, meta, anchors, cfg: Config, out=None):
+def exact_records(table, ntable, meta, anchors, cfg: Config, out=None,
+                  owns: KeyRange | None = None):
     """One index shard's part of exact_anchor_stats: each anchor's record
     of EXACT_OPS' fields, int32 [n, EXACT_FIELDS], before the guard, the
     `clean` mask and the finish (shard_finish does those over every
-    shard). CPU tensors take the plain version; CUDA tensors launch
+    shard). An anchor whose canonical key lies outside `owns` (None:
+    every key) gets the record of a key the shard does not hold (found
+    0, counts 0, positions LARGE_POS), and on the card no hash and no row
+    load. CPU tensors take the plain version; CUDA tensors launch
     csrc/exact_stats.cu in partials mode on the current stream (one
     launch, no wait) or raise. Either writes into `out` (a contiguous
     int32 [n, EXACT_FIELDS]) when one is given."""
     if all(t.is_cpu for t in (table, ntable, meta, anchors)):
         return _into(out, exact_records_ref(table, ntable, meta, anchors,
-                                            cfg))
-    return _launch_exact_records((table, ntable, meta, anchors), cfg, out)
+                                            cfg, owns))
+    return _launch_exact_records((table, ntable, meta, anchors), cfg, out,
+                                 owns=owns)
 
 
 def _into(out, got):
@@ -802,7 +860,8 @@ def _check_records(out, n: int, fields: int, like, what: str) -> None:
                          f"{list(out.shape)} on {out.device}")
 
 
-def _launch_exact_records(args: tuple, cfg: Config, out=None, lib=None):
+def _launch_exact_records(args: tuple, cfg: Config, out=None, lib=None,
+                          owns: KeyRange | None = None):
     """exact_records on CUDA tensors: one C call into `lib` (default: the
     kernel library), made with the tensors' device current."""
     global exact_record_launches
@@ -815,18 +874,21 @@ def _launch_exact_records(args: tuple, cfg: Config, out=None, lib=None):
                           device=anchors.device)
     if n:
         exact_record_launches += _exact_call(
-            lib, args, cfg, [0] * 8, out.data_ptr(), "exact_records launch")
+            lib, args, cfg, [0] * 8, out.data_ptr(), "exact_records launch",
+            owns)
     return out
 
 
-def classic_records_ref(table, meta, anchors, cfg: Config, slots=None):
+def classic_records_ref(table, meta, anchors, cfg: Config, slots=None,
+                        owns: KeyRange | None = None):
     """Plain version of classic_records: candidate_stats of anchors (or
-    of anchors[slots]) reduced to CLASSIC_OPS' fields, int32 [n,
-    CLASSIC_FIELDS] (positions as uint32 bit patterns, LARGE_POS where no
-    slot has a count)."""
+    of anchors[slots]) on the keys of `owns` reduced to CLASSIC_OPS'
+    fields, int32 [n, CLASSIC_FIELDS] (positions as uint32 bit patterns,
+    LARGE_POS where no slot has a count)."""
     if slots is not None:
         anchors = anchors[slots]
-    count, first_pos = candidate_stats(table, meta, anchors, cfg)[:2]
+    count, first_pos = candidate_stats(table, meta, anchors, cfg,
+                                       owns=owns)[:2]
     V = count.shape[1] // 2
 
     def least(lo, hi):
@@ -840,11 +902,13 @@ def classic_records_ref(table, meta, anchors, cfg: Config, slots=None):
 
 
 def classic_records(table, meta, anchors, cfg: Config, slots=None,
-                    out=None):
+                    out=None, owns: KeyRange | None = None):
     """One index shard's part of the classic enumeration: each anchor's
     (with `slots`, int64 [k], each slot's anchor's) record of CLASSIC_OPS'
     fields, int32 [n or k, CLASSIC_FIELDS], the `valid` mask and each
     slot's guard applied on the shard, as candidate_stats applies them.
+    A variant whose canonical key lies outside `owns` (None: every key)
+    counts as absent, and on the card issues no hash and no row load.
     CPU tensors take the plain version; CUDA tensors launch
     csrc/classic_k1.cu in partials mode on the current stream (one
     launch, no wait) or raise. Either writes into `out` when one is
@@ -852,12 +916,14 @@ def classic_records(table, meta, anchors, cfg: Config, slots=None,
     given = [t for t in (table, meta, anchors, slots) if t is not None]
     if all(t.is_cpu for t in given):
         return _into(out, classic_records_ref(table, meta, anchors, cfg,
-                                              slots))
-    return _launch_classic_records(table, meta, anchors, cfg, slots, out)
+                                              slots, owns))
+    return _launch_classic_records(table, meta, anchors, cfg, slots, out,
+                                   owns=owns)
 
 
 def _launch_classic_records(table, meta, anchors, cfg: Config, slots=None,
-                            out=None, lib=None):
+                            out=None, lib=None,
+                            owns: KeyRange | None = None):
     """classic_records on CUDA tensors: one C call, with the tensors'
     device current."""
     n = anchors.shape[0] if slots is None else slots.shape[0]
@@ -866,7 +932,7 @@ def _launch_classic_records(table, meta, anchors, cfg: Config, slots=None,
         out = torch.empty((n, CLASSIC_FIELDS), dtype=torch.int32,
                           device=anchors.device)
     _launch_classic(table, meta, anchors, cfg, slots=slots, lib=lib,
-                    records=out)
+                    records=out, owns=owns)
     return out
 
 
@@ -1004,18 +1070,18 @@ def _launch_finish(records, anchors, cfg: Config, slots=None, hits=None,
 
 def _shard_records(shards, make, n: int, fields: int, device, args: tuple):
     """Every shard's records, int32 [len(shards), n, fields] on `device`:
-    make(*shard, *args, out=) on the shard's device, straight into its
+    make(shard, *args, out=) on the shard's device, straight into its
     row of the buffer when that is the shard's device, else into a new
     tensor there, copied over (no wait)."""
     buf = torch.empty((len(shards), n, fields), dtype=torch.int32,
                       device=device)
     for s, shard in enumerate(shards):
-        dev = shard[0].device
+        dev = shard.table.device
         if dev == device:
-            make(*shard, *args, out=buf[s])
+            make(shard, *args, out=buf[s])
         else:
-            got = make(*shard, *(a.to(dev, non_blocking=True)
-                                 for a in args))
+            got = make(shard, *(a.to(dev, non_blocking=True)
+                                for a in args))
             buf[s].copy_(got, non_blocking=True)
     return buf
 
@@ -1030,13 +1096,22 @@ COMPACT_STAGES = ("flag loads", "scan", "writes")
 
 def classic_stage_cycles(table, meta, anchors, cfg: Config, ext=None,
                          ext_id=None, stats: bool = False, slots=None,
-                         hits=None):
+                         hits=None, records: bool = False,
+                         owns: KeyRange | None = None):
     """classic_anchor_stats (or, with `slots`, refill_slice into `hits`)
     on CUDA tensors through the measurement build of csrc/classic_k1.cu:
     ((hits, stats), int64 [n, len(CLASSIC_STAGES)] SM clock cycles of each
     warp's stages, lane 0's clock64 at the start and where each stage's
-    results are first used). One launch, counted on `classic_launches`."""
+    results are first used). One launch, counted on `classic_launches`.
+    With `records`, classic_records on the keys of `owns` instead: (its
+    records, the cycles; the partials mode stops after "fold and
+    finish"), counted on `classic_record_launches`."""
     n = anchors.shape[0] if slots is None else slots.shape[0]
+    if records:
+        return _build.stamped(
+            "fc2t_classic_stamps", n, len(CLASSIC_STAGES), anchors,
+            lambda lib: _launch_classic_records(table, meta, anchors, cfg,
+                                                slots, lib=lib, owns=owns))
     return _build.stamped(
         "fc2t_classic_stamps", n, len(CLASSIC_STAGES), anchors,
         lambda lib: _launch_classic(table, meta, anchors, cfg, ext, ext_id,
@@ -1060,32 +1135,39 @@ EXACT_STAGES = ("code loads and key build", "hash and row round trip",
 EXACT_ANCHORS_PER_WARP = 8
 
 
-def exact_stage_cycles(table, ntable, meta, anchors, cfg: Config):
+def exact_stage_cycles(table, ntable, meta, anchors, cfg: Config,
+                       records: bool = False, owns: KeyRange | None = None):
     """exact_anchor_stats on CUDA tensors through the measurement build of
     csrc/exact_stats.cu: ((hits, resolved), int64 [warps,
     len(EXACT_STAGES)] SM clock cycles of each warp's stages, its first
     lane's clock64 at the start and where each stage's results are first
     used; a warp takes EXACT_ANCHORS_PER_WARP anchors). One launch,
-    counted on `exact_launches`."""
+    counted on `exact_launches`. With `records`, exact_records on the
+    keys of `owns` instead: (its records, the cycles; the partials mode
+    stamps "writes" where its records are written), counted on
+    `exact_record_launches`."""
     warps = -(-anchors.shape[0] // EXACT_ANCHORS_PER_WARP)
+    args = (table, ntable, meta, anchors)
     return _build.stamped(
         "fc2t_exact_stamps", warps, len(EXACT_STAGES), anchors,
-        lambda lib: _launch_exact((table, ntable, meta, anchors), cfg, lib))
+        (lambda lib: _launch_exact_records(args, cfg, lib=lib, owns=owns))
+        if records else (lambda lib: _launch_exact(args, cfg, lib)))
 
 
 def align_anchors_sharded(shards, anchors, cfg: Config) -> AnchorHits:
-    """Classic K1 over index shards [(table, meta)]: each shard's
-    (count, first_pos), summed and minimized on the anchors' device,
-    then finalize_hits. On CPU tensors the plain parts; otherwise each
-    shard's classic_records and one shard_finish (kernels, no wait)."""
+    """Classic K1 over index shards (`Shard`s; their neighbour tables
+    unused): each shard's (count, first_pos) of the keys it owns, summed
+    and minimized on the anchors' device, then finalize_hits. On CPU
+    tensors the plain parts; otherwise each shard's classic_records and
+    one shard_finish (kernels, no wait)."""
     if not _all_cpu(shards, anchors):
         records = _shard_records(
-            shards, lambda t, m, a, out=None: classic_records(
-                t, m, a, cfg, out=out),
+            shards, lambda s, a, out=None: classic_records(
+                s.table, s.meta, a, cfg, out=out, owns=s.owns),
             anchors.shape[0], CLASSIC_FIELDS, anchors.device, (anchors,))
         return shard_finish(records, None, cfg)
-    parts = _on_shards(shards, lambda t, m, a: candidate_stats(t, m, a, cfg),
-                       (anchors,), anchors.device)
+    parts = _on_shards(shards, lambda s, a: candidate_stats(
+        s.table, s.meta, a, cfg, owns=s.owns), (anchors,), anchors.device)
     mm_v, strand_v = parts[0][2:]
     parts = [p[:2] for p in parts]
     if len(parts) > 1:
@@ -1110,7 +1192,7 @@ def _split(hits, B):
 def align_anchor_pair_sharded(shards, anchors_a, anchors_b, cfg: Config
                               ) -> tuple[AnchorHits, AnchorHits]:
     """Both anchors of a batch as one stacked [2B] enumeration over
-    index shards [(table, meta)]."""
+    index shards (`Shard`s)."""
     return _split(align_anchors_sharded(
         shards, torch.cat([anchors_a, anchors_b]), cfg), anchors_a.shape[0])
 
@@ -1142,7 +1224,7 @@ def _fast_pair(exact, compact, refill, anchors_a, anchors_b, cfg: Config):
 
 def refill_slice_sharded(shards, anchors, slots, hits: AnchorHits,
                          cfg: Config) -> AnchorHits:
-    """refill_slice over index shards [(table, meta)]: `hits` with the
+    """refill_slice over index shards (`Shard`s): `hits` with the
     classic hits of anchors[slots] written at `slots`. On CPU tensors the
     plain parts, into new tensors; otherwise each shard's classic_records
     in slot mode and one shard_finish that writes into `hits` in place
@@ -1151,24 +1233,23 @@ def refill_slice_sharded(shards, anchors, slots, hits: AnchorHits,
         return _scatter(hits, slots, align_anchors_sharded(
             shards, anchors[slots], cfg))
     records = _shard_records(
-        shards, lambda t, m, a, s, out=None: classic_records(
-            t, m, a, cfg, slots=s, out=out),
+        shards, lambda s, a, sl, out=None: classic_records(
+            s.table, s.meta, a, cfg, slots=sl, out=out, owns=s.owns),
         slots.shape[0], CLASSIC_FIELDS, anchors.device, (anchors, slots))
     return shard_finish(records, None, cfg, slots=slots, hits=hits)
 
 
 def align_anchor_pair_fast_sharded(shards, anchors_a, anchors_b,
                                    cfg: Config):
-    """align_anchor_pair_fast over index shards [(table, ntable, meta)].
-    The fallback slice is compacted on the combined `resolved`
-    (fallback_slice, the compaction kernel on the card), so every shard
-    enumerates the same anchors, and its statistics combine as the
-    classic path's."""
-    classic = [(t, m) for t, _, m in shards]
+    """align_anchor_pair_fast over index shards (`Shard`s with their
+    neighbour tables). The fallback slice is compacted on the combined
+    `resolved` (fallback_slice, the compaction kernel on the card), so
+    every shard enumerates the same anchors, and its statistics combine
+    as the classic path's."""
     return _fast_pair(
         lambda both: exact_anchor_stats_sharded(shards, both, cfg),
         fallback_slice,
-        lambda both, idx, hits: refill_slice_sharded(classic, both, idx,
+        lambda both, idx, hits: refill_slice_sharded(shards, both, idx,
                                                      hits, cfg),
         anchors_a, anchors_b, cfg)
 

@@ -5,11 +5,13 @@ Reads split across data rows; the seed index shards by k-mer prefix
 range (index/hashtable.shard_query_table) across the index axis. Each
 data row runs K1 on its row's index shards and combines the shards'
 integer partials on the row's first device (ops/anchor_align
-`*_sharded`); the rest of the detect step runs once there. On the card
-each shard's part is a partials-mode launch of the probe's or the
-enumeration's kernel on the shard's device, writing one record an
-anchor into the row's [shards, n, fields] buffer, and the combine and
-finish are one kernel (csrc/shard_k1.cu); on the CPU the plain parts.
+`*_sharded`); the rest of the detect step runs once there. Each shard
+carries the range of the keys it owns (ops/anchor_align.key_ranges)
+and looks up only those. On the card each shard's part is a
+partials-mode launch of the probe's or the enumeration's kernel on the
+shard's device, writing one record an anchor into the row's [shards, n,
+fields] buffer, and the combine and finish are one kernel
+(csrc/shard_k1.cu); on the CPU the plain parts.
 Results equal the single-device path bit for bit.
 
 The reference runs one program per slot, with psum/pmin collectives
@@ -44,7 +46,8 @@ from find_circ2_tpu_torch.io.genome import Genome
 from find_circ2_tpu_torch.models.pipeline import (revcomp_batch,
                                                   unpack_results)
 from find_circ2_tpu_torch.ops.anchor_align import (
-    align_anchor_pair_fast_sharded, align_anchor_pair_sharded, read_anchors)
+    Shard, align_anchor_pair_fast_sharded, align_anchor_pair_sharded,
+    key_ranges, read_anchors)
 from find_circ2_tpu_torch.ops.detect import (PACK_FIELDS, detect_core,
                                             detect_core_packed)
 from find_circ2_tpu_torch.ops.merge import (ALL_FIELDS, merge_junctions,
@@ -58,7 +61,8 @@ def _data_axes(mesh) -> tuple[str, ...]:
 
 class _Row:
     """One data row: its first device, the genome there, and its index
-    shards [(table, ntable or None, meta)], each on its slot's device."""
+    shards (`Shard`s, ntable None off the exact-first path), each on its
+    slot's device."""
 
     def __init__(self, device, words, chrom_offsets, shards) -> None:
         self.device = device
@@ -112,13 +116,14 @@ class ShardedEngine:
 
         words = pack_words(genome.codes)
         offsets = genome.chrom_offsets.astype(np.int64)
+        owns = key_ranges(index.n_buckets, n_index)
         self.rows = []
         for devs in mesh.local_devices.reshape(-1, n_index):
             shards = tuple(
-                (put(("table", i), dev, lambda i=i: tables[i]),
-                 None if ntables is None else
-                 put(("ntable", i), dev, lambda i=i: ntables[i]),
-                 put(("meta", i), dev, lambda i=i: metas[i]))
+                Shard(put(("table", i), dev, lambda i=i: tables[i]),
+                      None if ntables is None else
+                      put(("ntable", i), dev, lambda i=i: ntables[i]),
+                      put(("meta", i), dev, lambda i=i: metas[i]), owns[i])
                 for i, dev in enumerate(devs))
             dev0 = devs[0]
             self.rows.append(_Row(dev0, put("words", dev0, lambda: words),
@@ -152,9 +157,8 @@ class ShardedEngine:
             return align_anchor_pair_fast_sharded(row.shards, anchors_a,
                                                   anchors_b, cfg)
         with record_function("k1_classic"):
-            return (*align_anchor_pair_sharded(
-                [(t, m) for t, _, m in row.shards], anchors_a, anchors_b,
-                cfg), None)
+            return (*align_anchor_pair_sharded(row.shards, anchors_a,
+                                               anchors_b, cfg), None)
 
     def _detect_row(self, row: _Row, reads, lens, rc,
                     classic: bool = False) -> dict:

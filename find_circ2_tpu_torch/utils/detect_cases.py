@@ -42,9 +42,10 @@ from find_circ2_tpu_torch.index.hashtable import (CNT_BITS, EMPTY_KEY,
                                                   shard_query_table)
 from find_circ2_tpu_torch.io.genome import Genome
 from find_circ2_tpu_torch.models.pipeline import revcomp_batch
-from find_circ2_tpu_torch.ops.anchor_align import (AnchorHits, _exact_keys,
+from find_circ2_tpu_torch.ops.anchor_align import (AnchorHits, Shard,
+                                                   _exact_keys,
                                                    align_anchor_pair_fast,
-                                                   read_anchors)
+                                                   key_ranges, read_anchors)
 from find_circ2_tpu_torch.ops.packed import pack_words
 
 LARGE_POS = 0xFFFFFFFF
@@ -496,13 +497,13 @@ def slice_flags(n: int, unresolved: int, k, cfg: Config = Config(),
 SHARD_COUNTS = (1, 2, 4, 8)
 
 
-def shard_tables(case: DetectCase, counts=SHARD_COUNTS,
-                 cfg: Config = Config()) -> dict:
-    """The case genome's index carved into prefix-range shards as the
-    sharded engine carves it (shard_query_table, and the neighbour table
-    built once on the full table and relocated): {n_shards: (tables
-    [S, T, 8], ntables [S, T, 8], metas [S, 3])}, numpy int32. The
-    index is built anew from the genome, without the case's planted
+def shard_tables(case, counts=SHARD_COUNTS, cfg: Config = Config()) -> dict:
+    """The case genome's index (a DetectCase's or a RangeCase's) carved
+    into prefix-range shards as the sharded engine carves it
+    (shard_query_table, and the neighbour table built once on the full
+    table and relocated): {n_shards: (tables [S, T, 8], ntables [S, T,
+    8], metas [S, 3])}, numpy int32; one shard is the whole table. The
+    index is built anew from the genome, without a DetectCase's planted
     table edits (coincident buckets, doubled ext ids)."""
     index = build_index(case.genome, cfg)
     index.qtable = build_query_table(index, cfg, extras=False)
@@ -514,9 +515,68 @@ def shard_tables(case: DetectCase, counts=SHARD_COUNTS,
     return out
 
 
-def shard_args(tables, ntables, metas, devices) -> list:
-    """Shards [(table, ntable, meta)] as the sharded K1 takes them, shard
-    i on devices[i]."""
-    return [tuple(torch.from_numpy(np.ascontiguousarray(x[i])).to(dev)
-                  for x in (tables, ntables, metas))
+def shard_args(tables, ntables, metas, devices,
+               cfg: Config = Config()) -> list:
+    """Shards as the sharded K1 takes them (ops/anchor_align.Shard), shard
+    i on devices[i] with the keys it owns (key_ranges over the index's
+    4^prefix_len buckets, as shard_query_table cuts them)."""
+    owns = key_ranges(4 ** cfg.prefix_len, len(devices))
+    return [Shard(*(torch.from_numpy(np.ascontiguousarray(x[i])).to(dev)
+                    for x in (tables, ntables, metas)), owns[i])
             for i, dev in enumerate(devices)]
+
+
+def range_edges(cfg: Config = Config()) -> list[int]:
+    """Every cut between two shards' key ranges at SHARD_COUNTS
+    (key_ranges over 4^prefix_len buckets): the first key of each range
+    but the first."""
+    nb = 4 ** cfg.prefix_len
+    return sorted({r.lo for n in SHARD_COUNTS for r in key_ranges(nb, n)[1:]})
+
+
+@dataclass
+class RangeCase:
+    genome: Genome
+    anchors: np.ndarray    # uint8 [n, a]
+    cp: np.ndarray         # int64 [n] canonical p12 of each anchor's key
+
+
+# Anchors of each edge 20-mer (RANGE_KINDS in order): the 20-mer, its
+# reverse complement, its planted 1-mm neighbour (first code moved on,
+# its p12 in another range), and the 20-mer with an N first and last.
+RANGE_KINDS = ("kmer", "revcomp", "neighbour", "N first", "N last")
+
+
+def range_edge_case(seed: int, cfg: Config = Config()) -> RangeCase:
+    """Keys at the edges of the shards' key ranges: for each cut e of
+    range_edges, a 20-mer whose canonical p12 is e and one whose p12 is
+    e - 1, each planted in a random chromosome with its 1-mm neighbour,
+    and RANGE_KINDS' anchors of each. A 20-mer's prefix is its p12's
+    digits and its last two codes are 0, so its reverse complement's
+    p12 starts with 33 and the forward key is the canonical one."""
+    a, pk = cfg.anchor_len, cfg.prefix_len
+    if a - pk < 2 or pk < 2:
+        raise ValueError("range_edge_case needs prefix and suffix keys of "
+                         "two codes or more")
+    rng = np.random.default_rng(seed)
+    keys = [p for e in range_edges(cfg) for p in (e - 1, e)]
+    chrom = rng.integers(0, 4, 200 * (len(keys) + 2)).astype(np.uint8)
+    anchors = []
+    for j, p12 in enumerate(keys):
+        kmer = np.zeros(a, np.uint8)
+        kmer[:pk] = [(p12 >> 2 * (pk - 1 - d)) & 3 for d in range(pk)]
+        kmer[pk:a - 2] = rng.integers(0, 4, a - pk - 2)
+        near = kmer.copy()
+        near[0] = (near[0] + 1) % 4
+        at = 200 * (j + 1)
+        chrom[at:at + a] = kmer
+        chrom[at + 100:at + 100 + a] = near
+        n_first, n_last = kmer.copy(), kmer.copy()
+        n_first[0] = n_last[-1] = _N
+        anchors += [kmer, _revcomp(kmer), near, n_first, n_last]
+    anchors = np.stack(anchors)
+    cp = _exact_keys(torch.from_numpy(anchors), cfg)[2].numpy()
+    if not np.array_equal(cp[::len(RANGE_KINDS)], keys):
+        raise AssertionError("an edge 20-mer's canonical key is not its own")
+    genome = Genome.from_records([("chrE", chrom)], cfg)
+    return RangeCase(genome, anchors, cp)

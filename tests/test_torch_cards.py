@@ -283,31 +283,45 @@ def test_stamped_detect_kernels_match_plain_on_card(case, cuda_device):
         assert (cyc >= 0).all() and (cyc.sum(1) > 0).all()
 
 
-def _shard_kernels(case, tables, device, slots=(4, 1024)):
-    """The sharded K1's kernels on the case's anchors over `tables`' shards,
-    all on `device`, against their plain versions on the same tensors:
-    each shard's records (exact, classic, classic on a slice), the finish
-    of the stacked records (exact; classic, full and written at slots in
-    place), and the sharded forms against the CPU's plain parts (the
-    exact-first pair at each fallback slice size, the classic pair)."""
+def _shard_kernels(anchors_np, tables, whole, device, slots=(4, 1024)):
+    """The sharded K1's kernels on `anchors_np` over `tables`' shards, all
+    on `device`, against their plain versions on the same tensors: each
+    shard's records (exact, classic, classic on a slice) of the keys it
+    owns and of every key, and on the whole table `whole` of each shard's
+    keys; the finish of the stacked records (exact; classic, full and
+    written at slots in place), and the sharded forms against the CPU's
+    plain parts (the exact-first pair at each fallback slice size, the
+    classic pair)."""
     sh = detect_cases.shard_args(*tables, [device] * tables[0].shape[0])
-    anchors = torch.from_numpy(case.anchors).to(device)
+    anchors = torch.from_numpy(anchors_np).to(device)
     n = anchors.shape[0]
     slot = torch.arange(n - 1, -1, -3, device=device)
-    exact = torch.stack([ta.exact_records(*s, anchors, CFG) for s in sh])
-    classic = torch.stack([ta.classic_records(t, m, anchors, CFG)
-                           for t, _, m in sh])
-    sliced = torch.stack([ta.classic_records(t, m, anchors, CFG, slot)
-                          for t, _, m in sh])
+
+    def records(shards, owns):
+        return [(ta.exact_records(*s[:3], anchors, CFG, owns=o),
+                 ta.classic_records(s.table, s.meta, anchors, CFG, owns=o),
+                 ta.classic_records(s.table, s.meta, anchors, CFG, slot,
+                                    owns=o))
+                for s, o in zip(shards, owns)]
+
+    def plain(shards, owns):
+        return [(ta.exact_records_ref(*s[:3], anchors, CFG, o),
+                 ta.classic_records_ref(s.table, s.meta, anchors, CFG,
+                                        owns=o),
+                 ta.classic_records_ref(s.table, s.meta, anchors, CFG, slot,
+                                        o))
+                for s, o in zip(shards, owns)]
+
+    whole = detect_cases.shard_args(*whole, [device])[0]
+    owns = [s.owns for s in sh]
+    calls = ((sh, owns), (sh, [None] * len(sh)), ([whole] * len(sh), owns))
+    got = [records(*c) for c in calls]
     torch.cuda.synchronize(device)
-    for got, want in ((exact, [ta.exact_records_ref(*s, anchors, CFG)
-                               for s in sh]),
-                      (classic, [ta.classic_records_ref(t, m, anchors, CFG)
-                                 for t, _, m in sh]),
-                      (sliced, [ta.classic_records_ref(t, m, anchors, CFG,
-                                                       slot)
-                                for t, _, m in sh])):
-        assert torch.equal(got, torch.stack(want))
+    for g, c in zip(got, calls):
+        for x, y in zip(g, plain(*c)):
+            assert all(torch.equal(a, b) for a, b in zip(x, y))
+    exact, classic, sliced = (torch.stack([r[j] for r in got[0]])
+                              for j in range(3))
     assert _same_hits(ta.shard_finish(exact, anchors, CFG),
                       ta.shard_finish_ref(exact, anchors, CFG))
     assert all(torch.equal(a, b) for a, b in zip(
@@ -322,44 +336,47 @@ def _shard_kernels(case, tables, device, slots=(4, 1024)):
     cpu = detect_cases.shard_args(*tables, ["cpu"] * tables[0].shape[0])
     for k in slots:
         cfg = dataclasses.replace(CFG, exact_fallback_slots=k)
-        pair = (case.anchors[:half], case.anchors[half:2 * half])
+        pair = (anchors_np[:half], anchors_np[half:2 * half])
         got = ta.align_anchor_pair_fast_sharded(
             sh, *(torch.from_numpy(x).to(device) for x in pair), cfg)
         want = ta.align_anchor_pair_fast_sharded(
             cpu, *(torch.from_numpy(x) for x in pair), cfg)
         assert all(torch.equal(a.cpu(), b) for a, b in zip(
             [*got[0], *got[1], got[2]], [*want[0], *want[1], want[2]]))
-    got = ta.align_anchor_pair_sharded(
-        [(t, m) for t, _, m in sh], anchors[:half], anchors[half:2 * half],
-        CFG)
-    want = ta.align_anchor_pair_sharded(
-        [(t, m) for t, _, m in cpu], anchors[:half].cpu(),
-        anchors[half:2 * half].cpu(), CFG)
+    got = ta.align_anchor_pair_sharded(sh, anchors[:half],
+                                       anchors[half:2 * half], CFG)
+    want = ta.align_anchor_pair_sharded(cpu, anchors[:half].cpu(),
+                                        anchors[half:2 * half].cpu(), CFG)
     assert all(torch.equal(a.cpu(), b) for a, b in zip([*got[0], *got[1]],
                                                        [*want[0], *want[1]]))
 
 
 @pytest.mark.cuda
-def test_shard_kernels_match_plain_on_card(case, cuda_device):
-    """On the card, at 1, 2, 4 and 8 index shards of the case's genome,
-    the partials modes of the probe and the enumeration, the cross-shard
-    finish (csrc/shard_k1.cu) and the sharded forms equal their plain
-    versions (the fallback slice overflowing at 4 slots); each wrapper
-    launches once a call and the single-table kernels' counts stay."""
-    shards = detect_cases.shard_tables(case, detect_cases.SHARD_COUNTS, CFG)
+@pytest.mark.parametrize("which", ["detect", "range-edges"])
+def test_shard_kernels_match_plain_on_card(case, which, cuda_device):
+    """On the card, at 1, 2, 4 and 8 index shards of the case's genome
+    (detect) or of keys at every cut between the shards' key ranges
+    (range-edges), the partials modes of the probe and the enumeration
+    (each shard's own keys, every key, and each shard's keys on the whole
+    table), the cross-shard finish (csrc/shard_k1.cu) and the sharded
+    forms equal their plain versions (the fallback slice overflowing at
+    4 slots); each wrapper launches once a call and the single-table
+    kernels' counts stay."""
+    got = case if which == "detect" else detect_cases.range_edge_case(5, CFG)
+    shards = detect_cases.shard_tables(got, detect_cases.SHARD_COUNTS, CFG)
     before = (ta.exact_record_launches, ta.classic_record_launches,
               ta.finish_launches, ta.exact_launches, ta.classic_launches)
     for tables in shards.values():
-        _shard_kernels(case, tables, cuda_device)
+        _shard_kernels(got.anchors, tables, shards[1], cuda_device)
     got = [ta.exact_record_launches - before[0],
            ta.classic_record_launches - before[1],
            ta.finish_launches - before[2], ta.exact_launches - before[3],
            ta.classic_launches - before[4]]
-    # At S shards: the direct calls, S exact and 2S classic records and
+    # At S shards: the direct calls, 3S exact and 6S classic records and
     # four finishes; each of the two fast pairs S exact and S classic
     # records and two finishes; the classic pair S records and a finish.
     S = sum(shards)
-    assert got == [3 * S, 5 * S, 9 * len(shards), 0, 0], got
+    assert got == [5 * S, 9 * S, 9 * len(shards), 0, 0], got
 
 
 def _merge_tensors(name, n, seed, device):

@@ -411,13 +411,14 @@ def test_cuda_tensors_reach_the_c_calls(case, monkeypatch):
     assert d1 == d2 == d3 == d4 == 2 and _Device.current == [0]
     # ClassicArgs: ext_id, ext, slots at 3..5; count, first_pos, extras
     # at 13..15; then rows, ext_rows, n, anchor_len, prefix_len,
-    # max_bucket, max_anchor_mm, ext_width, device, reserved; then the
-    # partials mode's records (null: none of these calls is one).
+    # max_bucket, max_anchor_mm, ext_width, device, reserved; the keys
+    # looked up (every key); then the partials mode's records (null: none
+    # of these calls is one).
     assert full[3] == ext_id.data_ptr() and full[4] == ext.data_ptr()
     assert full[5] == 0 and all(full[13:16])
     assert full[17:] == (table.shape[0], ext.shape[0], n, CFG.anchor_len,
                          CFG.prefix_len, CFG.max_bucket, CFG.max_anchor_mm,
-                         K1, 2, 0, 0)
+                         K1, 2, 0, *ta.EVERY_KEY, 0)
     assert bare[-1] == slot[-1] == 0
     assert bare[3:6] == (0, 0, 0) and bare[13:16] == (0, 0, 0)
     assert slot[5] == idx.data_ptr() and slot[13:16] == (0, 0, 0)

@@ -9,6 +9,7 @@ import io
 import os
 import subprocess
 import sys
+import time
 
 import numpy as np
 import pytest
@@ -158,6 +159,45 @@ def test_run_fastq_matches_jax(lib, tmp_path, slowpath, explore):
     host = "slowpath_multihit" in times.counts
     assert (device, host) == (slowpath and explore is None,
                               slowpath and explore is False)
+
+
+def _stalled_ping():
+    """A rescue worker that never answers its start-up ping."""
+    time.sleep(60)
+
+
+def test_stalled_rescue_worker_runs_inline(lib, tmp_path, monkeypatch):
+    """A forked rescue worker that does not answer its start-up ping
+    (stalled on purpose) is dropped at once: the run makes its host
+    re-calls inline from the start, gives the reference's BED and stats,
+    and returns well within the worker's TIMEOUT_S."""
+    from find_circ2_tpu_torch.models import stream
+    assert stream._RescuePool.PING_S <= 10 < stream._RescuePool.TIMEOUT_S
+    made = []
+
+    class Pool(stream._RescuePool):
+        PING_S = 1.0
+
+        def __init__(self, *args):
+            super().__init__(*args)
+            made.append(self)
+
+    monkeypatch.setattr(stream, "_RescuePool", Pool)
+    monkeypatch.setattr(stream, "_rescue_ping", _stalled_ping)
+    sim, index, jd, td = lib
+    fq = _fastq(sim, tmp_path)
+    sp = (sim.genome, index)
+    agg_j = Aggregator(sim.genome, CFG)
+    jrun_fastq(jd, fq, agg_j, CFG, slowpath=sp)
+    agg_t = TAggregator(sim.genome, CFG)
+    times = StageTimes()
+    t0 = time.perf_counter()
+    run_fastq(td, fq, agg_t, CFG, slowpath=sp, explore=False, times=times)
+    took = time.perf_counter() - t0
+    assert _render(agg_t, twrite_bed) == _render(agg_j)
+    assert [p.pool for p in made] == [None]
+    assert "slowpath_multihit" in times.counts
+    assert took < Pool.TIMEOUT_S / 4, took
 
 
 def test_run_fastq_journal_explores_per_read(lib, tmp_path):

@@ -100,7 +100,8 @@ def test_exact_shards_match_jax(case, shards, S, monkeypatch):
     for got in _both_paths(lambda: ta.exact_anchor_stats_sharded(
             sh, anchors, CFG), monkeypatch):
         _same(got, want)
-    records = torch.stack([ta.exact_records(*s, anchors, CFG) for s in sh])
+    records = torch.stack([ta.exact_records(*s[:3], anchors, CFG,
+                                            owns=s.owns) for s in sh])
     assert records.shape == (S, anchors.shape[0], ta.EXACT_FIELDS)
     assert (records[:, :, 1] + records[:, :, 3]).amax() > CFG.max_bucket
     # Each key lives on one shard: found at most once an anchor.
@@ -114,7 +115,7 @@ def test_classic_shards_match_jax(case, shards, S, monkeypatch):
     """align_anchors over S shards equals the reference's finalize_hits
     with psum/pmin on every anchor of the case."""
     tables, ntables, metas = shards[S]
-    sh = [(t, m) for t, _, m in _port_shards(tables, ntables, metas)]
+    sh = _port_shards(tables, ntables, metas)
     anchors = torch.from_numpy(case.anchors)
     want = _jax_sharded(
         lambda t, nt, m, a: ja.align_anchors(t, m, a, CFG,
@@ -155,22 +156,21 @@ def test_records_and_finish_are_the_plain_combine(case, shards):
     tables, ntables, metas = shards[4]
     sh = _port_shards(tables, ntables, metas)
     anchors = torch.from_numpy(case.anchors)
-    exact = torch.stack([ta.exact_records_ref(*s, anchors, CFG)
-                         for s in sh])
+    exact = torch.stack([ta.exact_records_ref(*s[:3], anchors, CFG,
+                                              s.owns) for s in sh])
     _same(ta.shard_finish_ref(exact, anchors, CFG),
           ta.exact_anchor_stats_sharded(sh, anchors, CFG))
-    classic = [(t, m) for t, _, m in sh]
-    recs = torch.stack([ta.classic_records_ref(t, m, anchors, CFG)
-                        for t, m in classic])
+    recs = torch.stack([ta.classic_records_ref(s.table, s.meta, anchors, CFG,
+                                               owns=s.owns) for s in sh])
     _same(ta.shard_finish_ref(recs, None, CFG),
-          ta.align_anchors_sharded(classic, anchors, CFG))
+          ta.align_anchors_sharded(sh, anchors, CFG))
     slots = torch.arange(anchors.shape[0] - 1, -1, -3)
     hits, _ = ta.exact_anchor_stats_sharded(sh, anchors, CFG)
-    recs = torch.stack([ta.classic_records_ref(t, m, anchors, CFG, slots)
-                        for t, m in classic])
+    recs = torch.stack([ta.classic_records_ref(s.table, s.meta, anchors, CFG,
+                                               slots, s.owns) for s in sh])
     _same(ta.shard_finish_ref(recs, None, CFG, slots, hits),
           ta._scatter(hits, slots, ta.align_anchors_sharded(
-              classic, anchors[slots], CFG)))
+              sh, anchors[slots], CFG)))
 
 
 def test_coincident_bucket_read_on_shards_matches_jax(monkeypatch):
@@ -210,9 +210,8 @@ def test_coincident_bucket_read_on_shards_matches_jax(monkeypatch):
         lambda t, nt, m, x: ja.align_anchors(t, m, x, CFG,
                                              axis_name="index"),
         tables, ntables, metas, anchors)
-    classic = [(t, m) for t, _, m in sh]
     for got in _both_paths(lambda: ta.align_anchors_sharded(
-            classic, torch.from_numpy(anchors), CFG), monkeypatch):
+            sh, torch.from_numpy(anchors), CFG), monkeypatch):
         _same(got, want)
     half = anchors.shape[0] // 2
     want = _jax_sharded(
@@ -223,6 +222,198 @@ def test_coincident_bucket_read_on_shards_matches_jax(monkeypatch):
             sh, torch.from_numpy(anchors[:half]),
             torch.from_numpy(anchors[half:]), CFG), monkeypatch):
         _same(got, want)
+
+
+@pytest.fixture(scope="module")
+def edge():
+    return detect_cases.range_edge_case(5, CFG)
+
+
+@pytest.fixture(scope="module")
+def edge_shards(edge):
+    return detect_cases.shard_tables(edge, detect_cases.SHARD_COUNTS, CFG)
+
+
+@pytest.fixture(scope="module")
+def batches(case, shards, edge, edge_shards):
+    """Each batch of the ranged-records tests: its anchors and shards."""
+    return {"detect": (case.anchors, shards),
+            "range-edges": (edge.anchors, edge_shards)}
+
+
+BATCHES = ("detect", "range-edges")
+NB = 4 ** CFG.prefix_len
+# The records of a key a shard does not hold (positions LARGE_POS).
+EMPTY_EXACT = [0, 0, -1, 0, -1, 0, -1, 0, -1]
+EMPTY_CLASSIC = [0, 0, 0, 0, -1, -1, -1, -1]
+
+
+def _records(shard, anchors, slots, owns):
+    """A shard's plain records of `anchors` on the keys of `owns`: exact,
+    classic, and classic at `slots`."""
+    t, nt, m = shard[:3]
+    return (ta.exact_records_ref(t, nt, m, anchors, CFG, owns),
+            ta.classic_records_ref(t, m, anchors, CFG, owns=owns),
+            ta.classic_records_ref(t, m, anchors, CFG, slots, owns))
+
+
+def _slots(anchors):
+    return torch.arange(anchors.shape[0] - 1, -1, -3)
+
+
+@pytest.mark.parametrize("which", BATCHES)
+@pytest.mark.parametrize("S", detect_cases.SHARD_COUNTS)
+def test_ranged_records_equal_unranged(batches, which, S):
+    """On each carved shard, the records of the keys it owns (exact,
+    classic, classic in slot mode) equal its records of every key: a
+    shard holds only the keys of its range, so the range drops only
+    lookups that find nothing. The batches hold dirty anchors (DIRTY_AT;
+    an N first and last) and, in range-edges, keys at every cut and one
+    below it."""
+    anchors, shards = batches[which]
+    anchors = torch.from_numpy(anchors)
+    slots = _slots(anchors)
+    sh = _port_shards(*shards[S])
+    assert [s.owns for s in sh] == ta.key_ranges(NB, S)
+    for s in sh:
+        for got, want in zip(_records(s, anchors, slots, s.owns),
+                             _records(s, anchors, slots, None)):
+            assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("which", BATCHES)
+@pytest.mark.parametrize("S", detect_cases.SHARD_COUNTS)
+def test_ranges_partition_the_whole_table(batches, which, S):
+    """On the whole table, which holds every key, the records on each of
+    the S ranges are a key's own records where the range owns its
+    canonical key and the empty record elsewhere; the finish of the S
+    ranges' records equals the reference's single-table exact_anchor_stats
+    and align_anchors, and at `slots` the single table's refill_slice."""
+    anchors, shards = batches[which]
+    x = torch.from_numpy(anchors)
+    slots = _slots(x)
+    whole = _port_shards(*shards[1])[0]
+    every = _records(whole, x, slots, None)
+    cp = ta._exact_keys(x, CFG)[2]
+    got = [_records(whole, x, slots, r) for r in ta.key_ranges(NB, S)]
+    for r, (exact, full, sliced) in zip(ta.key_ranges(NB, S), got):
+        own = (cp >= r.lo) & (cp < r.hi)
+        want = torch.where(own[:, None], every[0],
+                           torch.tensor(EMPTY_EXACT, dtype=torch.int32))
+        assert torch.equal(exact, want)
+    if S > 1:
+        assert all(bool((g[0][:, 0] == 0).any()) for g in got)
+    stack = [torch.stack([g[j] for g in got]) for j in range(3)]
+    t, nt, m = shards[1][0][0], shards[1][1][0], shards[1][2][0]
+    _same(ta.shard_finish_ref(stack[0], x, CFG),
+          ja.exact_anchor_stats(t, nt, m, anchors, CFG))
+    want = ja.align_anchors(t, m, anchors, CFG)
+    _same(ta.shard_finish_ref(stack[1], None, CFG), want)
+    hits = ta.shard_finish_ref(stack[0], x, CFG)[0]
+    _same(ta.shard_finish_ref(stack[2], None, CFG, slots, hits),
+          ta.refill_slice_ref(whole.table, whole.meta, x, slots, hits, CFG))
+
+
+@pytest.mark.parametrize("S", detect_cases.SHARD_COUNTS)
+def test_range_edges_match_jax(edge, edge_shards, S, monkeypatch):
+    """Keys at every cut between the shards' ranges and one below it,
+    their reverse complements, 1-mm neighbours in other ranges and dirty
+    forms: the sharded forms (exact, classic, the exact-first pair at 4
+    and 1024 slots) on both paths equal the reference's sharded K1, and
+    each edge key is found on the one shard whose range holds it."""
+    tables, ntables, metas = edge_shards[S]
+    sh = _port_shards(tables, ntables, metas)
+    anchors = torch.from_numpy(edge.anchors)
+    want = _jax_sharded(partial(ja.exact_anchor_stats, cfg=CFG,
+                                axis_name="index"),
+                        tables, ntables, metas, edge.anchors)
+    for got in _both_paths(lambda: ta.exact_anchor_stats_sharded(
+            sh, anchors, CFG), monkeypatch):
+        _same(got, want)
+    want = _jax_sharded(
+        lambda t, nt, m, a: ja.align_anchors(t, m, a, CFG,
+                                             axis_name="index"),
+        tables, ntables, metas, edge.anchors)
+    for got in _both_paths(lambda: ta.align_anchors_sharded(sh, anchors,
+                                                            CFG),
+                           monkeypatch):
+        _same(got, want)
+    half = anchors.shape[0] // 2
+    for slots in (4, 1024):
+        cfg = dataclasses.replace(CFG, exact_fallback_slots=slots)
+        want = _jax_sharded(
+            lambda t, nt, m, x, y: ja.align_anchor_pair_fast(
+                t, nt, m, x, y, cfg, axis_name="index"),
+            tables, ntables, metas, edge.anchors[:half],
+            edge.anchors[half:2 * half])
+        for got in _both_paths(lambda: ta.align_anchor_pair_fast_sharded(
+                sh, anchors[:half], anchors[half:2 * half], cfg),
+                monkeypatch):
+            _same(got, want)
+    found = torch.stack([ta.exact_records(*s[:3], anchors, CFG,
+                                          owns=s.owns)[:, 0] for s in sh])
+    kmers = np.arange(0, anchors.shape[0], len(detect_cases.RANGE_KINDS))
+    owner = edge.cp[kmers] // -(-NB // S)
+    assert found[:, kmers].sum(0).tolist() == [1] * kmers.size
+    assert found[owner, kmers].tolist() == [1] * kmers.size
+
+
+@pytest.mark.parametrize("S", [2, 4, 8])
+def test_shard_owning_no_key_of_the_batch(case, shards, S, monkeypatch):
+    """A batch none of whose keys, exact or 1-mm, the last of S shards
+    owns: that shard's records are all the empty record, and the sharded
+    forms equal the reference's; a range that owns nothing gives the
+    empty records on the whole table too."""
+    anchors = torch.from_numpy(case.anchors)
+    p12, s8, p12r, s8r, _ = ta.enumerate_variants(anchors, CFG)
+    cp = ta._canonical((p12, s8), (p12r, s8r))[1]
+    last = ta.key_ranges(NB, S)[-1]
+    keep = ~((cp >= last.lo) & (cp < last.hi)).any(1)
+    x = anchors[keep][:keep.sum() // 2 * 2]
+    assert x.shape[0] >= 16
+    tables, ntables, metas = shards[S]
+    sh = _port_shards(tables, ntables, metas)
+    slots = _slots(x)
+    for got, empty in zip(_records(sh[-1], x, slots, sh[-1].owns),
+                          (EMPTY_EXACT, EMPTY_CLASSIC, EMPTY_CLASSIC)):
+        assert (got == torch.tensor(empty, dtype=torch.int32)).all()
+    nothing = ta.KeyRange(0, 0)
+    for got, empty in zip(_records(_port_shards(*shards[1])[0], x, slots,
+                                   nothing),
+                          (EMPTY_EXACT, EMPTY_CLASSIC, EMPTY_CLASSIC)):
+        assert (got == torch.tensor(empty, dtype=torch.int32)).all()
+    want = _jax_sharded(partial(ja.exact_anchor_stats, cfg=CFG,
+                                axis_name="index"),
+                        tables, ntables, metas, x.numpy())
+    for got in _both_paths(lambda: ta.exact_anchor_stats_sharded(sh, x, CFG),
+                           monkeypatch):
+        _same(got, want)
+    half = x.shape[0] // 2
+    want = _jax_sharded(
+        lambda t, nt, m, a, b: ja.align_anchor_pair_fast(
+            t, nt, m, a, b, CFG, axis_name="index"),
+        tables, ntables, metas, x[:half].numpy(), x[half:].numpy())
+    for got in _both_paths(lambda: ta.align_anchor_pair_fast_sharded(
+            sh, x[:half], x[half:], CFG), monkeypatch):
+        _same(got, want)
+
+
+@pytest.mark.parametrize("which", BATCHES)
+def test_key_ranges_hold_every_occupied_slot(batches, which):
+    """key_ranges cuts [0, 4^prefix_len) as shard_query_table does: at 1,
+    2, 4 and 8 shards the ranges follow each other from 0 past the last
+    bucket, and every occupied slot of shard i's carved table holds a key
+    of range i."""
+    from find_circ2_tpu_torch.index.hashtable import EMPTY_KEY, LANES
+    _, shards = batches[which]
+    for S, (tables, _, _) in shards.items():
+        owns = ta.key_ranges(NB, S)
+        assert owns[0].lo == 0 and owns[-1].hi >= NB
+        assert all(a.hi == b.lo for a, b in zip(owns, owns[1:]))
+        for r, t in zip(owns, tables):
+            keys = t.reshape(-1, LANES)[:, 0]
+            keys = keys[keys != EMPTY_KEY]
+            assert keys.size and ((keys >= r.lo) & (keys < r.hi)).all()
 
 
 class _Device:
@@ -320,11 +511,12 @@ def test_cuda_tensors_reach_the_shard_kernels(case, shards, monkeypatch):
     (_, _, x1), (_, _, x2), (_, _, f1), (_, _, comp), (_, _, c1), \
         (_, _, c2), (_, _, f2) = lib.seen
     n, k = 2 * B, min(CFG.exact_fallback_slots, 2 * B)
-    # ExactArgs: hit and resolved pointers 4..11 null, partials at 12;
-    # the two shards' rows 4 * n * 9 bytes apart.
+    # ExactArgs: hit and resolved pointers 4..11 null, partials at 12,
+    # the shard's range at 15..16; the two shards' rows 4 * n * 9 bytes
+    # apart.
     for s, x in enumerate((x1, x2)):
         assert x[1] == sh[s][0].data_ptr() and x[4:12] == (0,) * 8
-        assert x[-6] == n
+        assert x[15:17] == tuple(sh[s].owns) and x[-6] == n
     assert x2[12] - x1[12] == 4 * n * ta.EXACT_FIELDS
     # ShardArgs: records, anchors, slots, 8 outputs, stream; n; shards,
     # fields, anchor_len, prefix_len, max_bucket, max_anchor_mm, device.
@@ -333,9 +525,11 @@ def test_cuda_tensors_reach_the_shard_kernels(case, shards, monkeypatch):
                                          CFG.anchor_len, CFG.prefix_len,
                                          CFG.max_bucket, CFG.max_anchor_mm)
     assert comp[4:6] == (n, k)
-    # ClassicArgs: slots at 5, hit pointers 6..12 null, partials last.
-    for c in (c1, c2):
+    # ClassicArgs: slots at 5, hit pointers 6..12 null, the shard's range
+    # at 27..28, partials last.
+    for s, c in enumerate((c1, c2)):
         assert c[5] == comp[1] and c[6:13] == (0,) * 7 and c[19] == k
+        assert c[27:29] == tuple(sh[s].owns)
     assert c2[-1] - c1[-1] == 4 * k * ta.CLASSIC_FIELDS
     assert f2[0] == c1[-1] and f2[1] == 0 and f2[2] == comp[1]
     assert f2[3:10] == f1[3:10] and f2[10] == 0
@@ -343,10 +537,61 @@ def test_cuda_tensors_reach_the_shard_kernels(case, shards, monkeypatch):
     after = _counts()
     assert [y - x for x, y in zip(before, after)] == [2, 2, 2, 1, 0, 0]
     lib.seen.clear()
-    ta.align_anchor_pair_sharded([(t, m) for t, _, m in sh], a, b, CFG)
+    ta.align_anchor_pair_sharded(sh, a, b, CFG)
     assert [e[0] for e in lib.seen] == ["classic", "classic", "finish"]
     assert lib.seen[0][2][5] == 0 and lib.seen[2][2][14] == 8
     assert lib.seen[2][2][12] == 2 * B
+
+
+class _StampedLib(_Lib):
+    """A stand-in for the measurement build: also records where the
+    stamps go (the buffer's pointer, then null)."""
+
+    def fc2t_exact_stamps(self, ptr):
+        self.seen.append(("stamps", _Device.current[0], ptr))
+        return 0
+
+    fc2t_classic_stamps = fc2t_exact_stamps
+
+
+def test_record_stage_cycles_reach_the_stamped_c_calls(case, shards,
+                                                       monkeypatch):
+    """exact_stage_cycles and classic_stage_cycles with `records` run the
+    partials modes through the (stubbed) measurement build on a shard's
+    keys: one C call each between pointing the stamps at a zeroed buffer
+    (a row a warp: EXACT_ANCHORS_PER_WARP anchors, or one slot) and at
+    nothing, with the hit pointers null, the records' pointer and the
+    range set; each counts one record launch and returns the records and
+    the clocks' diffs."""
+    tables, ntables, metas = shards[2]
+    s = _port_shards(tables, ntables, metas)[1]
+    _stub_cuda(monkeypatch)
+    lib = _StampedLib()
+    monkeypatch.setattr(_build, "load_stamped", lambda: lib)
+    monkeypatch.setattr(torch.cuda, "synchronize", lambda *a: None)
+    anchors = torch.from_numpy(case.anchors)
+    n = anchors.shape[0]
+    slots = _slots(anchors)
+    before = _counts()
+    exact, cyc = ta.exact_stage_cycles(*s[:3], anchors, CFG, records=True,
+                                       owns=s.owns)
+    assert exact.shape == (n, ta.EXACT_FIELDS)
+    assert cyc.shape == (-(-n // ta.EXACT_ANCHORS_PER_WARP),
+                         len(ta.EXACT_STAGES))
+    sliced, scyc = ta.classic_stage_cycles(s.table, s.meta, anchors, CFG,
+                                           slots=slots, records=True,
+                                           owns=s.owns)
+    assert sliced.shape == (slots.shape[0], ta.CLASSIC_FIELDS)
+    assert scyc.shape == (slots.shape[0], len(ta.CLASSIC_STAGES))
+    assert [y - x for x, y in zip(before, _counts())] == [1, 1, 0, 0, 0, 0]
+    assert [e[0] for e in lib.seen] == ["stamps", "exact", "stamps",
+                                        "stamps", "classic", "stamps"]
+    assert [e[2] for e in lib.seen if e[0] == "stamps"][1::2] == [None] * 2
+    x, c = lib.seen[1][2], lib.seen[4][2]
+    assert x[4:12] == (0,) * 8 and x[12] == exact.data_ptr()
+    assert x[15:17] == tuple(s.owns)
+    assert c[6:13] == (0,) * 7 and c[-1] == sliced.data_ptr()
+    assert c[5] == slots.data_ptr() and c[27:29] == tuple(s.owns)
 
 
 def test_plain_versions_launch_nothing_off_the_cpu(case, shards,
@@ -361,15 +606,14 @@ def test_plain_versions_launch_nothing_off_the_cpu(case, shards,
     sh = _port_shards(tables, ntables, metas)
     anchors = torch.from_numpy(case.anchors)
     slots = torch.arange(anchors.shape[0] - 1, -1, -5)
-    table, ntable, meta = sh[0]
+    table, ntable, meta, _ = sh[0]
 
     def run():
-        exact = torch.stack([ta.exact_records_ref(*s, anchors, CFG)
-                             for s in sh])
+        exact = torch.stack([ta.exact_records_ref(*s[:3], anchors, CFG,
+                                                  s.owns) for s in sh])
         hits, resolved = ta.shard_finish_ref(exact, anchors, CFG)
-        classic = torch.stack([ta.classic_records_ref(t, m, anchors, CFG,
-                                                      slots)
-                               for t, _, m in sh])
+        classic = torch.stack([ta.classic_records_ref(
+            s.table, s.meta, anchors, CFG, slots, s.owns) for s in sh])
         return (ta.exact_anchor_stats_ref(table, ntable, meta, anchors, CFG),
                 exact, resolved, classic,
                 ta.shard_finish_ref(classic, None, CFG, slots, hits))
@@ -399,7 +643,7 @@ def test_cpu_tensors_take_the_plain_parts(case, shards, monkeypatch):
     b = torch.from_numpy(case.anchors[40:80].copy())
     before = _counts()
     ta.align_anchor_pair_fast_sharded(sh, a, b, CFG)
-    ta.align_anchor_pair_sharded([(t, m) for t, _, m in sh], a, b, CFG)
+    ta.align_anchor_pair_sharded(sh, a, b, CFG)
     assert _counts() == before
 
 
@@ -411,7 +655,8 @@ def _constants(name):
 
 def test_shard_kernel_constants_and_layouts():
     """The record widths of the partials modes and of csrc/shard_k1.cu
-    equal the wrappers', and ShardArgs' layout matches _build's."""
+    equal the wrappers', the kernels' every-key range EVERY_KEY, and
+    ShardArgs', ExactArgs' and ClassicArgs' sizes _build's."""
     src, got = _constants("shard_k1.cu")
     assert (got["kExactFields"], got["kClassicFields"]) == (
         ta.EXACT_FIELDS, ta.CLASSIC_FIELDS)
@@ -419,8 +664,13 @@ def test_shard_kernel_constants_and_layouts():
         detect_cases.SHARD_COUNTS)
     assert "sizeof(ShardArgs) == %d" % _build.SHARD_ARGS.size in src
     assert '#include "cuckoo.cuh"' in src
-    assert _constants("exact_stats.cu")[1]["kExactFields"] == \
-        ta.EXACT_FIELDS == len(ta.EXACT_OPS)
-    assert _constants("classic_k1.cu")[1]["kClassicFields"] == \
-        ta.CLASSIC_FIELDS == len(ta.CLASSIC_OPS)
-    assert _build.EXACT_ARGS.size == 144 and _build.CLASSIC_ARGS.size == 192
+    exact, classic = (_constants(f)[1] for f in ("exact_stats.cu",
+                                                  "classic_k1.cu"))
+    assert exact["kExactFields"] == ta.EXACT_FIELDS == len(ta.EXACT_OPS)
+    assert classic["kClassicFields"] == ta.CLASSIC_FIELDS == len(
+        ta.CLASSIC_OPS)
+    # The range of a call that looks up every key, which the C entries
+    # require outside the partials modes.
+    assert exact["kEveryKey"] == classic["kEveryKey"] == ta.EVERY_KEY.hi
+    assert ta.EVERY_KEY.lo == 0
+    assert _build.EXACT_ARGS.size == 160 and _build.CLASSIC_ARGS.size == 208

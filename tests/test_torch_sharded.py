@@ -24,6 +24,7 @@ from find_circ2_tpu.parallel.sharded import ShardedEngine as JEngine
 from find_circ2_tpu.utils.simulate import simulate
 from find_circ2_tpu_torch.cli import main as cli_main
 from find_circ2_tpu_torch.models import pipeline as tp
+from find_circ2_tpu_torch.ops.anchor_align import key_ranges
 from find_circ2_tpu_torch.ops.merge import merge_junctions
 from find_circ2_tpu_torch.parallel.mesh import make_hier_mesh, make_mesh
 from find_circ2_tpu_torch.parallel.sharded import ShardedEngine
@@ -74,9 +75,13 @@ def test_sharded_matches_single_chip(shape):
     eng = ShardedEngine(sim.genome, idx, make_mesh(8, shape, CPU8), CFG,
                         prefilter=True)
     assert eng.fast and eng.n_data == shape[0]
-    # One copy of each shard however many data rows share the device.
-    copies = {id(t) for row in eng.rows for t, _, _ in row.shards}
+    # One copy of each shard however many data rows share the device;
+    # each shard owns the keys of its prefix range.
+    copies = {id(s.table) for row in eng.rows for s in row.shards}
     assert len(copies) == shape[1]
+    assert all([s.owns for s in row.shards] == key_ranges(idx.n_buckets,
+                                                          shape[1])
+               for row in eng.rows)
     got = eng.detect(reads, lens)
     want = JEngine(sim.genome, idx, jmake_mesh(8, shape=shape), CFG,
                    prefilter=True).detect(reads, lens)
@@ -251,9 +256,8 @@ def test_coincident_probe_buckets():
         assert np.array_equal(x.numpy(), np.asarray(y))
     eng = ShardedEngine(g, idx, make_mesh(2, (1, 2), ["cpu"] * 2), CFG,
                         exact_first=False)
-    shards = [(t, m) for t, _, m in eng.rows[0].shards]
-    sharded = ta.align_anchors_sharded(shards, torch.from_numpy(anchors),
-                                       CFG)
+    sharded = ta.align_anchors_sharded(eng.rows[0].shards,
+                                       torch.from_numpy(anchors), CFG)
     for i, anchor in enumerate(anchors):
         hit = align_anchor(g, idx, anchor, CFG)
         assert (bool(sharded.aligned[i]), int(sharded.n_best[i]),
