@@ -20,11 +20,15 @@ Phases, each fatal on failure:
      in rows off 4 bytes, 40 chromosomes, anchors of 18 and 16 bases);
      the sharded K1's kernels (the partials modes of the probe and the
      enumeration, `exact_records` and `classic_records`, each shard
-     looking up only the keys it owns, and the cross-shard finish
-     `shard_finish`) and the sharded forms over 1, 2, 4 and 8 index
-     shards of that batch's genome and of keys at every cut between the
-     shards' key ranges, the records also of every key and of each
-     shard's keys on the whole table; K-h's kernels
+     looking up only the keys it owns; their combining modes,
+     `exact_combine` and `classic_combine`, one shard folding the
+     others' records into its own and finishing, also with synthetic
+     others whose exact counts sum past max_bucket and past 1023) and the
+     sharded forms
+     over 1, 2, 4 and 8 index shards of that batch's genome and of keys
+     at every cut between the shards' key ranges, the records also of
+     every key and of each shard's keys on the whole table; K-h's
+     kernels
      (`merge_junctions`, `merge_tables`) on every `merge_cases` case at
      MERGE_SIZES rows, one tile, its edges and many tiles;
   4. the port's `find_circ` CLI on test_data/ must reproduce the golden
@@ -76,9 +80,10 @@ Phases, each fatal on failure:
      phase 5's FASTQ through `run_fastq` and must give phase 6's BED and
      stats byte for byte, the filter stack's precision and recall, §2b on
      the host twin, and exactly the launches its batches imply (per data
-     row and batch one probe's records a shard, a finish, the
-     compaction, one slice's records a shard, a finish and the core; the
-     row gather, explore and K1's single-table kernels never); the stream
+     row and batch the probe's records on shard 1 and shard 0's
+     combining probe, the compaction, the slice's records on shard 1 and
+     shard 0's combining slice, and the core; the row gather, explore
+     and K1's single-table kernels never); the stream
      again with the plain versions and with the kernels (equal BED, wall
      and device_dispatch); on every batch the engine's packed rows and
      `detect_merged` (all rows) with the kernels equal the plain
@@ -88,7 +93,10 @@ Phases, each fatal on failure:
      forced through the redo; one batch's device activities by label,
      kernels against plain; each new kernel timed at the engine's shapes
      (as called, device alone, the plain version's busy time, bound),
-     the record kernels on each index shard and summed over a data row,
+     each phase of a data row (probe, slice, redo) device alone as the
+     engine runs it (records and a combining launch), and the combining
+     kernels alone with their stage clocks; the record kernels
+     on each index shard and summed over a data row,
      beside their bounds at the rows each shard owns and at every key's
      and the random-row floor at the rate gather_rows reaches on the
      shard's table, with their stage clocks looking up every key and the
@@ -159,8 +167,8 @@ EXACT_OPS_PER_ANCHOR = 220
 # source.
 CLASSIC_OPS_PER_VARIANT = 150
 COMPACT_OPS_PER_ANCHOR = 30
-# The int32 operations of csrc/shard_k1.cu's combine, a record of one
-# shard, and of its finish, an anchor; and of csrc/merge.cu, one key
+# The int32 operations of the combining modes' fold, a record of one
+# shard, and of their finish, an anchor; and of csrc/merge.cu, one key
 # comparison (a 16-byte shared load, two 128-bit compares, the select and
 # the count; a comparison sort needs N log2 N of them) and one row's
 # load, key, record, scatter and combine (its head, scan, five shuffle
@@ -583,8 +591,12 @@ def check_shard_cases(device, card: str) -> dict:
     records (exact_records; classic_records, full and in slot mode) of
     the keys it owns, of every key, and of its keys on the whole table
     (which holds every key, so a key outside the range that was looked
-    up would show); the finish of the stacked records (shard_finish:
-    exact; classic, full and written at slots in place); and the sharded
+    up would show); the combining
+    modes with the first and the last shard folding in the others'
+    records (exact_combine; classic_combine, full and at slots in place),
+    and shard 0's exact_combine with synthetic others whose exact counts
+    sum past max_bucket and past 1023 (detect_cases.found_records); and
+    the sharded
     forms (the exact-first pair at REDO_SLOTS slots, where it overflows
     on the detect_cases batch, and at exact_fallback_slots; the classic
     pair). Returns the largest difference (0)."""
@@ -628,15 +640,30 @@ def check_shard_cases(device, card: str) -> dict:
                 hold_plain(lambda: records(*args), plain_shard,
                            f"{what} (records of {where})", out, "shard_err")
             exact, full, sliced = records()
+            hits = ta.shard_finish_ref(exact, anchors, cfg)[0]
 
-            def finish():
-                hits, resolved = ta.shard_finish(exact, anchors, cfg)
-                fresh = ta.AnchorHits(*(x.clone() for x in hits))
-                return (hits, resolved, ta.shard_finish(full, None, cfg),
-                        ta.shard_finish(sliced, None, cfg, slot, fresh))
+            def combines(shards=sh, S=S, hits=hits):
+                got = []
+                for k in sorted({0, S - 1}):
+                    rest = [j for j in range(S) if j != k]
+                    t, nt, m, o = shards[k]
+                    fresh = ta.AnchorHits(*(x.clone() for x in hits))
+                    got += [ta.exact_combine(t, nt, m, anchors, cfg,
+                                             exact[rest], o),
+                            ta.classic_combine(t, m, anchors, cfg,
+                                               full[rest], owns=o),
+                            ta.classic_combine(t, m, anchors, cfg,
+                                               sliced[rest], slot, fresh, o)]
+                t, nt, m, o = shards[0]
+                for cf, cr, others in ((cfg.max_bucket, 0, 1),
+                                       (1023, 1023, 3)):
+                    got.append(ta.exact_combine(
+                        t, nt, m, anchors, cfg, detect_cases.found_records(
+                            n, cf, cr, others, device), o))
+                return tuple(got)
 
-            hold_plain(finish, plain_shard, f"{what} (finish)", out,
-                       "shard_err")
+            hold_plain(combines, plain_shard, f"{what} (combining modes)",
+                       out, "shard_err")
             flags = []
             for k in (REDO_SLOTS, cfg.exact_fallback_slots):
                 c = dataclasses.replace(cfg, exact_fallback_slots=k)
@@ -654,8 +681,10 @@ def check_shard_cases(device, card: str) -> dict:
                      f"at {REDO_SLOTS} and {cfg.exact_fallback_slots} slots")
         log(f"the sharded K1's kernels (exact_records, classic_records full "
             f"and in slot mode, of each shard's own keys, of every key and "
-            f"of each shard's keys on the whole table; shard_finish exact, "
-            f"classic and at slots) and the sharded forms (the exact-first "
+            f"of each shard's keys on the whole table; exact_combine and "
+            f"classic_combine full and at slots, the first and the last "
+            f"shard combining, and exact_combine on synthetic others past "
+            f"max_bucket and 1023) and the sharded forms (the exact-first "
             f"pair at {REDO_SLOTS} and {cfg.exact_fallback_slots} slots; the "
             f"classic pair) equal their plain versions on the {n} {name} "
             f"anchors over {', '.join(map(str, detect_cases.SHARD_COUNTS))} "
@@ -1223,14 +1252,16 @@ def plain_detect():
 def plain_shard():
     """While the block runs, CUDA tensors take the plain versions of the
     sharded K1's kernels: the partials modes' launches
-    (ops/anchor_align._launch_exact_records, _launch_classic_records) and
-    the cross-shard finish's (_launch_finish) are swapped for
-    exact_records_ref, classic_records_ref and shard_finish_ref, so the
-    sharded forms run without those kernels and their counts stay. For
-    the comparisons and the plain timings of this script only."""
+    (ops/anchor_align._launch_exact_records, _launch_classic_records),
+    and the combining modes' (_launch_exact_combine,
+    _launch_classic_combine) are swapped for exact_records_ref,
+    classic_records_ref, exact_combine_ref and classic_combine_ref, so
+    the sharded forms run
+    without those kernels and their counts stay. For the comparisons and
+    the plain timings of this script only."""
     from find_circ2_tpu_torch.ops import anchor_align as ta
     saved = (ta._launch_exact_records, ta._launch_classic_records,
-             ta._launch_finish)
+             ta._launch_exact_combine, ta._launch_classic_combine)
     ta._launch_exact_records = (
         lambda args, cfg, out=None, lib=None, owns=None:
         ta._into(out, ta.exact_records_ref(*args, cfg, owns)))
@@ -1239,14 +1270,19 @@ def plain_shard():
         owns=None:
         ta._into(out, ta.classic_records_ref(table, meta, anchors, cfg,
                                              slots, owns)))
-    ta._launch_finish = (
-        lambda records, anchors, cfg, slots=None, hits=None, lib=None:
-        ta.shard_finish_ref(records, anchors, cfg, slots, hits))
+    ta._launch_exact_combine = (
+        lambda args, cfg, others, lib=None, owns=None:
+        ta.exact_combine_ref(*args, cfg, others, owns))
+    ta._launch_classic_combine = (
+        lambda table, meta, anchors, cfg, others, slots=None, hits=None,
+        lib=None, owns=None:
+        ta.classic_combine_ref(table, meta, anchors, cfg, others, slots,
+                               hits, owns))
     try:
         yield
     finally:
         (ta._launch_exact_records, ta._launch_classic_records,
-         ta._launch_finish) = saved
+         ta._launch_exact_combine, ta._launch_classic_combine) = saved
 
 
 @contextlib.contextmanager
@@ -2042,12 +2078,14 @@ def check_sharded(fq, sim, genome, index, dindex, cfg, streams, truth,
     with the engine's dispatch and redo must give phase 6's BED and
     stats byte for byte and the filter stack's precision and recall, run
     §2b on the host twin, and launch exactly what its batches imply: a
-    data row's exact-first batch one partials-mode probe a shard
-    (exact_records), one finish (shard_finish), one compaction
-    (fallback_slice), one slot-mode enumeration a shard (classic_records)
-    and one finish, then detect's core; a classic redo one enumeration a
-    shard, one finish and the core; the row gather, explore and the
-    single-table K1 kernels never. The stream runs again with the plain
+    data row's exact-first batch one probe a shard (exact_records on
+    shard 1, then shard 0's exact_combine, which finishes), one
+    compaction (fallback_slice), one slot-mode enumeration a shard
+    (classic_records on shard 1, then shard 0's classic_combine), then
+    detect's core; a classic redo one enumeration a shard (the last a
+    classic_combine) and the core; the row gather, explore and the
+    single-table K1 kernels never. The
+    stream runs again with the plain
     versions (plain_detect) and once more with the kernels: equal BED,
     wall and device_dispatch seconds of each.
 
@@ -2124,7 +2162,9 @@ def check_sharded(fq, sim, genome, index, dindex, cfg, streams, truth,
                 (td, "launches"), (ta, "exact_launches"),
                 (ta, "classic_launches"), (ta, "compact_launches"),
                 (ta, "exact_record_launches"),
-                (ta, "classic_record_launches"), (ta, "finish_launches"),
+                (ta, "classic_record_launches"),
+                (ta, "exact_combine_launches"),
+                (ta, "classic_combine_launches"),
                 (tm, "launches"), (tm, "calls"))
     for mod, name in counters:
         setattr(mod, name, 0)
@@ -2137,7 +2177,8 @@ def check_sharded(fq, sim, genome, index, dindex, cfg, streams, truth,
                        "fallback_slice": ta.compact_launches,
                        "exact_records": ta.exact_record_launches,
                        "classic_records": ta.classic_record_launches,
-                       "shard_finish": ta.finish_launches,
+                       "exact_combine": ta.exact_combine_launches,
+                       "classic_combine": ta.classic_combine_launches,
                        "merge": tm.launches}
     out["explore_launches"] = tx.launches
     out.update(seconds=wall, reads=times.n_reads,
@@ -2155,9 +2196,10 @@ def check_sharded(fq, sim, genome, index, dindex, cfg, streams, truth,
             "detect_core_packed": (fast + classic) * rows,
             "exact_anchor_stats": 0, "classic_anchor_stats": 0,
             "fallback_slice": fast * rows,
-            "exact_records": fast * rows * shards,
-            "classic_records": (fast + classic) * rows * shards,
-            "shard_finish": (2 * fast + classic) * rows, "merge": 0}
+            "exact_records": fast * rows * (shards - 1),
+            "classic_records": (fast + classic) * rows * (shards - 1),
+            "exact_combine": fast * rows,
+            "classic_combine": (fast + classic) * rows, "merge": 0}
     log(f"kernel launches on the sharded stream ({fast} exact-first "
         f"batches, {classic} classic redos, {rows} data rows of {shards} "
         f"index shards): " + ", ".join(
@@ -2460,22 +2502,6 @@ def table_row_rate(table, what: str, card: str) -> float:
     return rate
 
 
-def finish_bound(shards: int, n: int, fields: int, cfg,
-                 slots: bool = False) -> dict:
-    """The least time the card could take for csrc/shard_k1.cu on n
-    rows: bytes, the records of every shard read once (and, for exact
-    records, the anchors' codes), the hit fields (and `resolved`) and
-    slots; int32 operations FINISH_OPS_PER_RECORD a record and
-    FINISH_OPS_PER_ANCHOR a row."""
-    from find_circ2_tpu_torch.ops.anchor_align import EXACT_FIELDS
-    exact = fields == EXACT_FIELDS
-    nbytes = (4 * shards * n * fields + n * (1 + 8 + 5 * 4)
-              + (n * (cfg.anchor_len + 1) if exact else 0)
-              + (8 * n if slots else 0))
-    return _bound(nbytes, FINISH_OPS_PER_RECORD * shards * n
-                  + FINISH_OPS_PER_ANCHOR * n)
-
-
 # The record kernels' shapes at the 2x2 engine's data row, each a shard:
 # the probe's records, the fallback slice's (slot mode) and the redo's.
 RECORD_SHAPES = ("exact_records", "slot_records", "redo_records")
@@ -2484,7 +2510,8 @@ RECORD_SHAPES = ("exact_records", "slot_records", "redo_records")
 def _record_inputs(sh, batches, eng, cfg) -> tuple:
     """Per stream batch, the first data row's anchors (both anchors of its
     B / 2 reads), the probe's records over the row's shards `sh`, their
-    finish's hits and fallback slice (the compaction of `resolved`), and
+    finish's hits and fallback slice (the compaction of `resolved`, both
+    by the plain finish), and
     the slice's and the redo's classic records over `sh`."""
     import torch
     from find_circ2_tpu_torch.ops import anchor_align as ta
@@ -2495,7 +2522,7 @@ def _record_inputs(sh, batches, eng, cfg) -> tuple:
         k = min(cfg.exact_fallback_slots, both.shape[0])
         e = torch.stack([ta.exact_records(*s[:3], both, cfg, owns=s.owns)
                          for s in sh])
-        h, resolved = ta.shard_finish(e, both, cfg)
+        h, resolved = ta.shard_finish_ref(e, both, cfg)
         i = ta.fallback_slice(resolved, k)[0]
         sets.append(both)
         exact.append(e)
@@ -2545,6 +2572,75 @@ def _owned_bounds(name: str, anchors, slots: bool, owns, cfg,
     return rec
 
 
+# The combining shapes on shard 0 of the 2x2 engine's data row, each
+# with the record shape whose lookups it makes.
+COMBINE_SHAPES = {"exact_combine": "exact_records",
+                  "slot_combine": "slot_records",
+                  "redo_combine": "redo_records"}
+
+
+def _combine_bounds(name: str, anchors, slots: bool, owns, cfg,
+                    rate: float, shards: int) -> dict:
+    """A combining shape's bound: its record shape's at the rows the shard
+    owns (_owned_bounds), with the other shards' records read once and
+    the hits (and `resolved`) written in place of its own records, and
+    the finish's int32 operations (FINISH_OPS_PER_RECORD a record folded,
+    FINISH_OPS_PER_ANCHOR a row)."""
+    from find_circ2_tpu_torch.ops.anchor_align import (CLASSIC_FIELDS,
+                                                       EXACT_FIELDS)
+    rec = _owned_bounds(COMBINE_SHAPES[name], anchors, slots, owns, cfg,
+                        rate)
+    exact = name == "exact_combine"
+    F = EXACT_FIELDS if exact else CLASSIC_FIELDS
+    n = anchors.shape[0]
+    nbytes = (rec["bytes"] + 4 * F * (shards - 2) * n
+              + n * (1 + 8 + 5 * 4 + (1 if exact else 0)))
+    ops = (rec["ops"] + FINISH_OPS_PER_RECORD * (shards - 1) * n
+           + FINISH_OPS_PER_ANCHOR * n)
+    rec.update(_bound(nbytes, ops))
+    return rec
+
+
+def _combine_kernels(sh, sets, idx, hits, exact, slot, full, cfg) -> dict:
+    """COMBINE_SHAPES on shard 0 of `sh`, the other shards' records of
+    each input set folded in as the engine folds them: each (kernel(i),
+    plain(i), the anchors of set i, slot mode)."""
+    from find_circ2_tpu_torch.ops import anchor_align as ta
+    t, nt, m, o = sh[0]
+    return {
+        "exact_combine": (
+            lambda i: ta.exact_combine(t, nt, m, sets[i], cfg, exact[i][1:],
+                                       o),
+            lambda i: ta.exact_combine_ref(t, nt, m, sets[i], cfg,
+                                           exact[i][1:], o),
+            lambda i: sets[i], False),
+        "slot_combine": (
+            lambda i: ta.classic_combine(t, m, sets[i], cfg, slot[i][1:],
+                                         idx[i], hits[i], o),
+            lambda i: ta.classic_combine_ref(t, m, sets[i], cfg, slot[i][1:],
+                                             idx[i], hits[i], o),
+            lambda i: sets[i][idx[i]], True),
+        "redo_combine": (
+            lambda i: ta.classic_combine(t, m, sets[i], cfg, full[i][1:],
+                                         owns=o),
+            lambda i: ta.classic_combine_ref(t, m, sets[i], cfg, full[i][1:],
+                                             owns=o),
+            lambda i: sets[i], False)}
+
+
+def _phases(sh, sets, idx, hits, cfg) -> dict:
+    """Each phase of a data row as the engine runs it (ops/anchor_align
+    `*_sharded`: the other shards' records and one combining launch): the
+    probe, the fallback slice at the compaction's slots into the probe's
+    hits, the redo."""
+    from find_circ2_tpu_torch.ops import anchor_align as ta
+    return {
+        "probe": lambda i: ta.exact_anchor_stats_sharded(sh, sets[i], cfg),
+        "slice": lambda i: ta.refill_slice_sharded(sh, sets[i], idx[i],
+                                                   hits[i], cfg),
+        "redo": lambda i: ta.align_anchors_sharded(sh, sets[i], cfg)}
+
+
 def _log_records(name: str, rec: dict, card: str) -> None:
     _log_shape(name, rec, card, f"; every key {rec['every_key_ms']:.5f} "
                f"ms; {rec['rows']:,.0f} rows owned, "
@@ -2552,15 +2648,58 @@ def _log_records(name: str, rec: dict, card: str) -> None:
                f"ms, random-row floor {rec['row_floor_ms']:.6f} ms")
 
 
-def shard_stages(sh, sets, idx, cfg, card: str) -> dict:
+def shard_stages(sh, sets, idx, cfg, card: str, combined=None) -> dict:
     """Where the record kernels' warps spend their time on each shard of
     the data row, looking up every key and only the keys the
     shard owns: the measurement builds (ops/anchor_align
     exact_stage_cycles, classic_stage_cycles with `records`) on the first
     input set, each held against its plain version, and per stage the
-    median, 90th percentile and maximum of the SM cycles over the warps."""
+    median, 90th percentile and maximum of the SM cycles over the warps.
+    With `combined` (the probe's hits, the probe's, the slice's and the
+    redo's records of each set over `sh`), also the combining modes on
+    shard 0 (`others`: the other shards' records of the first set), whose
+    row round trip ends when those records have arrived too."""
     from find_circ2_tpu_torch.ops import anchor_align as ta
     out = {}
+    if combined is not None:
+        hits, exact, slot, full = combined
+        t, nt, m, o = sh[0]
+        fresh = [ta.AnchorHits(*(x.clone() for x in hits[0]))
+                 for _ in range(2)]
+        runs = {
+            "exact_combine": (
+                lambda: ta.exact_stage_cycles(t, nt, m, sets[0], cfg,
+                                              owns=o, others=exact[0][1:]),
+                lambda: ta.exact_combine_ref(t, nt, m, sets[0], cfg,
+                                             exact[0][1:], o),
+                ta.EXACT_STAGES),
+            "slot_combine": (
+                lambda: ta.classic_stage_cycles(
+                    t, m, sets[0], cfg, slots=idx[0], hits=fresh[0], owns=o,
+                    others=slot[0][1:]),
+                lambda: ta.classic_combine_ref(t, m, sets[0], cfg,
+                                               slot[0][1:], idx[0], fresh[1],
+                                               o),
+                ta.CLASSIC_STAGES[:4]),
+            "redo_combine": (
+                lambda: ta.classic_stage_cycles(t, m, sets[0], cfg, owns=o,
+                                                others=full[0][1:]),
+                lambda: ta.classic_combine_ref(t, m, sets[0], cfg,
+                                               full[0][1:], owns=o),
+                ta.CLASSIC_STAGES[:4])}
+        for name, (stamped, plain, stages) in runs.items():
+            got, cyc = stamped()
+            if not _equal_all(got, plain()):
+                fail(f"the stamped {name} kernel differs from its plain "
+                     f"version on index shard 0")
+            q = _quantiles(cyc[:, :len(stages)], stages)
+            out[f"{name}/0/own keys"] = q
+            log(f"{name} stages on index shard 0 of {len(sh)}, own keys, "
+                f"the other shards' records folded in, SM clock cycles a "
+                f"warp (median / p90 / max): "
+                + "; ".join(f"{k} {m_:.0f} / {p:.0f} / {x:.0f}"
+                            for k, (m_, p, x) in q.items())
+                + f"; on {card}")
     for i, s in enumerate(sh):
         for mode, owns in (("every key", None), ("own keys", s.owns)):
             runs = {
@@ -2609,10 +2748,14 @@ def time_shard(eng, batches, index, cfg, card: str) -> dict:
     bound at every key's rows and the random-row floor at the rate
     gather_rows reaches on that shard's table, and timed also looking up
     every key (`every_key_ms`); each shape's sum over the row's shards
-    (`*_row`); the finishes over the row's shards
-    (shard_finish: exact, at the slots, the redo's). Shard 0's shapes
-    keep their names. Then the stage clocks (shard_stages) and the
-    records on 4 shards carved from the same index (time_four_shards)."""
+    (`*_row`); shard 0's combining launches (COMBINE_SHAPES: its lookups
+    with shard 1's records folded in and the finish, as the engine runs
+    them) beside their plain versions and bounds; and each phase of the
+    row device alone as the engine runs it (records on shard 1, shard
+    0's combining launch; `phases`), held against the plain versions.
+    Shard 0's shapes keep their names. Then the stage clocks (shard_stages, the
+    combining modes' too) and the records on 4 shards carved from the
+    same index (time_four_shards)."""
     import torch
     from find_circ2_tpu_torch.ops import anchor_align as ta
     sh = eng.rows[0].shards
@@ -2659,26 +2802,52 @@ def time_shard(eng, batches, index, cfg, card: str) -> dict:
             f"every key's {row['all_rows_bound_ms']:.6f} ms, random-row "
             f"floor {row['row_floor_ms']:.6f} ms ({row['rows']:,.0f} rows); "
             f"on {card}")
-    finishes = {
-        "exact_finish": (
-            lambda i: ta.shard_finish(exact[i], sets[i], cfg),
-            lambda i: ta.shard_finish_ref(exact[i], sets[i], cfg),
-            lambda i: finish_bound(S, n, E, cfg)),
-        "slot_finish": (
-            lambda i: ta.shard_finish(slot[i], None, cfg, idx[i], hits[i]),
-            lambda i: ta.shard_finish_ref(slot[i], None, cfg, idx[i],
-                                          hits[i]),
-            lambda i: finish_bound(S, k, C, cfg, slots=True)),
-        "redo_finish": (
-            lambda i: ta.shard_finish(full[i], None, cfg),
-            lambda i: ta.shard_finish_ref(full[i], None, cfg),
-            lambda i: finish_bound(S, n, C, cfg)),
-    }
-    for name, (kernel, plain, bound) in finishes.items():
-        out[name] = _time_shape(kernel, plain, len(sets), bound)
-        _log_shape(f"sharded {name} ({n} anchors of a data row, {k} "
-                   f"slots, {S} shards)", out[name], card)
-    out["stages"] = shard_stages(sh, sets, idx, cfg, card)
+    for name, (kernel, plain, of, slots) in _combine_kernels(
+            sh, sets, idx, hits, exact, slot, full, cfg).items():
+        bounds = [_combine_bounds(name, of(j), slots, sh[0].owns, cfg,
+                                  rates[0], S) for j in range(len(sets))]
+        rec = _time_shape(kernel, plain, len(sets), bounds.__getitem__)
+        for key in ("rows", "all_rows_bound_ms", "row_floor_ms"):
+            rec[key] = sum(b[key] for b in bounds) / len(sets)
+        out[name] = rec
+        _log_shape(f"sharded {name} on index shard 0 of {S}, the other "
+                   f"shards' records folded in ({n} anchors of a data row, "
+                   f"{k} slots)", rec, card,
+                   f"; {rec['rows']:,.0f} rows owned, random-row floor "
+                   f"{rec['row_floor_ms']:.6f} ms")
+    # Each phase on the first set, the slice into its own copy of the
+    # probe's hits, against its plain parts, then timed over every set.
+    phases = {}
+    fresh = [[ta.AnchorHits(*(x.clone() for x in hits[0]))] for _ in "ab"]
+    once = _phases(sh, sets[:1], idx[:1], fresh[0], cfg)
+    with plain_shard():
+        plain = _phases(sh, sets[:1], idx[:1], fresh[1], cfg)
+        want = {phase: run(0) for phase, run in plain.items()}
+    for (phase, run), (name, rec) in zip(
+            _phases(sh, sets, idx, hits, cfg).items(),
+            COMBINE_SHAPES.items()):
+        if not _equal_all(once[phase](0), want[phase]):
+            fail(f"the sharded {phase} as the engine runs it differs from "
+                 f"its plain parts")
+        idxs = range(len(sets))
+        runs = [graph_ms(run, idxs) for _ in range(2)]
+        others = [f"{rec}_{i}" for i in range(1, S)]
+        got = dict(ms=min(runs), runs=runs,
+                   bound_ms=out[name]["bound_ms"] + sum(
+                       out[o]["bound_ms"] for o in others),
+                   kernels_ms=out[name]["ms"] + sum(out[o]["ms"]
+                                                    for o in others))
+        phases[phase] = got
+        log(f"sharded {phase} of a data row ({S} shards, {n} anchors, {k} "
+            f"slots), device alone (graph, {len(sets)} input sets), as the "
+            f"engine runs it (records on the other shards, shard 0's "
+            f"combining launch): {got['ms']:.5f} ms (runs " + ", ".join(
+                f"{x:.5f}" for x in runs) + f"); the kernels alone summed "
+            f"{got['kernels_ms']:.5f} ms; bound {got['bound_ms']:.6f} ms; "
+            f"on {card}")
+    out["phases"] = phases
+    out["stages"] = shard_stages(sh, sets, idx, cfg, card,
+                                 (hits, exact, slot, full))
     out["four"] = time_four_shards(index, sets, idx, cfg, card)
     return out
 
@@ -3145,17 +3314,19 @@ def main() -> int:
         **{k: cl["compact"][k] for k in keys + ("bound_by", "library_ms")},
         "stage_cycles": {k: v[0] for k, v in cl["stages"]["compact"].items()},
         "sharded_launches": path["sharded"]["launches"]["fallback_slice"]})
-    # The sharded engine's kernels (phase 7), summed over the calls of one
-    # 2x2 data row's exact-first batch (the probe's records on one shard;
-    # the slice's records on one shard; the two finishes) and of one
-    # detect_merged batch (a merge a data row, then one of their tables),
-    # each shape beside it. No one PyTorch call computes any of them.
+    # The sharded engine's kernels (phase 7), each at one call of a 2x2
+    # data row's exact-first batch (the probe's and the slice's records on
+    # index shard 0; shard 0's combining probe and slice) or summed over
+    # one detect_merged batch (a merge a data row, then one of their
+    # tables), each shape beside it. No one PyTorch call computes any of
+    # them.
     sd = path["sharded"]
     st, mt = sd["times"], sd["merge"]
     # A record kernel's own numbers are index shard 0's; its other shapes
     # add shard 1 (`_1`) and the row's two shards summed (`_row`), each
-    # with the time looking up every key, the bound at
-    # every key's rows and the random-row floor.
+    # with the time looking up every key, the bound at every key's rows
+    # and the random-row floor. A combining kernel's entry carries the
+    # phases of a data row it ends, device alone as the engine runs them.
     extra = ("every_key_ms", "all_rows_bound_ms", "row_floor_ms", "rows")
     for name, source, replaces, main, other, err in (
             ("exact_records", "exact_stats.cu",
@@ -3167,10 +3338,12 @@ def main() -> int:
              {"slot_records": 1}, ("slot_records_1", "slot_records_row",
                                    "redo_records", "redo_records_1",
                                    "redo_records_row"), "shard_err"),
-            ("shard_finish", "shard_k1.cu",
+            ("exact_combine", "exact_stats.cu",
+             "find_circ2_tpu/ops/anchor_align.py:340",
+             {"exact_combine": 1}, (), "shard_err"),
+            ("classic_combine", "classic_k1.cu",
              "find_circ2_tpu/ops/anchor_align.py:286",
-             {"exact_finish": 1, "slot_finish": 1}, ("redo_finish",),
-             "shard_err"),
+             {"slot_combine": 1}, ("redo_combine",), "shard_err"),
             ("merge", "merge.cu", "find_circ2_tpu/ops/merge.py:36",
              mt["main"], tuple(k for k in mt if k not in mt["main"]
                                and k.startswith("merge_")), "merge_err")):
@@ -3197,7 +3370,11 @@ def main() -> int:
             **({"launches_are": "kernels", "calls": sd["merge_calls"],
                 "stage_cycles": {k: v[0] for k, v in mt["stages"].items()},
                 "argsort_ms": mt["argsort_ms"]} if name == "merge"
-               else {})})
+               else {}),
+            **({"phases": {p: st["phases"][p] for p in (
+                ("probe",) if name == "exact_combine" else ("slice",
+                                                            "redo"))}}
+               if name.endswith("_combine") else {})})
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

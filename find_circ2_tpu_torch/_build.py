@@ -117,10 +117,8 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.fc2t_classic_k1.restype = ctypes.c_int
     lib.fc2t_compact.argtypes = [ctypes.c_char_p]
     lib.fc2t_compact.restype = ctypes.c_int
-    # One SHARD_ARGS / MERGE_ARGS buffer in; the kernels launched, or
-    # minus a CUDA error, out.
-    lib.fc2t_shard_finish.argtypes = [ctypes.c_char_p]
-    lib.fc2t_shard_finish.restype = ctypes.c_int
+    # One MERGE_ARGS buffer in; the kernels launched, or minus a CUDA
+    # error, out.
     lib.fc2t_merge.argtypes = [ctypes.c_char_p]
     lib.fc2t_merge.restype = ctypes.c_int
     # Rows in; the scratch bytes fc2t_merge wants for them out.
@@ -199,25 +197,21 @@ DETECT_ARGS = struct.Struct("<18Qq8i")
 # csrc/exact_stats.cu's ExactArgs: anchors, table, ntable, meta, then the
 # outputs aligned, pos, strand, mm, n_best, second_mm, qual, resolved,
 # partials; stream, rows; lo, hi (the canonical p12 range looked up);
-# then n, anchor_len, prefix_len, max_bucket, max_anchor_mm, device.
-EXACT_ARGS = struct.Struct("<14Qq2q6i")
+# then n, anchor_len, prefix_len, max_bucket, max_anchor_mm, device;
+# n_others, reserved, others (the other shards' records).
+EXACT_ARGS = struct.Struct("<14Qq2q6i2iQ")
 
 # csrc/classic_k1.cu's ClassicArgs: anchors, table, meta, ext_id, ext,
 # slots, then the outputs aligned, pos, strand, mm, n_best, second_mm,
 # qual, count, first_pos, extras; stream; rows, ext_rows; then n,
 # anchor_len, prefix_len, max_bucket, max_anchor_mm, ext_width, device,
-# reserved; lo, hi (the canonical p12 range looked up); then partials.
-CLASSIC_ARGS = struct.Struct("<17Q2q8i2qQ")
+# reserved; lo, hi (the canonical p12 range looked up); then partials,
+# others (the other shards' records); n_others, reserved.
+CLASSIC_ARGS = struct.Struct("<17Q2q8i2q2Q2i")
 
 # csrc/classic_k1.cu's CompactArgs: resolved, slots, overflow, stream; n,
 # k; device, reserved.
 COMPACT_ARGS = struct.Struct("<4Q2q2i")
-
-# csrc/shard_k1.cu's ShardArgs: records, anchors, slots, then the outputs
-# aligned, pos, strand, mm, n_best, second_mm, qual, resolved; stream; n;
-# then shards, fields, anchor_len, prefix_len, max_bucket, max_anchor_mm,
-# device, reserved.
-SHARD_ARGS = struct.Struct("<12Qq8i")
 
 # csrc/merge.cu's MergeArgs: valid, kind, chrom, start, end, sense, the
 # three sum, two maximum and three minimum fields, status, lens, multi,

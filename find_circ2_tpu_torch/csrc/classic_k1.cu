@@ -15,25 +15,41 @@
 // The reference computes the same as XLA programs, not Pallas
 // (find_circ2_tpu/ops/anchor_align.py:140 candidate_stats, :59, :123,
 // :271 finalize_hits; the slice of align_anchor_pair_fast at :496-527).
-// On an index shard of the sharded engine the enumeration runs in
-// partials mode: the shard's part of candidate_stats reduced to the
-// eight numbers a slot's finish reads (the reference's finalize_hits
-// with axis_name psums and pmins the whole [n, 2V] arrays), which
-// csrc/shard_k1.cu combines over the shards and finishes. A shard holds
-// only the keys whose canonical p12 lies in its range [lo, hi)
+// On an index shard of the sharded engine the enumeration runs in partials
+// mode: the shard's part of candidate_stats reduced to the eight numbers a
+// slot's finish reads (the reference's finalize_hits with axis_name psums
+// and pmins the whole [n, 2V] arrays), one record a slot. One shard of the
+// data row, the first on the anchors' device, launched after the others,
+// runs in combining mode instead: its warp reduces its own record as the
+// partials mode does, keeps it in registers, folds in the other shards'
+// records of its slot and finishes (csrc/shard_finish.cuh, as the
+// probe's combining mode does), lanes 0..6 writing one hit
+// field each, at slots[s] in slot mode (in place over the probe's hits, as
+// refill_slice writes). The finish now sits in this epilogue: what bounds
+// it is the other shards' records, read once (32 bytes a shard a slot, two
+// 16-byte loads), and about 100 integer operations a slot, far under the
+// warp's row round trip; the records' loads are issued at the warp's
+// start, before the slot's and the anchor's loads, and the first
+// kHeldShards wait in registers, so their round trip overlaps the key
+// build and the row round trip. A launch of its own costs each phase of a
+// data row its fixed start once more than it needs. Thread-block clusters
+// and distributed shared memory would only help when all of a row's shards
+// lie on one card, which is the test layout and not a deployment, and
+// programmatic dependent launch overlaps a launch but keeps it. A shard
+// holds only the keys whose canonical p12 lies in its range [lo, hi)
 // (ops/anchor_align.key_ranges), so there a variant whose canonical key
-// lies outside issues no hash and no row load and counts 0 with
-// LARGE_POS, as a key the shard lacks does. Substitutions keep p12 at
-// the suffix positions of the canonical orientation, so an anchor's
-// owner shard sees most of its 61 variants and the others a few: the
-// rows in flight on a shard fall from all of a data row's to about its
-// share. A warp still takes one slot, however few of its variants the
-// shard owns: the slice and the redo are bound by the rate of random
-// rows (classic_stage_cycles' row round trip), which the skipped loads
-// relieve, and a warp that took several slots would serialise their
-// key builds (PERF.md gives the stage clocks of both partials modes).
-// The range test is compiled into the partials mode only (kRanged): on
-// one table it cost the redo's warps time for nothing.
+// lies outside issues no hash and no row load and counts 0 with LARGE_POS,
+// as a key the shard lacks does. Substitutions keep p12 at the suffix
+// positions of the canonical orientation, so an anchor's owner shard sees
+// most of its 61 variants and the others a few: the rows in flight on a
+// shard fall from all of a data row's to about its share. A warp still
+// takes one slot, however few of its variants the shard owns: the slice
+// and the redo are bound by the rate of random rows (classic_stage_cycles'
+// row round trip), which the skipped loads relieve, and a warp that took
+// several slots would serialise their key builds (PERF.md gives the stage
+// clocks of both partials modes). The range test is compiled into the
+// partials and combining modes only (kRanged): on one table it cost the
+// redo's warps time for nothing.
 // The plain versions are about 270 eager kernels a detect batch's
 // fallback slice and 546 an explore chunk's K1.
 //
@@ -107,6 +123,7 @@
 #include <cuda_runtime.h>
 
 #include "cuckoo.cuh"
+#include "shard_finish.cuh"
 
 // The arguments of one enumeration, packed by ops/anchor_align.py into
 // one buffer. Three modes: hits only (count == nullptr, slots ==
@@ -115,7 +132,11 @@
 // enumerates anchors[slots[s]] and writes its hits at slots[s]. With
 // `partials` (an index shard's part; no statistics, the hit pointers
 // null) the full or slot mode writes each slot's kClassicFields record
-// at row s instead of its hits.
+// at row s instead of its hits. The combining mode (no statistics, the
+// hit pointers set, n_others >= 1 or a range other than every key)
+// looks up the keys of [lo, hi), folds in the other shards' records of
+// each slot, `others` row s, and writes its hits as the full or slot
+// mode does.
 struct ClassicArgs {
     const uint8_t* anchors;   // [n_anchors, anchor_len] codes
     const int32_t* table;     // [rows, SLOTS * LANES] cuckoo table
@@ -141,16 +162,10 @@ struct ClassicArgs {
     long long lo, hi;         // the canonical p12 looked up; a key outside
                               // [lo, hi) reads as absent, with no load
     int32_t* partials;        // [n, kClassicFields], or null
+    const int32_t* others;    // [n_others, n, kClassicFields], or null
+    int n_others, reserved2;
 };
-static_assert(sizeof(ClassicArgs) == 208, "layout packed by ops/anchor_align");
-
-// A shard's record in partials mode: the counts of the two exact slots
-// (0 and V), the counts summed over each strand half, and the least
-// first position over the slots whose count is above 0 of slot 0, slot
-// V, slots 1..V-1 and slots V+1..2V-1 (uint32 bit patterns, LARGE_POS
-// for none): all that finalize_hits reads, since mm is 0 only at the
-// exact slots and it selects only slots with a count.
-constexpr int kClassicFields = 8;
+static_assert(sizeof(ClassicArgs) == 224, "layout packed by ops/anchor_align");
 
 // The arguments of one compaction of the fallback slice.
 struct CompactArgs {
@@ -190,12 +205,27 @@ __device__ __forceinline__ void classic_stamp(size_t at, unsigned dep) {
 namespace {
 
 using fc2t::holds;
+using fc2t::kClassicFields;
 using fc2t::kCntBits;
 using fc2t::kCntMask;
 using fc2t::kLargeMm;
 using fc2t::kLargePos;
+using fc2t::kMaxShards;
 using fc2t::kSlots;
 using fc2t::mix_hash;
+
+// A shard's record in partials mode is kClassicFields int32: the counts
+// of the two exact slots (0 and V), the counts summed over each strand
+// half, and the least first position over the slots whose count is
+// above 0 of slot 0, slot V, slots 1..V-1 and slots V+1..2V-1 (uint32
+// bit patterns, LARGE_POS for none): all that finalize_hits reads, since
+// mm is 0 only at the exact slots and it selects only slots with a
+// count. The combining mode holds the first kHeldShards other shards'
+// records of its slot in registers (a data row of two shards, the
+// engine's; eight registers a record, which the redo's grid of a block
+// an SM past one wave cannot spare for more).
+constexpr int kHeldShards = 1;
+static_assert(kClassicFields * 4 == 2 * sizeof(int4), "a record: two int4");
 
 constexpr unsigned kFull = 0xffffffffu;
 constexpr int kWarps = 4;                  // anchors a block
@@ -254,14 +284,32 @@ __host__ __device__ constexpr size_t warp_smem_words(int V, int W) {
 
 // Slot s's anchor, by the warp; `stage` is the warp's shared memory.
 // kExtras: the call has the extras (ext_id and ext); kRanged: it looks up
-// only the keys in [lo, hi) (the partials mode).
-template <bool kExtras, bool kRanged>
+// only the keys in [lo, hi) (the partials or the combining mode);
+// kCombine: the combining mode, an instantiation of its own so that its
+// held records and fold cost the partials mode no registers; its code
+// sits under `if constexpr`, so that the other instantiations compile to
+// the instructions they had without it (scripts/sass_digest.py).
+template <bool kExtras, bool kRanged, bool kCombine>
 __device__ __forceinline__ void enumerate(const ClassicArgs& a, int s,
                                           int lane, uint32_t* stage) {
 #ifdef FC2T_CLASSIC_STAMPS
     const size_t at = (size_t)s * kClassicStamps;
     if (lane == 0) CSTAMP(at, 0);
 #endif
+    // The combining mode: the other shards' records of the slot, in
+    // flight before the slot's and the anchor's loads (load_now: where
+    // they are written), every lane loading each (one address a warp).
+    int4 held[kCombine ? kHeldShards : 1][2];
+    if constexpr (kCombine) {
+#pragma unroll
+        for (int t = 0; t < kHeldShards; ++t)
+            if (t < a.n_others) {
+                const int4* r = reinterpret_cast<const int4*>(
+                    a.others + ((size_t)t * a.n + s) * kClassicFields);
+                held[t][0] = fc2t::load_now(r);
+                held[t][1] = fc2t::load_now(r + 1);
+            }
+    }
     const long long anchor = a.slots ? a.slots[s] : s;
     const int al = a.anchor_len, pk = a.prefix_len, V = 1 + 3 * al;
     const uint8_t* anc = a.anchors + anchor * al;
@@ -337,6 +385,19 @@ __device__ __forceinline__ void enumerate(const ClassicArgs& a, int s,
                 g[t][p][u] = in ? __ldg(tr + u) : make_int4(-1, 0, 0, 0);
         }
     }
+    // The combining mode: the held records folded while the rows are on
+    // their way, counts in 64 bits.
+    fc2t::ClassicSums sums = fc2t::classic_none();
+    if constexpr (kCombine) {
+#pragma unroll
+        for (int t = 0; t < kHeldShards; ++t)
+            if (t < a.n_others) {
+                const int32_t r[kClassicFields] = {
+                    held[t][0].x, held[t][0].y, held[t][0].z, held[t][0].w,
+                    held[t][1].x, held[t][1].y, held[t][1].z, held[t][1].w};
+                fc2t::fold(sums, r);
+            }
+    }
 #ifdef FC2T_CLASSIC_STAMPS
     {
         unsigned dep = 0;
@@ -348,6 +409,17 @@ __device__ __forceinline__ void enumerate(const ClassicArgs& a, int s,
                 for (int u = 0; u < kSlots; ++u)
                     dep ^= g[t][p][u].x ^ g[t][p][u].y ^ g[t][p][u].z ^
                            g[t][p][u].w;
+        // In the combining mode the stage ends when the other shards'
+        // records have arrived too.
+        if constexpr (kCombine) {
+#pragma unroll
+            for (int t = 0; t < kHeldShards; ++t)
+                if (t < a.n_others)
+#pragma unroll
+                    for (int w = 0; w < 2; ++w)
+                        dep ^= held[t][w].x ^ held[t][w].y ^ held[t][w].z ^
+                               held[t][w].w;
+        }
         dep = __reduce_xor_sync(kFull, dep);
         if (lane == 0) CSTAMP(at + 3, dep);
     }
@@ -390,8 +462,10 @@ __device__ __forceinline__ void enumerate(const ClassicArgs& a, int s,
         pos_m[t] = swp[t] ? pf : pr;
     }
 
-    if (!kExtras && a.partials) {
-        // Partials mode: the record, one field a lane of lanes 0..7.
+    if (!kExtras && (kCombine || a.partials)) {
+        // Partials mode: the record, one field a lane of lanes 0..7;
+        // combining mode: the record with the other shards' folded in,
+        // then the finish.
         int sp = 0, sm = 0;
         uint32_t lp = kLargePos, lm = kLargePos;
 #pragma unroll
@@ -414,17 +488,46 @@ __device__ __forceinline__ void enumerate(const ClassicArgs& a, int s,
         const int32_t rec[kClassicFields] = {
             c0, cv, sp, sm, (int32_t)(c0 > 0 ? p0 : kLargePos),
             (int32_t)(cv > 0 ? pv : kLargePos), (int32_t)lp, (int32_t)lm};
-        int32_t* dst = a.partials + (size_t)s * kClassicFields;
+        if constexpr (!kCombine) {
+            int32_t* dst = a.partials + (size_t)s * kClassicFields;
 #pragma unroll
-        for (int f = 0; f < kClassicFields; ++f)
-            if (lane == f) dst[f] = rec[f];
+            for (int f = 0; f < kClassicFields; ++f)
+                if (lane == f) dst[f] = rec[f];
 #ifdef FC2T_CLASSIC_STAMPS
-        if (lane == 0 && fc2t_cstamps) {
-            CSTAMP(at + 4, lp ^ lm);
-            fc2t_cstamps[at + 5] = fc2t_cstamps[at + 6] = fc2t_cstamps[at + 4];
-        }
+            if (lane == 0 && fc2t_cstamps) {
+                CSTAMP(at + 4, lp ^ lm);
+                fc2t_cstamps[at + 5] = fc2t_cstamps[at + 6] =
+                    fc2t_cstamps[at + 4];
+            }
 #endif
-        return;
+            return;
+        } else {
+            // Combining mode: the shard's own record folded into the held
+            // ones' sums, then any records past them.
+            fc2t::fold(sums, rec);
+            for (int t = kHeldShards; t < a.n_others; ++t)
+                fc2t::fold(sums,
+                           a.others + ((size_t)t * a.n + s) * kClassicFields);
+            const fc2t::Hit hit =
+                fc2t::classic_finish(sums, a.max_anchor_mm, a.anchor_len);
+            // One field a lane of lanes 0..6, as predicated stores (a
+            // switch on the lane branches the warp seven ways).
+            if (lane == 0) a.aligned[anchor] = hit.aligned;
+            if (lane == 1) a.pos[anchor] = (int64_t)hit.pos;
+            if (lane == 2) a.strand[anchor] = hit.strand;
+            if (lane == 3) a.mm[anchor] = hit.mm;
+            if (lane == 4) a.n_best[anchor] = hit.n_best;
+            if (lane == 5) a.second_mm[anchor] = hit.second_mm;
+            if (lane == 6) a.qual[anchor] = hit.qual;
+#ifdef FC2T_CLASSIC_STAMPS
+            if (lane == 0 && fc2t_cstamps) {
+                CSTAMP(at + 4, hit.pos ^ hit.n_best);
+                fc2t_cstamps[at + 5] = fc2t_cstamps[at + 6] =
+                    fc2t_cstamps[at + 4];
+            }
+#endif
+            return;
+        }
     }
 
     if (a.count) {
@@ -585,7 +688,7 @@ __device__ __forceinline__ void enumerate(const ClassicArgs& a, int s,
 #endif
 }
 
-template <bool kExtras, bool kRanged>
+template <bool kExtras, bool kRanged, bool kCombine>
 __global__ void __launch_bounds__(kThreads)
 classic_kernel(const __grid_constant__ ClassicArgs a) {
     extern __shared__ __align__(16) uint32_t smem_all[];
@@ -594,7 +697,7 @@ classic_kernel(const __grid_constant__ ClassicArgs a) {
         smem_all + (size_t)w * warp_smem_words(1 + 3 * a.anchor_len,
                                                 2 * a.ext_width);
     const int s = blockIdx.x * kWarps + w;
-    if (s < a.n) enumerate<kExtras, kRanged>(a, s, lane, stage);
+    if (s < a.n) enumerate<kExtras, kRanged, kCombine>(a, s, lane, stage);
 }
 
 // The flags of word `wd` of `resolved` (flags 8 wd .. 8 wd + 7, a byte
@@ -720,6 +823,10 @@ int check_device(int want) {
 extern "C" int fc2t_classic_k1(const ClassicArgs* a) {
     if (a->n <= 0) return 0;
     const bool ext = a->ext_id != nullptr, stats = a->count != nullptr;
+    // The partials and combining modes look up the keys of [lo, hi); a
+    // finish of every key and no other shards is the single table's.
+    const bool ranged = a->partials != nullptr || a->n_others > 0 ||
+                        a->lo != 0 || a->hi != kEveryKey;
     if (a->anchor_len < 1 || a->anchor_len > kMaxAnchor ||
         a->prefix_len < 1 || a->prefix_len >= a->anchor_len ||
         a->anchor_len - a->prefix_len > 8 || a->rows < 1 ||
@@ -730,8 +837,12 @@ extern "C" int fc2t_classic_k1(const ClassicArgs* a) {
                  reinterpret_cast<uintptr_t>(a->extras) % 16 ||
                  reinterpret_cast<uintptr_t>(a->ext) % 8)) ||
         (!ext && a->extras != nullptr) || (stats && a->slots != nullptr) ||
-        (a->partials != nullptr && stats) ||
-        (a->partials == nullptr && (a->lo != 0 || a->hi != kEveryKey)))
+        (ranged && stats) || a->n_others < 0 ||
+        a->n_others >= kMaxShards ||
+        (a->n_others > 0) != (a->others != nullptr) ||
+        reinterpret_cast<uintptr_t>(a->others) % 16 ||
+        (a->partials != nullptr && a->n_others > 0) ||
+        (a->partials == nullptr && a->aligned == nullptr))
         return -(int)cudaErrorInvalidValue;
     const int err = check_device(a->device);
     if (err) return err;
@@ -748,16 +859,21 @@ extern "C" int fc2t_classic_k1(const ClassicArgs* a) {
             return -(int)cudaErrorInvalidDevice;
         if (!carved[a->device]) {
             const cudaError_t c = cudaFuncSetAttribute(
-                classic_kernel<true, false>,
+                classic_kernel<true, false, false>,
                 cudaFuncAttributePreferredSharedMemoryCarveout, kCarveout);
             if (c != cudaSuccess) return -(int)c;
             carved[a->device] = true;
         }
-        classic_kernel<true, false><<<blocks, kThreads, shared, stream>>>(*a);
+        classic_kernel<true, false, false>
+            <<<blocks, kThreads, shared, stream>>>(*a);
     } else if (a->partials) {
-        classic_kernel<false, true><<<blocks, kThreads, 0, stream>>>(*a);
+        classic_kernel<false, true, false>
+            <<<blocks, kThreads, 0, stream>>>(*a);
+    } else if (ranged) {
+        classic_kernel<false, true, true><<<blocks, kThreads, 0, stream>>>(*a);
     } else {
-        classic_kernel<false, false><<<blocks, kThreads, 0, stream>>>(*a);
+        classic_kernel<false, false, false>
+            <<<blocks, kThreads, 0, stream>>>(*a);
     }
     const cudaError_t e = cudaGetLastError();
     return e == cudaSuccess ? 1 : -(int)e;

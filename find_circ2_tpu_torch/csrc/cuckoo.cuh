@@ -3,7 +3,7 @@
 // key. A bucket row is SLOTS slots of LANES int32 lanes, one int4 a slot:
 // (p12, s8 | cnt_f << 16 | cnt_r << 23, pos_f, pos_r), positions uint32
 // bit patterns. Shared by csrc/exact_stats.cu (K-b), csrc/classic_k1.cu
-// (K-c + K-d) and csrc/shard_k1.cu (the cross-shard finish).
+// (K-c + K-d) and csrc/shard_finish.cuh (the cross-shard finish).
 
 #pragma once
 

@@ -41,9 +41,31 @@
 // On an index shard of the sharded engine (parallel/sharded.py) the same
 // kernel runs in partials mode: each anchor's nine partials of
 // exact_partials, the shard's part of the reference's exact_anchor_stats
-// with axis_name (find_circ2_tpu/ops/anchor_align.py:340, its psum/pmin
-// at :424-438), go to a record row; csrc/shard_k1.cu combines the
-// shards' records and finishes.
+// with axis_name (find_circ2_tpu/ops/anchor_align.py:340, its psum/pmin at
+// :424-438), go to a record row. One shard of the data row, the first on
+// the anchors' device, launched after the others, runs in combining mode
+// instead: it reads the other shards' records of its anchors, folds them
+// into its own partials, which stay in registers and are never written,
+// and runs the single table's finish on the sums. The cross-shard finish
+// now sits in this epilogue, and the sharded engine launches no kernel of
+// its own for it. What bounds it is the other shards' records, read once
+// (36 bytes a shard an anchor), and about 100 integer operations an
+// anchor, far under the kernel's own row round trip. So the records'
+// loads are issued first, beside the code loads and before the hash and
+// the row loads, and their round trip overlaps the key build and the row
+// round trip; the first kHeldShards records of an anchor wait in
+// registers, any further ones are loaded at the fold. Every lane of an
+// anchor loads all its fields (one address a field for the anchor's four
+// lanes) and folds them after the lanes' own partials are combined, in
+// 64 bits after the packed counts are unpacked: a packed count holds at
+// most 1023, one shard's and not the sum of 64. Splitting the fields
+// over the four lanes, folded before the lanes combine, was slower
+// (PERF.md §6). A launch of its
+// own would cost each phase of a data row its fixed start once more than
+// it needs. Thread-block clusters and distributed shared memory would
+// only help when all of a row's shards lie on one card, which is the
+// test layout and not a deployment, and programmatic dependent launch
+// overlaps a launch but keeps it.
 //
 // A shard holds only the keys whose canonical p12 lies in its range
 // [lo, hi) (ops/anchor_align.key_ranges), so the partials mode looks up
@@ -61,8 +83,9 @@
 // trip, and the rows in flight on the card fall to the shard's share.
 // The stage clocks of both modes, every key and the shard's range, are
 // in PERF.md (exact_stage_cycles with `records`). The range test is
-// compiled into the partials mode only (kRanged); the finish on one
-// table is the kernel it was.
+// compiled into the partials and combining modes only (kRanged), the
+// fold into the combining mode only (kCombine): the finish on one table
+// is the kernel it was.
 //
 // Kept bit for bit: when a key's two buckets are one bucket both probes
 // match its slot and their counts add (ROADMAP.md §3); a dirty anchor
@@ -79,14 +102,20 @@
 #include <cuda_runtime.h>
 
 #include "cuckoo.cuh"
+#include "shard_finish.cuh"
 
 // The arguments of one call, packed by ops/anchor_align.py into one
 // buffer.
-// Two modes: the finish (partials == nullptr) writes the hits and
+// Three modes: the finish (partials == nullptr) writes the hits and
 // `resolved`; the partials mode (an index shard's part, partials !=
 // nullptr, the hit pointers null) writes each anchor's kExactFields
 // record and stops before the finish: no guard and no `clean`, which
-// belong to csrc/shard_k1.cu's finish over every shard.
+// belong to the finish over every shard; the combining mode (the finish
+// with n_others >= 1, or with a range other than every key) looks up
+// the keys of [lo, hi), folds in the other shards' records `others` and
+// finishes. The finish of every key and no others is the single table's.
+// The combining mode's fields come last, so the others keep their
+// offsets.
 struct ExactArgs {
     const uint8_t* anchors;   // [n, anchor_len] codes
     const int32_t* table;     // [rows, SLOTS * LANES] cuckoo table
@@ -106,8 +135,10 @@ struct ExactArgs {
     long long lo, hi;         // the canonical p12 looked up; a key outside
                               // [lo, hi) reads as absent, with no load
     int n, anchor_len, prefix_len, max_bucket, max_anchor_mm, device;
+    int n_others, reserved;   // the other shards' records, 0 for none
+    const int32_t* others;    // [n_others, n, kExactFields], or null
 };
-static_assert(sizeof(ExactArgs) == 160, "layout packed by ops/anchor_align");
+static_assert(sizeof(ExactArgs) == 176, "layout packed by ops/anchor_align");
 
 // Built with FC2T_DETECT_STAMPS (ops/anchor_align.exact_stage_cycles),
 // the first lane of each warp records its SM clock at the start and after
@@ -141,8 +172,10 @@ namespace {
 using fc2t::holds;
 using fc2t::kCntBits;
 using fc2t::kCntMask;
+using fc2t::kExactFields;
 using fc2t::kLargeMm;
 using fc2t::kLargePos;
+using fc2t::kMaxShards;
 using fc2t::kSlots;
 using fc2t::mix_hash;
 
@@ -160,10 +193,13 @@ constexpr int kNbrLanes = 4;
 static_assert(kNbrLanes == fc2t::kLanes, "a slot is one int4 a table");
 constexpr int kMaxAnchor = 32;
 static_assert(kMaxAnchor == fc2t::kMaxKeyLen, "keys are 64-bit");
-// A shard's record in partials mode (ops/anchor_align.EXACT_OPS' order):
-// found, then count and least position of each orientation, exact and
-// 1-mm ball; positions as uint32 bit patterns.
-constexpr int kExactFields = 9;
+// A shard's record in partials mode is kExactFields int32
+// (ops/anchor_align.EXACT_OPS' order): found, then count and least
+// position of each orientation, exact and 1-mm ball; positions as uint32
+// bit patterns. The combining mode holds its lanes' fields of the first
+// kHeldShards other shards' records in registers (a data row of up to
+// four shards).
+constexpr int kHeldShards = 3;
 // The range of a call that looks up every key (ops/anchor_align.EVERY_KEY):
 // [0, kEveryKey).
 constexpr long long kEveryKey = 0x7fffffffffffffff;
@@ -183,8 +219,13 @@ __device__ __forceinline__ uint32_t anchor_min(uint32_t x) {
     return min(x, __shfl_xor_sync(kFull, x, 2));
 }
 
-// kRanged: the partials mode, which looks up only the keys in [lo, hi).
-template <bool kRanged>
+// kRanged: the partials or the combining mode, which look up only the
+// keys in [lo, hi); kCombine: the combining mode, an instantiation of its
+// own. Its code sits under `if constexpr`, so that the single-table and
+// the partials instantiations compile to the instructions they had
+// without it (scripts/sass_digest.py); a dead branch under a plain `if`
+// changed their register allocation.
+template <bool kRanged, bool kCombine>
 __global__ void __launch_bounds__(kThreads)
 exact_kernel(const __grid_constant__ ExactArgs a) {
     const int lane = threadIdx.x & 31;
@@ -203,6 +244,20 @@ exact_kernel(const __grid_constant__ ExactArgs a) {
 #endif
     ESTAMP(at, 0);
     const int al = a.anchor_len;
+    // The combining mode: the other shards' records of the anchor, in
+    // flight before the codes (load_now: where they are written).
+    int32_t held[kCombine ? kHeldShards : 1][kExactFields];
+    if constexpr (kCombine) {
+#pragma unroll
+        for (int t = 0; t < kHeldShards; ++t)
+            if (t < a.n_others) {
+                const int32_t* r =
+                    a.others + ((size_t)t * a.n + i) * kExactFields;
+#pragma unroll
+                for (int f = 0; f < kExactFields; ++f)
+                    held[t][f] = fc2t::load_now(r + f);
+            }
+    }
 
     // _exact_keys: the forward key (p12, s8) and its reverse complement's,
     // on the codes with those >= 4 zeroed; the lane's probe's salt and
@@ -230,10 +285,19 @@ exact_kernel(const __grid_constant__ ExactArgs a) {
     for (int u = 0; u < kSlots; ++u) g[u] = in ? __ldg(row + u) : empty;
 #ifdef FC2T_DETECT_STAMPS
     {
+        // In the combining mode the stage ends when the other shards'
+        // records have arrived too.
         unsigned dep = 0;
 #pragma unroll
         for (int u = 0; u < kSlots; ++u)
             dep ^= g[u].x ^ g[u].y ^ g[u].z ^ g[u].w;
+        if constexpr (kCombine) {
+#pragma unroll
+            for (int t = 0; t < kHeldShards; ++t)
+                if (t < a.n_others)
+#pragma unroll
+                    for (int f = 0; f < kExactFields; ++f) dep ^= held[t][f];
+        }
         ESTAMP(at + 2, dep);
     }
 #endif
@@ -277,10 +341,31 @@ exact_kernel(const __grid_constant__ ExactArgs a) {
     pr = anchor_min(pr);
     m1f = anchor_min(m1f);
     m1r = anchor_min(m1r);
-    const bool found = (cnt & ((1 << kCfShift) - 1)) != 0;
-    const long long cf = cnt >> kCfShift & ((1 << (kCrShift - kCfShift)) - 1);
-    const long long cr = cnt >> kCrShift;
-    if (a.partials) {
+    bool found = (cnt & ((1 << kCfShift) - 1)) != 0;
+    long long cf = cnt >> kCfShift & ((1 << (kCrShift - kCfShift)) - 1);
+    long long cr = cnt >> kCrShift;
+    if constexpr (kCombine) {
+        // The other shards' records folded into the lanes' own partials
+        // (on one table, the sums are they), in 64 bits, the held ones
+        // first.
+        const auto fold = [&](const int32_t* r) {
+            found = found || r[0] != 0;
+            cf += r[1];
+            pf = min(pf, (uint32_t)r[2]);
+            cr += r[3];
+            pr = min(pr, (uint32_t)r[4]);
+            s1f += r[5];
+            m1f = min(m1f, (uint32_t)r[6]);
+            s1r += r[7];
+            m1r = min(m1r, (uint32_t)r[8]);
+        };
+#pragma unroll
+        for (int t = 0; t < kHeldShards; ++t)
+            if (t < a.n_others) fold(held[t]);
+        for (int t = kHeldShards; t < a.n_others; ++t)
+            fold(a.others + ((size_t)t * a.n + i) * kExactFields);
+    }
+    if (!kCombine && a.partials) {
         // Partials mode: the shard's record, lane `sub` writing fields
         // sub and sub + 4 (and lane 0 the ninth), then nothing more.
         if (real) {
@@ -360,10 +445,17 @@ exact_kernel(const __grid_constant__ ExactArgs a) {
 // The exact-first statistics and `resolved` of every anchor.
 extern "C" int fc2t_exact_stats(const ExactArgs* a) {
     if (a->n <= 0) return 0;
+    // The partials and combining modes look up the keys of [lo, hi); a
+    // finish of every key and no other shards is the single table's.
+    const bool ranged = a->partials != nullptr || a->n_others > 0 ||
+                        a->lo != 0 || a->hi != kEveryKey;
     if (a->anchor_len < 1 || a->anchor_len > kMaxAnchor ||
         a->prefix_len < 1 || a->prefix_len >= a->anchor_len ||
         a->anchor_len - a->prefix_len > 8 || a->rows < 1 ||
-        (a->partials == nullptr && (a->lo != 0 || a->hi != kEveryKey)))
+        a->n_others < 0 || a->n_others >= kMaxShards ||
+        (a->n_others > 0) != (a->others != nullptr) ||
+        (a->partials != nullptr && a->n_others > 0) ||
+        (a->partials == nullptr && a->aligned == nullptr))
         return -(int)cudaErrorInvalidValue;
     int dev = -1;
     cudaError_t err = cudaGetDevice(&dev);
@@ -373,9 +465,11 @@ extern "C" int fc2t_exact_stats(const ExactArgs* a) {
         (unsigned)((a->n + kAnchorsPerBlock - 1) / kAnchorsPerBlock);
     const cudaStream_t stream = static_cast<cudaStream_t>(a->stream);
     if (a->partials)
-        exact_kernel<true><<<blocks, kThreads, 0, stream>>>(*a);
+        exact_kernel<true, false><<<blocks, kThreads, 0, stream>>>(*a);
+    else if (ranged)
+        exact_kernel<true, true><<<blocks, kThreads, 0, stream>>>(*a);
     else
-        exact_kernel<false><<<blocks, kThreads, 0, stream>>>(*a);
+        exact_kernel<false, false><<<blocks, kThreads, 0, stream>>>(*a);
     err = cudaGetLastError();
     return err == cudaSuccess ? 1 : -(int)err;
 }

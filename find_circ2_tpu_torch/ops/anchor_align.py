@@ -28,13 +28,17 @@ data row's shards, so each function is a per-shard part (gathers and
 probes on the shard's device), an integer sum/min/any over the shards on
 the anchors' device, and a global finish. On CPU tensors that is the
 plain `exact_partials` or `candidate_stats`, `_combine` and
-`exact_finish` or `finalize_hits`; on the card each shard's part is a
-record an anchor from a partials mode of the probe's or the
-enumeration's kernel (`exact_records`, `classic_records`), copied into
-one [shards, n, fields] buffer on the anchors' device, and the combine
-and finish are one kernel (`shard_finish`, csrc/shard_k1.cu). The
-single-table forms are the same with one shard and nothing between the
-two parts.
+`exact_finish` or `finalize_hits`. On the card every shard but one
+writes a record an anchor from a partials mode of the probe's or the
+enumeration's kernel (`exact_records`, `classic_records`) into one
+[shards - 1, n, fields] buffer on the anchors' device (copied there
+from another card); the first shard on the anchors' device runs last,
+in the same kernel's combining mode (`exact_combine`,
+`classic_combine`), which folds that buffer into its own partials and
+finishes in its epilogue: no launch of its own for the combine. One
+shard at least must lie on the anchors' device, as the engine places
+them. The single-table forms are the same with one shard and nothing
+between the two parts.
 
 Global positions are uint32 in the reference; here they are int64
 holding the same values (the table's int32 lanes carry the bit pattern,
@@ -61,7 +65,7 @@ LARGE_MM = 255
 LARGE_POS = M32
 # csrc/exact_stats.cu's limit on the anchor length (its keys are 64-bit).
 MAX_ANCHOR_LEN = 32
-# csrc/shard_k1.cu's limit on the index shards a combine takes.
+# csrc/shard_finish.cuh's limit on the index shards a combine takes.
 MAX_SHARDS = 64
 
 # csrc/classic_k1.cu's limits: V = 1 + 3a variants, two a lane of a warp;
@@ -114,8 +118,11 @@ exact_launches = 0      # exact_anchor_stats
 classic_launches = 0    # classic_anchor_stats and refill_slice
 compact_launches = 0    # fallback_slice
 exact_record_launches = 0    # exact_records (a shard's probe partials)
-classic_record_launches = 0  # classic_records (a shard's enumeration)
-finish_launches = 0          # shard_finish (the cross-shard combine)
+classic_record_launches = 0  # classic_records
+# exact_combine and classic_combine (a shard's partials combined with the
+# other shards' records and finished)
+exact_combine_launches = 0
+classic_combine_launches = 0
 
 
 def read_anchors(reads: torch.Tensor, lens: torch.Tensor, cfg: Config):
@@ -468,15 +475,16 @@ def exact_anchor_stats_sharded(shards, anchors, cfg: Config):
     neighbour tables), each on its own device: per-shard partials of the
     keys it owns, combined on the anchors' device, then the global
     finish. Equals exact_anchor_stats on the whole table. On CPU tensors
-    the plain parts; otherwise each shard's exact_records and one
-    shard_finish (kernels, no wait)."""
+    the plain parts; otherwise kernels, no wait (_sharded): the other
+    shards' exact_records and one exact_combine."""
     if _all_cpu(shards, anchors):
         return _exact_sharded_ref(shards, anchors, cfg)
-    records = _shard_records(
+    return _sharded(
         shards, lambda s, a, out=None: exact_records(
             s.table, s.ntable, s.meta, a, cfg, out, s.owns),
+        lambda s, a, others: exact_combine(s.table, s.ntable, s.meta, a,
+                                           cfg, others, s.owns),
         anchors.shape[0], EXACT_FIELDS, anchors.device, (anchors,))
-    return shard_finish(records, anchors, cfg)
 
 
 def _exact_sharded_ref(shards, anchors, cfg: Config):
@@ -543,8 +551,18 @@ def _launch_exact(args: tuple, cfg: Config, lib=None):
     """exact_anchor_stats on CUDA tensors: one C call into `lib` (default:
     the kernel library), made with the tensors' device current."""
     global exact_launches
-    anchors = args[3]
     _check_exact(*args, cfg)
+    hits, resolved, got = _exact_hits(args, cfg, lib,
+                                      "exact_anchor_stats launch")
+    exact_launches += got
+    return hits, resolved
+
+
+def _exact_hits(args: tuple, cfg: Config, lib, what: str,
+                owns: KeyRange | None = None, others=None):
+    """csrc/exact_stats.cu's finish into new outputs: (hits, resolved,
+    the launches); with `others` or `owns` the combining mode."""
+    anchors = args[3]
     n = anchors.shape[0]
     dev = anchors.device
 
@@ -557,30 +575,41 @@ def _launch_exact(args: tuple, cfg: Config, lib=None):
                       second_mm=empty(torch.int32), qual=empty(torch.int32))
     resolved = empty(torch.bool)
     if n == 0:
-        return hits, resolved
-    exact_launches += _exact_call(lib, args, cfg,
-                                  [x.data_ptr() for x in (*hits, resolved)],
-                                  0, "exact_anchor_stats launch")
-    return hits, resolved
+        return hits, resolved, 0
+    got = _exact_call(lib, args, cfg,
+                      [x.data_ptr() for x in (*hits, resolved)], 0, what,
+                      owns, others)
+    return hits, resolved, got
+
+
+def _others(others) -> tuple[int, int]:
+    """The other shards' records as the C calls take them: (pointer,
+    count); a null pointer for none."""
+    n = 0 if others is None else others.shape[0]
+    return (others.data_ptr() if n else 0), n
 
 
 def _exact_call(lib, args: tuple, cfg: Config, outs: list, partials: int,
-                what: str, owns: KeyRange | None = None) -> int:
+                what: str, owns: KeyRange | None = None,
+                others=None) -> int:
     """One C call of csrc/exact_stats.cu into `lib` (default: the kernel
     library) with the anchors' device current: the eight hit and
     `resolved` pointers `outs` (zeros in partials mode), the records'
-    pointer `partials` (0 for the finish) and the keys looked up, `owns`
-    (None: every key). Returns the launches."""
+    pointer `partials` (0 for the finish), the keys looked up, `owns`
+    (None: every key), and the other shards' records to fold in,
+    `others` (None: none). Returns the launches."""
     table, ntable, meta, anchors = args
     lib = lib or _build.load()
     index = anchors.get_device()
+    ptr, n_others = _others(others)
     with torch.cuda.device(index):
         got = lib.fc2t_exact_stats(_build.EXACT_ARGS.pack(
             anchors.data_ptr(), table.data_ptr(), ntable.data_ptr(),
             meta.data_ptr(), *outs, partials,
             torch._C._cuda_getCurrentRawStream(index), table.shape[0],
             *(owns or EVERY_KEY), anchors.shape[0], cfg.anchor_len,
-            cfg.prefix_len, cfg.max_bucket, cfg.max_anchor_mm, index))
+            cfg.prefix_len, cfg.max_bucket, cfg.max_anchor_mm, index,
+            n_others, 0, ptr))
     if got < 0:
         _build.check(-got, what)
     return got
@@ -700,14 +729,19 @@ def _check_classic(table, meta, anchors, cfg: Config, ext, ext_id, slots,
 
 def _launch_classic(table, meta, anchors, cfg: Config, ext=None,
                     ext_id=None, stats: bool = False, slots=None, hits=None,
-                    lib=None, records=None, owns: KeyRange | None = None):
+                    lib=None, records=None, owns: KeyRange | None = None,
+                    others=None):
     """classic_anchor_stats (or, with `slots`, refill_slice into `hits`)
     on CUDA tensors: one C call into `lib` (default: the kernel library),
     made with the tensors' device current. Returns (hits, stats). With
     `records` (int32 [n, CLASSIC_FIELDS]) the partials mode: each slot's
     record of the keys of `owns` (None: every key) goes there instead of
-    its hits (hits None)."""
+    its hits (hits None). With `others` (int32 [S - 1, n,
+    CLASSIC_FIELDS]) the combining mode: each slot's record of the keys
+    of `owns`, those records folded in, then its hits, counted on
+    classic_combine_launches."""
     global classic_launches, classic_record_launches
+    global classic_combine_launches
     _check_classic(table, meta, anchors, cfg, ext, ext_id, slots, hits)
     dev = anchors.device
     n = anchors.shape[0] if slots is None else slots.shape[0]
@@ -747,13 +781,15 @@ def _launch_classic(table, meta, anchors, cfg: Config, ext=None,
             0 if ext is None else ext.shape[0], n, cfg.anchor_len,
             cfg.prefix_len, cfg.max_bucket, cfg.max_anchor_mm,
             0 if ext is None else K1, index, 0, *(owns or EVERY_KEY),
-            ptr(records)))
+            ptr(records), *_others(others), 0))
     if got < 0:
         _build.check(-got, "classic_anchor_stats launch")
-    if records is None:
-        classic_launches += got
-    else:
+    if others is not None:
+        classic_combine_launches += got
+    elif records is not None:
         classic_record_launches += got
+    else:
+        classic_launches += got
     return hits, out
 
 
@@ -830,7 +866,7 @@ def exact_records(table, ntable, meta, anchors, cfg: Config, out=None,
                   owns: KeyRange | None = None):
     """One index shard's part of exact_anchor_stats: each anchor's record
     of EXACT_OPS' fields, int32 [n, EXACT_FIELDS], before the guard, the
-    `clean` mask and the finish (shard_finish does those over every
+    `clean` mask and the finish (exact_combine does those over every
     shard). An anchor whose canonical key lies outside `owns` (None:
     every key) gets the record of a key the shard does not hold (found
     0, counts 0, positions LARGE_POS), and on the card no hash and no row
@@ -936,8 +972,114 @@ def _launch_classic_records(table, meta, anchors, cfg: Config, slots=None,
     return out
 
 
+def _check_others(others, n: int, fields: int, like, what: str) -> None:
+    """Raise unless the combining modes take `others` as the other
+    shards' records: a contiguous int32 [S - 1, n, fields] on `like`'s
+    device, S <= MAX_SHARDS."""
+    if (others.dtype != torch.int32 or others.dim() != 3
+            or tuple(others.shape[1:]) != (n, fields)
+            or not others.shape[0] < MAX_SHARDS
+            or not others.is_contiguous() or others.device != like.device):
+        raise ValueError(f"{what}: want the other shards' records, a "
+                         f"contiguous int32 [< {MAX_SHARDS}, {n}, {fields}] "
+                         f"on {like.device}, got {others.dtype} "
+                         f"{list(others.shape)} on {others.device}")
+
+
+def exact_combine_ref(table, ntable, meta, anchors, cfg: Config, others,
+                      owns: KeyRange | None = None):
+    """Plain version of exact_combine: this shard's exact_records_ref
+    stacked on `others`, then shard_finish_ref."""
+    own = exact_records_ref(table, ntable, meta, anchors, cfg, owns)
+    return shard_finish_ref(torch.cat([own[None], others]), anchors, cfg)
+
+
+def exact_combine(table, ntable, meta, anchors, cfg: Config, others,
+                  owns: KeyRange | None = None):
+    """The sharded probe's combining shard: this shard's exact_records of
+    the keys of `owns` (None: every key) combined with the other shards'
+    records `others` (int32 [S - 1, n, EXACT_FIELDS] on the anchors'
+    device, S - 1 >= 0) and finished, as shard_finish_ref finishes the
+    S shards' records: (AnchorHits [n], resolved bool [n]). CPU tensors
+    take the plain version; CUDA tensors launch csrc/exact_stats.cu in
+    combining mode on the current stream (one launch, no wait, counted on
+    exact_combine_launches; its own records stay in registers) or
+    raise."""
+    if all(t.is_cpu for t in (table, ntable, meta, anchors, others)):
+        return exact_combine_ref(table, ntable, meta, anchors, cfg, others,
+                                 owns)
+    return _launch_exact_combine((table, ntable, meta, anchors), cfg,
+                                 others, owns=owns)
+
+
+def _launch_exact_combine(args: tuple, cfg: Config, others, lib=None,
+                          owns: KeyRange | None = None):
+    """exact_combine on CUDA tensors: one C call into `lib` (default: the
+    kernel library), made with the tensors' device current."""
+    global exact_combine_launches
+    anchors = args[3]
+    _check_exact(*args, cfg)
+    _check_others(others, anchors.shape[0], EXACT_FIELDS, anchors,
+                  "exact_combine")
+    hits, resolved, got = _exact_hits(args, cfg, lib,
+                                      "exact_combine launch", owns, others)
+    exact_combine_launches += got
+    return hits, resolved
+
+
+def classic_combine_ref(table, meta, anchors, cfg: Config, others,
+                        slots=None, hits=None, owns: KeyRange | None = None):
+    """Plain version of classic_combine: this shard's classic_records_ref
+    stacked on `others`, then shard_finish_ref (new tensors)."""
+    own = classic_records_ref(table, meta, anchors, cfg, slots, owns)
+    return shard_finish_ref(torch.cat([own[None], others]), None, cfg,
+                            slots, hits)
+
+
+def classic_combine(table, meta, anchors, cfg: Config, others, slots=None,
+                    hits=None, owns: KeyRange | None = None) -> AnchorHits:
+    """The sharded enumeration's combining shard: this shard's
+    classic_records of the keys of `owns` (None: every key) combined with
+    the other shards' records `others` (int32 [S - 1, n or k,
+    CLASSIC_FIELDS] on the anchors' device) and finished, as
+    shard_finish_ref finishes the S shards' records: AnchorHits [n], or with `slots`
+    (int64 [k], distinct) `hits` with slot s's hits written at slots[s]
+    (refill_slice's contract: on the card in place, into fresh outputs
+    that nothing else holds). CPU tensors take the plain version; CUDA
+    tensors launch csrc/classic_k1.cu in combining mode on the current
+    stream (one launch, no wait, counted on classic_combine_launches) or
+    raise."""
+    given = [t for t in (table, meta, anchors, others, slots)
+             if t is not None] + list(hits or ())
+    if all(t.is_cpu for t in given):
+        return classic_combine_ref(table, meta, anchors, cfg, others, slots,
+                                   hits, owns)
+    return _launch_classic_combine(table, meta, anchors, cfg, others, slots,
+                                   hits, owns=owns)
+
+
+def _launch_classic_combine(table, meta, anchors, cfg: Config, others,
+                            slots=None, hits=None, lib=None,
+                            owns: KeyRange | None = None) -> AnchorHits:
+    """classic_combine on CUDA tensors: one C call, with the tensors'
+    device current."""
+    if (slots is None) != (hits is None):
+        raise ValueError("classic_combine: slots and hits go together")
+    n = anchors.shape[0] if slots is None else slots.shape[0]
+    _check_others(others, n, CLASSIC_FIELDS, anchors, "classic_combine")
+    return _launch_classic(table, meta, anchors, cfg, slots=slots, hits=hits,
+                           lib=lib, owns=owns, others=others)[0]
+
+
 def shard_finish_ref(records, anchors, cfg: Config, slots=None, hits=None):
-    """Plain version of shard_finish: new tensors."""
+    """The cross-shard combine and finish of K1's shard records, int32
+    [shards, n, fields], in plain PyTorch (what the combining modes'
+    plain versions end with): new tensors. Exact records (EXACT_FIELDS,
+    exact_records) sum, take the least or any over the shards, then
+    exact_finish with the anchors' `clean` and `swap`: (AnchorHits [n],
+    resolved bool [n]). Classic records (CLASSIC_FIELDS,
+    classic_records) combine, then finalize_hits: AnchorHits [n], or
+    with `slots` (int64 [n]) `hits` with row s's written at slots[s]."""
     u = records.to(torch.int64)
 
     def comb(j, op):
@@ -969,103 +1111,25 @@ def shard_finish_ref(records, anchors, cfg: Config, slots=None, hits=None):
     return sub if slots is None else _scatter(hits, slots, sub)
 
 
-def shard_finish(records, anchors, cfg: Config, slots=None, hits=None):
-    """The cross-shard combine and finish of K1's shard records, int32
-    [shards, n, fields] on the anchors' device. Exact records
-    (EXACT_FIELDS, exact_records) sum, take the least or any over the
-    shards, then exact_finish with the anchors' `clean` and `swap`:
-    (AnchorHits [n], resolved bool [n]). Classic records (CLASSIC_FIELDS,
-    classic_records) combine, then finalize_hits: AnchorHits [n], or with
-    `slots` (int64 [n], distinct) `hits` with row s's written at
-    slots[s] (refill_slice's contract: on the card in place, into fresh
-    outputs that nothing else holds). CPU tensors take the plain version;
-    CUDA tensors launch csrc/shard_k1.cu on the current stream (one
-    launch, no wait) or raise."""
-    given = [t for t in (records, anchors, slots) if t is not None]
-    if all(t.is_cpu for t in given + list(hits or ())):
-        return shard_finish_ref(records, anchors, cfg, slots, hits)
-    return _launch_finish(records, anchors, cfg, slots, hits)
-
-
-def _check_finish(records, anchors, cfg: Config, slots, hits) -> None:
-    """Raise unless csrc/shard_k1.cu takes these tensors and `cfg`."""
-    dev = records.device
-    given = [t for t in (records, anchors, slots) if t is not None]
-    for t in given + list(hits or ()):
-        if t.device != dev or not t.is_contiguous():
-            raise ValueError(f"shard_finish: want contiguous tensors on "
-                             f"{dev}, one CUDA device, got one on "
-                             f"{t.device}")
-    if dev.type != "cuda":
-        raise ValueError(f"shard_finish: records on {dev}; the kernel takes "
-                         "one CUDA device (CPU tensors take the plain "
-                         "version)")
-    exact = records.dim() == 3 and records.shape[2] == EXACT_FIELDS
-    a = cfg.anchor_len
-    if (records.dtype != torch.int32 or records.dim() != 3
-            or records.shape[2] not in (EXACT_FIELDS, CLASSIC_FIELDS)
-            or not 1 <= records.shape[0] <= MAX_SHARDS
-            or not a <= MAX_ANCHOR_LEN
-            or exact != (anchors is not None)
-            or (exact and (anchors.dtype != torch.uint8
-                           or tuple(anchors.shape) != (records.shape[1], a)
-                           or slots is not None))
-            or (slots is None) != (hits is None)):
-        raise ValueError(f"shard_finish: want int32 records [1..{MAX_SHARDS}"
-                         f", n, {EXACT_FIELDS}] with uint8 anchors [n, {a}], "
-                         f"or [.., n, {CLASSIC_FIELDS}] without; slots with "
-                         f"hits; got {records.dtype} {list(records.shape)}")
-    if slots is not None:
-        n = hits.pos.shape[0]
-        want = (torch.bool, torch.int64) + (torch.int32,) * 5
-        if (slots.dtype != torch.int64
-                or tuple(slots.shape) != (records.shape[1],)
-                or slots.shape[0] > n or any(
-                    f.dtype != d or tuple(f.shape) != (n,)
-                    for f, d in zip(hits, want))):
-            raise ValueError(f"shard_finish: want int64 slots "
-                             f"[{records.shape[1]}] and AnchorHits fields "
-                             f"[{n}] of finalize_hits' dtypes")
-
-
-def _launch_finish(records, anchors, cfg: Config, slots=None, hits=None,
-                   lib=None):
-    """shard_finish on CUDA tensors: one C call into `lib` (default: the
-    kernel library), made with the records' device current."""
-    global finish_launches
-    _check_finish(records, anchors, cfg, slots, hits)
-    S, n, fields = records.shape
-    dev = records.device
-
-    def empty(dtype):
-        return torch.empty(n, dtype=dtype, device=dev)
-
-    resolved = None
-    if hits is None:
-        hits = AnchorHits(aligned=empty(torch.bool), pos=empty(torch.int64),
-                          strand=empty(torch.int32), mm=empty(torch.int32),
-                          n_best=empty(torch.int32),
-                          second_mm=empty(torch.int32),
-                          qual=empty(torch.int32))
-    if anchors is not None:
-        resolved = empty(torch.bool)
-    if n:
-        def ptr(t):
-            return 0 if t is None else t.data_ptr()
-
-        lib = lib or _build.load()
-        index = records.get_device()
-        with torch.cuda.device(index):
-            got = lib.fc2t_shard_finish(_build.SHARD_ARGS.pack(
-                records.data_ptr(), ptr(anchors), ptr(slots),
-                *(x.data_ptr() for x in hits), ptr(resolved),
-                torch._C._cuda_getCurrentRawStream(index), n, S, fields,
-                cfg.anchor_len, cfg.prefix_len, cfg.max_bucket,
-                cfg.max_anchor_mm, index, 0))
-        if got < 0:
-            _build.check(-got, "shard_finish launch")
-        finish_launches += got
-    return hits if anchors is None else (hits, resolved)
+def _sharded(shards, make, combine, n: int, fields: int, device,
+             args: tuple):
+    """The sharded K1 on the card. Every shard but the first one on
+    `device` (the anchors') writes its records, make(shard, *args, out=),
+    into one [S - 1, n, fields] buffer on `device` (_shard_records); that
+    shard runs last, combine(shard, *args, buffer), and finishes in its
+    record kernel's epilogue. Stream order on `device` puts the other
+    shards' writes, and the copies of those on other devices (each copy
+    makes `device`'s current stream wait for it), before it. Raises
+    ValueError when no shard lies on `device`."""
+    on = [s.table.device == device for s in shards]
+    if not any(on):
+        raise ValueError(f"sharded K1: no index shard on the anchors' "
+                         f"device {device}; the combining shard must lie "
+                         f"there")
+    k = on.index(True)
+    rest = [s for i, s in enumerate(shards) if i != k]
+    return combine(shards[k], *args,
+                   _shard_records(rest, make, n, fields, device, args))
 
 
 def _shard_records(shards, make, n: int, fields: int, device, args: tuple):
@@ -1097,7 +1161,7 @@ COMPACT_STAGES = ("flag loads", "scan", "writes")
 def classic_stage_cycles(table, meta, anchors, cfg: Config, ext=None,
                          ext_id=None, stats: bool = False, slots=None,
                          hits=None, records: bool = False,
-                         owns: KeyRange | None = None):
+                         owns: KeyRange | None = None, others=None):
     """classic_anchor_stats (or, with `slots`, refill_slice into `hits`)
     on CUDA tensors through the measurement build of csrc/classic_k1.cu:
     ((hits, stats), int64 [n, len(CLASSIC_STAGES)] SM clock cycles of each
@@ -1105,8 +1169,18 @@ def classic_stage_cycles(table, meta, anchors, cfg: Config, ext=None,
     results are first used). One launch, counted on `classic_launches`.
     With `records`, classic_records on the keys of `owns` instead: (its
     records, the cycles; the partials mode stops after "fold and
-    finish"), counted on `classic_record_launches`."""
+    finish"), counted on `classic_record_launches`; with `others`,
+    classic_combine (at `slots` into `hits`) instead: (its hits, the
+    cycles; the row round trip ends when the other shards' records have
+    arrived too, and the combining mode stops after "fold and finish"),
+    counted on `classic_combine_launches`."""
     n = anchors.shape[0] if slots is None else slots.shape[0]
+    if others is not None:
+        return _build.stamped(
+            "fc2t_classic_stamps", n, len(CLASSIC_STAGES), anchors,
+            lambda lib: _launch_classic_combine(table, meta, anchors, cfg,
+                                                others, slots, hits, lib,
+                                                owns))
     if records:
         return _build.stamped(
             "fc2t_classic_stamps", n, len(CLASSIC_STAGES), anchors,
@@ -1136,7 +1210,8 @@ EXACT_ANCHORS_PER_WARP = 8
 
 
 def exact_stage_cycles(table, ntable, meta, anchors, cfg: Config,
-                       records: bool = False, owns: KeyRange | None = None):
+                       records: bool = False, owns: KeyRange | None = None,
+                       others=None):
     """exact_anchor_stats on CUDA tensors through the measurement build of
     csrc/exact_stats.cu: ((hits, resolved), int64 [warps,
     len(EXACT_STAGES)] SM clock cycles of each warp's stages, its first
@@ -1145,27 +1220,37 @@ def exact_stage_cycles(table, ntable, meta, anchors, cfg: Config,
     counted on `exact_launches`. With `records`, exact_records on the
     keys of `owns` instead: (its records, the cycles; the partials mode
     stamps "writes" where its records are written), counted on
-    `exact_record_launches`."""
+    `exact_record_launches`; with `others`, exact_combine instead:
+    ((hits, resolved), the cycles; the row round trip ends when the
+    other shards' records have arrived too), counted on
+    `exact_combine_launches`."""
     warps = -(-anchors.shape[0] // EXACT_ANCHORS_PER_WARP)
     args = (table, ntable, meta, anchors)
-    return _build.stamped(
-        "fc2t_exact_stamps", warps, len(EXACT_STAGES), anchors,
-        (lambda lib: _launch_exact_records(args, cfg, lib=lib, owns=owns))
-        if records else (lambda lib: _launch_exact(args, cfg, lib)))
+    if others is not None:
+        launch = (lambda lib: _launch_exact_combine(args, cfg, others, lib,
+                                                    owns))
+    elif records:
+        launch = (lambda lib: _launch_exact_records(args, cfg, lib=lib,
+                                                    owns=owns))
+    else:
+        launch = (lambda lib: _launch_exact(args, cfg, lib))
+    return _build.stamped("fc2t_exact_stamps", warps, len(EXACT_STAGES),
+                          anchors, launch)
 
 
 def align_anchors_sharded(shards, anchors, cfg: Config) -> AnchorHits:
     """Classic K1 over index shards (`Shard`s; their neighbour tables
     unused): each shard's (count, first_pos) of the keys it owns, summed
     and minimized on the anchors' device, then finalize_hits. On CPU
-    tensors the plain parts; otherwise each shard's classic_records and
-    one shard_finish (kernels, no wait)."""
+    tensors the plain parts; otherwise kernels, no wait (_sharded): the
+    other shards' classic_records and one classic_combine."""
     if not _all_cpu(shards, anchors):
-        records = _shard_records(
+        return _sharded(
             shards, lambda s, a, out=None: classic_records(
                 s.table, s.meta, a, cfg, out=out, owns=s.owns),
+            lambda s, a, others: classic_combine(s.table, s.meta, a, cfg,
+                                                 others, owns=s.owns),
             anchors.shape[0], CLASSIC_FIELDS, anchors.device, (anchors,))
-        return shard_finish(records, None, cfg)
     parts = _on_shards(shards, lambda s, a: candidate_stats(
         s.table, s.meta, a, cfg, owns=s.owns), (anchors,), anchors.device)
     mm_v, strand_v = parts[0][2:]
@@ -1226,17 +1311,19 @@ def refill_slice_sharded(shards, anchors, slots, hits: AnchorHits,
                          cfg: Config) -> AnchorHits:
     """refill_slice over index shards (`Shard`s): `hits` with the
     classic hits of anchors[slots] written at `slots`. On CPU tensors the
-    plain parts, into new tensors; otherwise each shard's classic_records
-    in slot mode and one shard_finish that writes into `hits` in place
-    (kernels, no wait), as refill_slice does."""
+    plain parts, into new tensors; otherwise kernels, no wait (_sharded):
+    the other shards' classic_records in slot mode and one
+    classic_combine at the slots, which writes into `hits` in place, as
+    refill_slice does."""
     if _all_cpu(shards, anchors, slots, *hits):
         return _scatter(hits, slots, align_anchors_sharded(
             shards, anchors[slots], cfg))
-    records = _shard_records(
+    return _sharded(
         shards, lambda s, a, sl, out=None: classic_records(
             s.table, s.meta, a, cfg, slots=sl, out=out, owns=s.owns),
+        lambda s, a, sl, others: classic_combine(s.table, s.meta, a, cfg,
+                                                 others, sl, hits, s.owns),
         slots.shape[0], CLASSIC_FIELDS, anchors.device, (anchors, slots))
-    return shard_finish(records, None, cfg, slots=slots, hits=hits)
 
 
 def align_anchor_pair_fast_sharded(shards, anchors_a, anchors_b,

@@ -7,11 +7,13 @@ data row runs K1 on its row's index shards and combines the shards'
 integer partials on the row's first device (ops/anchor_align
 `*_sharded`); the rest of the detect step runs once there. Each shard
 carries the range of the keys it owns (ops/anchor_align.key_ranges)
-and looks up only those. On the card each shard's part is a
-partials-mode launch of the probe's or the enumeration's kernel on the
-shard's device, writing one record an anchor into the row's [shards, n,
-fields] buffer, and the combine and finish are one kernel
-(csrc/shard_k1.cu); on the CPU the plain parts.
+and looks up only those. On the card every shard but the first on the
+row's device writes one record an anchor, a partials-mode launch of the
+probe's or the enumeration's kernel on its own device, into the row's
+[shards - 1, n, fields] buffer; that shard runs last, in the same
+kernel's combining mode, and folds the buffer into its own partials and
+finishes in the kernel's epilogue: no launch of its own for the combine.
+On the CPU the plain parts.
 Results equal the single-device path bit for bit.
 
 The reference runs one program per slot, with psum/pmin collectives

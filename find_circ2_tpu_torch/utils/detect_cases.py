@@ -526,6 +526,18 @@ def shard_args(tables, ntables, metas, devices,
             for i, dev in enumerate(devices)]
 
 
+def found_records(n: int, cf: int, cr: int, shards: int,
+                  device="cpu") -> torch.Tensor:
+    """`shards` index shards' exact records (ops/anchor_align.EXACT_OPS'
+    fields, int32 [shards, n, 9]) of n anchors, each found with cf and cr
+    exact hits on its canonical key's two orientations, no 1-mm ball and
+    no position: the other shards' records of a combining call
+    (exact_combine) whose summed exact counts pass max_bucket, or what
+    one shard's packed count holds (1023)."""
+    rec = torch.tensor([1, cf, -1, cr, -1, 0, -1, 0, -1], dtype=torch.int32)
+    return rec.expand(shards, n, len(rec)).contiguous().to(device)
+
+
 def range_edges(cfg: Config = Config()) -> list[int]:
     """Every cut between two shards' key ranges at SHARD_COUNTS
     (key_ranges over 4^prefix_len buckets): the first key of each range

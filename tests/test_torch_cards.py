@@ -288,10 +288,13 @@ def _shard_kernels(anchors_np, tables, whole, device, slots=(4, 1024)):
     on `device`, against their plain versions on the same tensors: each
     shard's records (exact, classic, classic on a slice) of the keys it
     owns and of every key, and on the whole table `whole` of each shard's
-    keys; the finish of the stacked records (exact; classic, full and
-    written at slots in place), and the sharded forms against the CPU's
-    plain parts (the exact-first pair at each fallback slice size, the
-    classic pair)."""
+    keys; the combining modes with the first and
+    the last shard combining the others' records (exact; classic, full
+    and written at slots in place), and the first shard's exact combine
+    with synthetic others whose exact counts sum past max_bucket and past
+    1023; and the sharded forms against the CPU's plain parts (the
+    exact-first pair at each fallback slice size, the classic pair).
+    Returns the combining shards it took."""
     sh = detect_cases.shard_args(*tables, [device] * tables[0].shape[0])
     anchors = torch.from_numpy(anchors_np).to(device)
     n = anchors.shape[0]
@@ -322,16 +325,31 @@ def _shard_kernels(anchors_np, tables, whole, device, slots=(4, 1024)):
             assert all(torch.equal(a, b) for a, b in zip(x, y))
     exact, classic, sliced = (torch.stack([r[j] for r in got[0]])
                               for j in range(3))
-    assert _same_hits(ta.shard_finish(exact, anchors, CFG),
-                      ta.shard_finish_ref(exact, anchors, CFG))
-    assert all(torch.equal(a, b) for a, b in zip(
-        ta.shard_finish(classic, None, CFG),
-        ta.shard_finish_ref(classic, None, CFG)))
-    hits = ta.shard_finish(exact, anchors, CFG)[0]
-    want = ta.shard_finish_ref(sliced, None, CFG, slot, hits)
-    got = ta.shard_finish(sliced, None, CFG, slot, hits)
-    assert all(a is b for a, b in zip(got, hits))
-    assert all(torch.equal(a, b) for a, b in zip(got, want))
+    hits = ta.shard_finish_ref(exact, anchors, CFG)[0]
+    combining = sorted({0, len(sh) - 1})
+    for k in combining:
+        rest = [j for j in range(len(sh)) if j != k]
+        t, nt, m, o = sh[k]
+        assert _same_hits(
+            ta.exact_combine(t, nt, m, anchors, CFG, exact[rest], o),
+            ta.exact_combine_ref(t, nt, m, anchors, CFG, exact[rest], o))
+        assert all(torch.equal(a, b) for a, b in zip(
+            ta.classic_combine(t, m, anchors, CFG, classic[rest], owns=o),
+            ta.classic_combine_ref(t, m, anchors, CFG, classic[rest],
+                                   owns=o)))
+        fresh = ta.AnchorHits(*(x.clone() for x in hits))
+        want = ta.classic_combine_ref(t, m, anchors, CFG, sliced[rest], slot,
+                                      hits, o)
+        got = ta.classic_combine(t, m, anchors, CFG, sliced[rest], slot,
+                                 fresh, o)
+        assert all(a is b for a, b in zip(got, fresh))
+        assert all(torch.equal(a, b) for a, b in zip(got, want))
+    t, nt, m, o = sh[0]
+    for cf, cr, others in ((CFG.max_bucket, 0, 1), (1023, 1023, 3)):
+        syn = detect_cases.found_records(n, cf, cr, others, device)
+        assert _same_hits(ta.exact_combine(t, nt, m, anchors, CFG, syn, o),
+                          ta.exact_combine_ref(t, nt, m, anchors, CFG, syn,
+                                               o))
     half = n // 2
     cpu = detect_cases.shard_args(*tables, ["cpu"] * tables[0].shape[0])
     for k in slots:
@@ -349,6 +367,7 @@ def _shard_kernels(anchors_np, tables, whole, device, slots=(4, 1024)):
                                         anchors[half:2 * half].cpu(), CFG)
     assert all(torch.equal(a.cpu(), b) for a, b in zip([*got[0], *got[1]],
                                                        [*want[0], *want[1]]))
+    return combining
 
 
 @pytest.mark.cuda
@@ -358,25 +377,28 @@ def test_shard_kernels_match_plain_on_card(case, which, cuda_device):
     (detect) or of keys at every cut between the shards' key ranges
     (range-edges), the partials modes of the probe and the enumeration
     (each shard's own keys, every key, and each shard's keys on the whole
-    table), the cross-shard finish (csrc/shard_k1.cu) and the sharded
-    forms equal their plain versions (the fallback slice overflowing at
-    4 slots); each wrapper launches once a call and the single-table
-    kernels' counts stay."""
+    table), their combining modes (the first and the last shard folding
+    in the others' records; synthetic others past max_bucket and 1023),
+    and the sharded forms equal their plain versions (the fallback slice
+    overflowing at 4 slots); each wrapper launches once a call, and the
+    single-table kernels' counts stay."""
     got = case if which == "detect" else detect_cases.range_edge_case(5, CFG)
     shards = detect_cases.shard_tables(got, detect_cases.SHARD_COUNTS, CFG)
-    before = (ta.exact_record_launches, ta.classic_record_launches,
-              ta.finish_launches, ta.exact_launches, ta.classic_launches)
-    for tables in shards.values():
-        _shard_kernels(got.anchors, tables, shards[1], cuda_device)
-    got = [ta.exact_record_launches - before[0],
-           ta.classic_record_launches - before[1],
-           ta.finish_launches - before[2], ta.exact_launches - before[3],
-           ta.classic_launches - before[4]]
-    # At S shards: the direct calls, 3S exact and 6S classic records and
-    # four finishes; each of the two fast pairs S exact and S classic
-    # records and two finishes; the classic pair S records and a finish.
-    S = sum(shards)
-    assert got == [5 * S, 9 * S, 9 * len(shards), 0, 0], got
+    names = ("exact_record_launches", "classic_record_launches",
+             "exact_combine_launches", "classic_combine_launches",
+             "exact_launches", "classic_launches")
+    before = [getattr(ta, k) for k in names]
+    K = sum(len(_shard_kernels(got.anchors, tables, shards[1], cuda_device))
+            for tables in shards.values())
+    got = [getattr(ta, k) - b for k, b in zip(names, before)]
+    # At S shards: the direct calls, 3S exact and 6S classic records;
+    # each of the K combining shards one exact and two classic combines,
+    # and two exact combines on synthetic others; each of the two fast
+    # pairs S - 1 exact records and an exact combine, S - 1 classic
+    # records and a classic combine; the classic pair likewise.
+    S, m = sum(shards), len(shards)
+    assert got == [5 * S - 2 * m, 9 * S - 3 * m, K + 4 * m, 2 * K + 3 * m,
+                   0, 0], got
 
 
 def _merge_tensors(name, n, seed, device):
@@ -461,7 +483,8 @@ def _batchify(reads, cfg, bs):
 def test_sharded_engine_on_two_cards(two_cards):
     """A 1x2 sharded engine with its index shards on cuda:0 and cuda:1
     (the records of the shard on cuda:1 cross to cuda:0, the row's
-    device) gives the single device's detect rows, and its packed rows
+    device, before the shard on cuda:0 combines them in its record
+    kernel) gives the single device's detect rows, and its packed rows
     and detect_merged equal the same engine on the CPU, all N rows."""
     from find_circ2_tpu_torch.index.build import build_index
     from find_circ2_tpu_torch.parallel.mesh import make_mesh
@@ -478,12 +501,18 @@ def test_sharded_engine_on_two_cards(two_cards):
     cpu = ShardedEngine(sim.genome, idx, make_mesh(2, (1, 2), ["cpu"] * 2),
                         cfg)
     assert eng.rows[0].shards[1][0].device == two_cards
-    before = (ta.exact_record_launches, ta.finish_launches)
+    before = (ta.exact_record_launches, ta.classic_record_launches,
+              ta.exact_combine_launches, ta.classic_combine_launches)
     for fn in ("dispatch_packed", "redo_packed"):
         assert torch.equal(getattr(eng, fn)(reads, lens).cpu(),
                            getattr(cpu, fn)(reads, lens))
-    assert ta.exact_record_launches - before[0] == 2
-    assert ta.finish_launches - before[1] >= 3
+    # Shard 1's records cross from cuda:1 before shard 0 (on cuda:0, the
+    # row's device) combines them: shard 1's probe, slice and redo
+    # records, and shard 0's combining launch of each.
+    assert ta.exact_record_launches - before[0] == 1
+    assert ta.classic_record_launches - before[1] == 2
+    assert ta.exact_combine_launches - before[2] == 1
+    assert ta.classic_combine_launches - before[3] == 2
     got, want = eng.detect_merged(reads, lens), cpu.detect_merged(reads,
                                                                    lens)
     assert all(np.array_equal(got[k], want[k]) for k in want)

@@ -341,7 +341,7 @@ def test_exact_c_call_runs_on_the_tensors_device(case, monkeypatch):
     class Lib:
         def fc2t_exact_stats(self, buf):
             seen.append((_Device.current[0],
-                         _build.EXACT_ARGS.unpack(buf)[-1]))
+                         _build.EXACT_ARGS.unpack(buf)[22]))
             return 1
 
     monkeypatch.setattr(_build, "load", lambda: Lib())
@@ -425,7 +425,7 @@ def test_stage_cycles_reach_the_stamped_c_calls(case, monkeypatch):
     assert [e[2] for e in lib.seen if e[0].endswith("stamps")] == [
         bufs[0].data_ptr(), None, bufs[1].data_ptr(), None]
     assert lib.seen[1][2][-8] == CASE_ROWS                  # B
-    assert lib.seen[4][2][-6] == n                          # n
+    assert lib.seen[4][2][17] == n                          # n
     assert _Device.current == [0]
 
 
@@ -498,16 +498,16 @@ def test_library_hash_covers_headers(tmp_path, monkeypatch):
     monkeypatch.setattr(_build, "CSRC", str(tmp_path))
     before = _build.library_path()
     headers = sorted(p for p in os.listdir(tmp_path) if p.endswith(".cuh"))
-    assert headers == ["cuckoo.cuh", "nibbles.cuh"]
+    assert headers == ["cuckoo.cuh", "nibbles.cuh", "shard_finish.cuh"]
     seen = {before}
     for header in headers:
         with open(tmp_path / header, "a") as fh:
             fh.write("// edited\n")
         seen.add(_build.library_path())
-    assert len(seen) == 3
+    assert len(seen) == 1 + len(headers)
     assert {os.path.basename(s) for s in _build._sources()} == {
         "classic_k1.cu", "detect.cu", "exact_stats.cu", "explore.cu",
-        "gather_rows.cu", "merge.cu", "shard_k1.cu"}
+        "gather_rows.cu", "merge.cu"}
 
 
 def test_profiler_labels_split_a_batch(case):

@@ -1,14 +1,17 @@
 """The sharded engine's K1 (find_circ2_tpu_torch/ops/anchor_align
 `*_sharded`): on the CPU its plain parts, and the plain versions of the
-card's record layout and finish (exact_records_ref, classic_records_ref
-and shard_finish_ref, run through the card's orchestration), against the
+card's record layout and combining modes (exact_records_ref,
+classic_records_ref, exact_combine_ref and classic_combine_ref, which
+end with shard_finish_ref, run through the card's orchestration),
+against the
 JAX package's exact_anchor_stats, align_anchors and
 align_anchor_pair_fast with axis_name="index" under jax.shard_map on
 conftest's 8 virtual CPU devices, at 1, 2, 4 and 8 index shards from
 shard_query_table; the wrappers' routing (tensors off the CPU reach the
-stubbed C calls of the partials modes, csrc/shard_k1.cu and the
-compaction) and the kernels' argument layouts and constants. The kernels
-themselves are held against these plain versions on the card by
+stubbed C calls of the partials and combining modes and the
+compaction; no shard on the anchors' device raises) and the kernels'
+argument layouts and constants. The kernels themselves are
+held against these plain versions on the card by
 tests/test_torch_cards.py and chip_smoke.py. Tolerance 0: every output
 is an integer."""
 
@@ -71,8 +74,8 @@ def _same(got, want):
 
 def _both_paths(fn, monkeypatch):
     """fn() on the plain parts, then on the card's orchestration with the
-    plain records and finish (the CPU tensors take each wrapper's plain
-    version)."""
+    plain records and combining modes (the CPU tensors take each
+    wrapper's plain version)."""
     plain = fn()
     with monkeypatch.context() as m:
         m.setattr(ta, "_all_cpu", lambda *a: False)
@@ -176,7 +179,8 @@ def test_records_and_finish_are_the_plain_combine(case, shards):
 def test_coincident_bucket_read_on_shards_matches_jax(monkeypatch):
     """tests/test_torch_sharded.py's coincident-bucket anchors (keys whose
     two buckets are one bucket in the full table) and reads' anchors on
-    2 shards: both paths equal the reference's sharded K1, classic and
+    2 shards: both paths (the card's orchestration through the combining
+    modes' plain versions) equal the reference's sharded K1, classic and
     exact-first."""
     from find_circ2_tpu_torch.index import hashtable as tht
     from find_circ2_tpu_torch.index.build import build_index
@@ -416,6 +420,102 @@ def test_key_ranges_hold_every_occupied_slot(batches, which):
             assert keys.size and ((keys >= r.lo) & (keys < r.hi)).all()
 
 
+def _jax_wants(anchors, shards):
+    """The reference's sharded exact_anchor_stats and align_anchors."""
+    return (_jax_sharded(partial(ja.exact_anchor_stats, cfg=CFG,
+                                 axis_name="index"), *shards, anchors),
+            _jax_sharded(lambda t, nt, m, a: ja.align_anchors(
+                t, m, a, CFG, axis_name="index"), *shards, anchors))
+
+
+@pytest.mark.parametrize("which", BATCHES)
+@pytest.mark.parametrize("S", detect_cases.SHARD_COUNTS)
+def test_combining_modes_equal_the_finish_and_jax(batches, which, S):
+    """The combining modes' plain versions (the card path's shape: one
+    shard's records folded with the other S - 1 shards' and finished),
+    with the first and the last shard combining, equal shard_finish_ref
+    over all S shards' stacked records and the reference's sharded K1:
+    exact_combine (hits and `resolved`), classic_combine in full mode,
+    and in slot mode at `slots` into the probe's hits (the reference's
+    hits of anchors[slots] scattered there). The batches hold dirty
+    anchors, which resolve unaligned."""
+    anchors_np, shards = batches[which]
+    anchors = torch.from_numpy(anchors_np)
+    slots = _slots(anchors)
+    sh = _port_shards(*shards[S])
+    recs = [torch.stack(x) for x in zip(*(_records(s, anchors, slots, s.owns)
+                                          for s in sh))]
+    exact, full, sliced = recs
+    hits, resolved = ta.shard_finish_ref(exact, anchors, CFG)
+    want_exact, want_classic = _jax_wants(anchors_np, shards[S])
+    _same((hits, resolved), want_exact)
+    scattered = ta._scatter(hits, slots, ta.AnchorHits(*(
+        torch.from_numpy(np.asarray(x).astype(np.int64))[slots].to(h.dtype)
+        for x, h in zip(want_classic, hits))))
+    for k in sorted({0, S - 1}):
+        rest = [j for j in range(S) if j != k]
+        t, nt, m, owns = sh[k]
+        got = ta.exact_combine_ref(t, nt, m, anchors, CFG, exact[rest], owns)
+        _same(got, (hits, resolved))
+        got = ta.classic_combine_ref(t, m, anchors, CFG, full[rest],
+                                     owns=owns)
+        _same(got, ta.shard_finish_ref(full, None, CFG))
+        _same(got, want_classic)
+        got = ta.classic_combine_ref(t, m, anchors, CFG, sliced[rest], slots,
+                                     hits, owns)
+        _same(got, ta.shard_finish_ref(sliced, None, CFG, slots, hits))
+        _same(got, scattered)
+    dirty = (anchors >= 4).any(1)
+    assert dirty.any() and resolved[dirty].all()
+    assert not hits.aligned[dirty].any()
+
+
+def test_combine_guards_the_summed_exact_counts(case, shards):
+    """The guard applies to the exact counts summed over the shards: with
+    one other shard holding max_bucket forward hits of every key, an
+    anchor whose own forward count is 1..max_bucket passes the guard
+    alone and not summed; with three others at 1023 on both orientations
+    (the most a packed count holds, so the sum passes what one shard's
+    packed fields hold) no clean anchor keeps an exact hit. exact_combine
+    equals exact_finish on the explicit sums (counts added, positions
+    least, `found` any), and every anchor resolves."""
+    sh = _port_shards(*shards[2])
+    anchors = torch.from_numpy(case.anchors)
+    n = anchors.shape[0]
+    t, nt, m, owns = sh[0]
+    own = ta.exact_records_ref(t, nt, m, anchors, CFG, owns).to(torch.int64)
+    clean, swap, _, _ = ta._exact_keys(anchors, CFG)
+    alone = ta.exact_combine(t, nt, m, anchors, CFG,
+                             detect_cases.found_records(n, 0, 0, 0), owns)
+    _same(alone, ta.shard_finish_ref(own[None].to(torch.int32), anchors,
+                                     CFG))
+    for cf, cr, others in ((CFG.max_bucket, 0, 1), (1023, 1023, 3)):
+        got = ta.exact_combine(t, nt, m, anchors, CFG,
+                               detect_cases.found_records(n, cf, cr, others),
+                               owns)
+        summed = own.clone()
+        summed[:, 0] = 1
+        summed[:, 1] += others * cf
+        summed[:, 3] += others * cr
+        want = ta.exact_finish(tuple(summed[:, j] & ta.M32 if op == "min"
+                                     else summed[:, j].bool() if op == "any"
+                                     else summed[:, j]
+                                     for j, op in enumerate(ta.EXACT_OPS)),
+                               clean, swap, CFG)
+        _same(got, want)
+        assert bool(got[1].all())
+        if cr == 0:
+            bites = ((own[:, 1] >= 1) & (own[:, 1] <= CFG.max_bucket)
+                     & (own[:, 3] <= CFG.max_bucket) & (own[:, 0] == 1)
+                     & clean)
+            assert bites.any() and (alone[0].mm[bites] == 0).all()
+            assert ((got[0].n_best != alone[0].n_best)
+                    | (got[0].mm != alone[0].mm))[bites].all()
+        else:
+            assert int(summed[:, 1].min()) > 1023
+            assert not bool((got[0].mm[clean] == 0).any())
+
+
 class _Device:
     """A stand-in for torch.cuda.device that records the current device."""
     current = [0]
@@ -452,11 +552,6 @@ class _Lib:
                           _build.COMPACT_ARGS.unpack(buf)))
         return 1
 
-    def fc2t_shard_finish(self, buf):
-        self.seen.append(("finish", _Device.current[0],
-                          _build.SHARD_ARGS.unpack(buf)))
-        return 1
-
 
 def _stub_cuda(monkeypatch):
     lib = _Lib()
@@ -466,10 +561,10 @@ def _stub_cuda(monkeypatch):
                         lambda dev: 0, raising=False)
     monkeypatch.setattr(torch.Tensor, "get_device", lambda self: 2)
     monkeypatch.setattr(torch.Tensor, "is_cpu", property(lambda s: False))
-    for name in ("_check_exact", "_check_classic", "_check_compact",
-                 "_check_finish"):
+    for name in ("_check_exact", "_check_classic", "_check_compact"):
         monkeypatch.setattr(ta, name, lambda *a: None)
     for name in ("exact_records_ref", "classic_records_ref",
+                 "exact_combine_ref", "classic_combine_ref",
                  "shard_finish_ref", "fallback_slice_ref", "exact_partials",
                  "candidate_stats", "_combine"):
         monkeypatch.setattr(ta, name, lambda *a, **kw: pytest.fail(
@@ -480,20 +575,22 @@ def _stub_cuda(monkeypatch):
 
 def _counts():
     return (ta.exact_record_launches, ta.classic_record_launches,
-            ta.finish_launches, ta.compact_launches, ta.exact_launches,
-            ta.classic_launches)
+            ta.exact_combine_launches, ta.classic_combine_launches,
+            ta.compact_launches, ta.exact_launches, ta.classic_launches)
 
 
 def test_cuda_tensors_reach_the_shard_kernels(case, shards, monkeypatch):
     """Tensors off the CPU take the kernels: align_anchor_pair_fast_sharded
-    over two shards makes, with the tensors' device current, one
-    partials-mode probe call a shard (hit pointers null, each writing its
-    row of one [2, n, 9] record buffer), one finish of those records
-    (resolved set), one compaction, one partials-mode enumeration a shard
-    in slot mode on the compaction's slots (rows of a [2, k, 8] buffer),
-    and one finish writing at those slots into the probe's hits; the
-    classic pair one enumeration a shard and one finish. Each counts its
-    launch; the single-table kernels' counts stay."""
+    over two shards on the anchors' device makes, with the tensors'
+    device current, shard 1's partials-mode probe call (hit pointers
+    null, writing row 0 of a [1, n, 9] buffer of the other shards'
+    records), then shard 0's combining probe last (hit and resolved
+    pointers set, no partials, that buffer and its count 1), one
+    compaction of its `resolved`, shard 1's slot-mode enumeration into a
+    [1, k, 8] buffer and shard 0's combining enumeration at the
+    compaction's slots, writing into the probe's hits; the classic pair
+    one enumeration and one combining enumeration. Each counts its launch
+    on its own count, and the single-table kernels' counts stay."""
     tables, ntables, metas = shards[2]
     sh = _port_shards(tables, ntables, metas)
     lib = _stub_cuda(monkeypatch)
@@ -504,43 +601,107 @@ def test_cuda_tensors_reach_the_shard_kernels(case, shards, monkeypatch):
     hits_a, hits_b, overflow = ta.align_anchor_pair_fast_sharded(sh, a, b,
                                                                  CFG)
     assert hits_a.pos.shape == (B,) and overflow.shape == ()
-    assert [e[0] for e in lib.seen] == ["exact", "exact", "finish",
-                                        "compact", "classic", "classic",
-                                        "finish"]
+    assert [e[0] for e in lib.seen] == ["exact", "exact", "compact",
+                                        "classic", "classic"]
     assert all(e[1] == 2 for e in lib.seen) and _Device.current == [0]
-    (_, _, x1), (_, _, x2), (_, _, f1), (_, _, comp), (_, _, c1), \
-        (_, _, c2), (_, _, f2) = lib.seen
+    (_, _, x1), (_, _, x0), (_, _, comp), (_, _, c1), (_, _, c0) = lib.seen
     n, k = 2 * B, min(CFG.exact_fallback_slots, 2 * B)
-    # ExactArgs: hit and resolved pointers 4..11 null, partials at 12,
-    # the shard's range at 15..16; the two shards' rows 4 * n * 9 bytes
-    # apart.
-    for s, x in enumerate((x1, x2)):
-        assert x[1] == sh[s][0].data_ptr() and x[4:12] == (0,) * 8
-        assert x[15:17] == tuple(sh[s].owns) and x[-6] == n
-    assert x2[12] - x1[12] == 4 * n * ta.EXACT_FIELDS
-    # ShardArgs: records, anchors, slots, 8 outputs, stream; n; shards,
-    # fields, anchor_len, prefix_len, max_bucket, max_anchor_mm, device.
-    assert f1[0] == x1[12] and f1[1] == x1[0] and f1[2] == 0
-    assert f1[10] != 0 and f1[12:19] == (n, 2, ta.EXACT_FIELDS,
-                                         CFG.anchor_len, CFG.prefix_len,
-                                         CFG.max_bucket, CFG.max_anchor_mm)
-    assert comp[4:6] == (n, k)
-    # ClassicArgs: slots at 5, hit pointers 6..12 null, the shard's range
-    # at 27..28, partials last.
-    for s, c in enumerate((c1, c2)):
-        assert c[5] == comp[1] and c[6:13] == (0,) * 7 and c[19] == k
-        assert c[27:29] == tuple(sh[s].owns)
-    assert c2[-1] - c1[-1] == 4 * k * ta.CLASSIC_FIELDS
-    assert f2[0] == c1[-1] and f2[1] == 0 and f2[2] == comp[1]
-    assert f2[3:10] == f1[3:10] and f2[10] == 0
-    assert f2[12:14] == (k, 2) and f2[14] == ta.CLASSIC_FIELDS
+    # ExactArgs: hit and resolved pointers 4..11, partials 12, the
+    # shard's range 15..16, n 17, n_others 23, others 25.
+    for s, x in ((1, x1), (0, x0)):
+        assert x[1] == sh[s].table.data_ptr() and x[15:17] == tuple(
+            sh[s].owns) and x[17] == n
+    assert x1[4:12] == (0,) * 8 and x1[12] and (x1[25], x1[23]) == (0, 0)
+    assert all(x0[4:12]) and x0[12] == 0 and (x0[25], x0[23]) == (x1[12], 1)
+    assert comp[0] == x0[11] and comp[4:6] == (n, k)
+    # ClassicArgs: slots 5, hit pointers 6..12, n 19, the shard's range
+    # 27..28, partials 29, others 30, n_others 31.
+    for s, c in ((1, c1), (0, c0)):
+        assert c[1] == sh[s].table.data_ptr() and c[5] == comp[1]
+        assert c[19] == k and c[27:29] == tuple(sh[s].owns)
+    assert c1[6:13] == (0,) * 7 and c1[29] and c1[30:32] == (0, 0)
+    assert c0[6:13] == x0[4:11] and c0[29] == 0
+    assert c0[30:32] == (c1[29], 1)
     after = _counts()
-    assert [y - x for x, y in zip(before, after)] == [2, 2, 2, 1, 0, 0]
+    assert [y - x for x, y in zip(before, after)] == [1, 1, 1, 1, 1, 0, 0]
     lib.seen.clear()
     ta.align_anchor_pair_sharded(sh, a, b, CFG)
-    assert [e[0] for e in lib.seen] == ["classic", "classic", "finish"]
-    assert lib.seen[0][2][5] == 0 and lib.seen[2][2][14] == 8
-    assert lib.seen[2][2][12] == 2 * B
+    assert [e[0] for e in lib.seen] == ["classic", "classic"]
+    (_, _, c1), (_, _, c0) = lib.seen
+    assert c1[5] == c0[5] == 0 and c0[19] == 2 * B and all(c0[6:13])
+    assert c1[29] and c0[29] == 0 and c0[30:32] == (c1[29], 1)
+    assert [y - x for x, y in zip(after, _counts())] == [0, 1, 0, 1, 0, 0, 0]
+
+
+def _elsewhere(shard):
+    """`shard` on another device than the anchors' (the meta device)."""
+    return ta.Shard(*(x.to("meta") for x in shard[:3]), shard.owns)
+
+
+@pytest.mark.parametrize("placement", ["shard 1 on it", "none on it"])
+def test_placement_decides_the_combining_shard(case, shards, placement,
+                                               monkeypatch):
+    """Which shards lie on the anchors' device decides the orchestration
+    (stubbed C calls; the meta device stands in for another card). With
+    shard 0 elsewhere and shard 1 on the anchors' device, shard 0's
+    records (probe, slice) are written there and copied over, no wait,
+    before shard 1 combines them last: shard 1 is the first shard on the
+    anchors' device. With no shard there, each sharded form raises
+    ValueError before any C call or copy: the combining shard must lie
+    on the anchors' device."""
+    tables, ntables, metas = shards[2]
+    sh = _port_shards(tables, ntables, metas)
+    sh = ([_elsewhere(sh[0]), sh[1]] if placement == "shard 1 on it"
+          else [_elsewhere(s) for s in sh])
+    lib = _stub_cuda(monkeypatch)
+    copy = torch.Tensor.copy_
+
+    def copy_(self, src, non_blocking=False):
+        if not src.is_meta:
+            return copy(self, src, non_blocking)
+        lib.seen.append(("copy", self.data_ptr(), non_blocking))
+        return self
+
+    monkeypatch.setattr(torch.Tensor, "copy_", copy_)
+    B = 40
+    a = torch.from_numpy(case.anchors[:B].copy())
+    b = torch.from_numpy(case.anchors[B:2 * B].copy())
+    before = _counts()
+    if placement == "none on it":
+        both = torch.cat([a, b])
+        slots = torch.arange(B)
+        hits = ta.AnchorHits(*(torch.zeros(2 * B, dtype=d) for d in (
+            torch.bool, torch.int64, *(torch.int32,) * 5)))
+        for run in (lambda: ta.exact_anchor_stats_sharded(sh, both, CFG),
+                    lambda: ta.align_anchors_sharded(sh, both, CFG),
+                    lambda: ta.refill_slice_sharded(sh, both, slots, hits,
+                                                    CFG),
+                    lambda: ta.align_anchor_pair_fast_sharded(sh, a, b,
+                                                              CFG)):
+            with pytest.raises(ValueError, match="anchors' device"):
+                run()
+        assert lib.seen == [] and _counts() == before
+        return
+    ta.align_anchor_pair_fast_sharded(sh, a, b, CFG)
+    names = [e[0] for e in lib.seen]
+    # A C call's arguments, or a copy's destination.
+    seen = [e[1] if e[0] == "copy" else e[2] for e in lib.seen]
+    assert all(e[2] for e in lib.seen if e[0] == "copy")
+    assert names == ["exact", "copy", "exact", "compact", "classic", "copy",
+                     "classic"]
+    x0, cp1, x1, comp, c0, cp2, c1 = seen
+    # Shard 0's records (partials mode: no hit pointers; on the other
+    # device, so its pointers read 0 here) land in the buffer that shard
+    # 1's combining launch reads, after their copy.
+    assert x0[4:12] == (0,) * 8 and x0[15:17] == tuple(sh[0].owns)
+    assert x1[15:17] == tuple(sh[1].owns) and x1[12] == 0
+    assert (x1[25], x1[23]) == (cp1, 1) and all(x1[4:12])
+    assert c0[6:13] == (0,) * 7 and c0[27:29] == tuple(sh[0].owns)
+    assert c1[27:29] == tuple(sh[1].owns) and c1[29] == 0
+    assert c1[30:32] == (cp2, 1) and c1[6:13] == x1[4:11]
+    assert c1[5] == comp[1] and comp[0] == x1[11]
+    assert [y - x for x, y in zip(before, _counts())] == [1, 1, 1, 1, 1, 0,
+                                                          0]
 
 
 class _StampedLib(_Lib):
@@ -561,8 +722,11 @@ def test_record_stage_cycles_reach_the_stamped_c_calls(case, shards,
     keys: one C call each between pointing the stamps at a zeroed buffer
     (a row a warp: EXACT_ANCHORS_PER_WARP anchors, or one slot) and at
     nothing, with the hit pointers null, the records' pointer and the
-    range set; each counts one record launch and returns the records and
-    the clocks' diffs."""
+    range set; with `others`, the combining modes: the hit pointers set,
+    no records' pointer, the others' pointer and count. Each counts one
+    launch, the partials modes on the record counts and the combining
+    modes on the combine counts, and returns the records or hits and the
+    clocks' diffs."""
     tables, ntables, metas = shards[2]
     s = _port_shards(tables, ntables, metas)[1]
     _stub_cuda(monkeypatch)
@@ -583,24 +747,43 @@ def test_record_stage_cycles_reach_the_stamped_c_calls(case, shards,
                                            owns=s.owns)
     assert sliced.shape == (slots.shape[0], ta.CLASSIC_FIELDS)
     assert scyc.shape == (slots.shape[0], len(ta.CLASSIC_STAGES))
-    assert [y - x for x, y in zip(before, _counts())] == [1, 1, 0, 0, 0, 0]
+    others = torch.zeros((1, n, ta.EXACT_FIELDS), dtype=torch.int32)
+    (hits, resolved), xcyc = ta.exact_stage_cycles(
+        *s[:3], anchors, CFG, owns=s.owns, others=others)
+    assert resolved.shape == (n,) and xcyc.shape == cyc.shape
+    sothers = torch.zeros((1, slots.shape[0], ta.CLASSIC_FIELDS),
+                          dtype=torch.int32)
+    got, ccyc = ta.classic_stage_cycles(s.table, s.meta, anchors, CFG,
+                                        slots=slots, hits=hits, owns=s.owns,
+                                        others=sothers)
+    assert all(a is b for a, b in zip(got, hits))
+    assert ccyc.shape == scyc.shape
+    assert [y - x for x, y in zip(before, _counts())] == [1, 1, 1, 1, 0, 0,
+                                                          0]
     assert [e[0] for e in lib.seen] == ["stamps", "exact", "stamps",
-                                        "stamps", "classic", "stamps"]
-    assert [e[2] for e in lib.seen if e[0] == "stamps"][1::2] == [None] * 2
+                                        "stamps", "classic", "stamps"] * 2
+    assert [e[2] for e in lib.seen if e[0] == "stamps"][1::2] == [None] * 4
     x, c = lib.seen[1][2], lib.seen[4][2]
     assert x[4:12] == (0,) * 8 and x[12] == exact.data_ptr()
-    assert x[15:17] == tuple(s.owns)
-    assert c[6:13] == (0,) * 7 and c[-1] == sliced.data_ptr()
+    assert x[15:17] == tuple(s.owns) and (x[25], x[23]) == (0, 0)
+    assert c[6:13] == (0,) * 7 and c[29] == sliced.data_ptr()
     assert c[5] == slots.data_ptr() and c[27:29] == tuple(s.owns)
+    x, c = lib.seen[7][2], lib.seen[10][2]
+    assert x[4:12] == tuple(t.data_ptr() for t in (*hits, resolved))
+    assert x[12] == 0 and (x[25], x[23]) == (others.data_ptr(), 1)
+    assert x[15:17] == tuple(s.owns)
+    assert c[6:13] == tuple(t.data_ptr() for t in hits) and c[29] == 0
+    assert c[30:32] == (sothers.data_ptr(), 1) and c[27:29] == tuple(s.owns)
 
 
 def test_plain_versions_launch_nothing_off_the_cpu(case, shards,
                                                    monkeypatch):
     """The plain versions stay plain on tensors off the CPU (what
     chip_smoke.py's plain_detect and plain_shard swap in on the card):
-    exact_anchor_stats_ref, the records' and the finish's plain versions
-    make no C call and count no launch (their rows come through the row
-    gather's plain version here), and equal their CPU results."""
+    exact_anchor_stats_ref, the records', the combining modes' and the
+    finish's plain versions make no C call and count no launch (their
+    rows come through the row gather's plain version here), and equal
+    their CPU results."""
     from find_circ2_tpu_torch.ops import gather_rows as gr
     tables, ntables, metas = shards[2]
     sh = _port_shards(tables, ntables, metas)
@@ -616,7 +799,12 @@ def test_plain_versions_launch_nothing_off_the_cpu(case, shards,
             s.table, s.meta, anchors, CFG, slots, s.owns) for s in sh])
         return (ta.exact_anchor_stats_ref(table, ntable, meta, anchors, CFG),
                 exact, resolved, classic,
-                ta.shard_finish_ref(classic, None, CFG, slots, hits))
+                ta.shard_finish_ref(classic, None, CFG, slots, hits),
+                ta.exact_combine_ref(*sh[0][:3], anchors, CFG, exact[1:],
+                                     sh[0].owns),
+                ta.classic_combine_ref(sh[0].table, sh[0].meta, anchors,
+                                       CFG, classic[1:], slots, hits,
+                                       sh[0].owns))
 
     want = run()
     lib = _Lib()
@@ -632,11 +820,12 @@ def test_plain_versions_launch_nothing_off_the_cpu(case, shards,
 
 def test_cpu_tensors_take_the_plain_parts(case, shards, monkeypatch):
     """On CPU tensors the sharded forms run today's plain parts and none
-    of the records' or the finish's wrappers (the compaction's wrapper
-    takes its plain version): no launch is counted."""
+    of the records' or the combining modes' wrappers (the compaction's
+    wrapper takes its plain version): no launch is counted."""
     tables, ntables, metas = shards[2]
     sh = _port_shards(tables, ntables, metas)
-    for name in ("exact_records", "classic_records", "shard_finish"):
+    for name in ("exact_records", "classic_records", "exact_combine",
+                 "classic_combine"):
         monkeypatch.setattr(ta, name, lambda *a, **kw: pytest.fail(
             "a CPU tensor took a kernel's wrapper"))
     a = torch.from_numpy(case.anchors[:40].copy())
@@ -654,23 +843,40 @@ def _constants(name):
 
 
 def test_shard_kernel_constants_and_layouts():
-    """The record widths of the partials modes and of csrc/shard_k1.cu
-    equal the wrappers', the kernels' every-key range EVERY_KEY, and
-    ShardArgs', ExactArgs' and ClassicArgs' sizes _build's."""
-    src, got = _constants("shard_k1.cu")
+    """The record widths and the shard limit of csrc/shard_finish.cuh,
+    which the partials and combining modes of csrc/exact_stats.cu and
+    csrc/classic_k1.cu share, equal the wrappers'; the kernels' every-key
+    range EVERY_KEY; ExactArgs' and ClassicArgs' sizes _build's (with the
+    other shards' records and their count), ExactArgs' fields before
+    them at the offsets they had without (the single table's kernel reads
+    its arguments where it did); and each finish is written once."""
+    head, got = _constants("shard_finish.cuh")
     assert (got["kExactFields"], got["kClassicFields"]) == (
         ta.EXACT_FIELDS, ta.CLASSIC_FIELDS)
+    assert ta.EXACT_FIELDS == len(ta.EXACT_OPS)
+    assert ta.CLASSIC_FIELDS == len(ta.CLASSIC_OPS)
     assert got["kMaxShards"] == ta.MAX_SHARDS >= max(
         detect_cases.SHARD_COUNTS)
-    assert "sizeof(ShardArgs) == %d" % _build.SHARD_ARGS.size in src
-    assert '#include "cuckoo.cuh"' in src
-    exact, classic = (_constants(f)[1] for f in ("exact_stats.cu",
-                                                  "classic_k1.cu"))
-    assert exact["kExactFields"] == ta.EXACT_FIELDS == len(ta.EXACT_OPS)
-    assert classic["kClassicFields"] == ta.CLASSIC_FIELDS == len(
-        ta.CLASSIC_OPS)
-    # The range of a call that looks up every key, which the C entries
-    # require outside the partials modes.
-    assert exact["kEveryKey"] == classic["kEveryKey"] == ta.EVERY_KEY.hi
+    exact, classic = (_constants(f) for f in ("exact_stats.cu",
+                                               "classic_k1.cu"))
+    for text, _ in (exact, classic):
+        assert '#include "shard_finish.cuh"' in text
+        assert "kExactFields = " not in text and "kMaxShards = " not in text
+    # The enumeration's cross-shard finish lives in the header and its
+    # combining mode calls it; the probe's combining mode runs the single
+    # table's finish, which the header does not hold.
+    assert classic[0].count("fc2t::classic_finish(") == 1
+    assert exact[0].count("// exact_finish, on every lane") == 1
+    assert "max_bucket" not in head
+    assert not os.path.exists(os.path.join(CSRC, "shard_k1.cu"))
+    # The range of a call that looks up every key, which with no other
+    # shards' records is the single table's kernel.
+    assert exact[1]["kEveryKey"] == classic[1]["kEveryKey"] == \
+        ta.EVERY_KEY.hi
     assert ta.EVERY_KEY.lo == 0
-    assert _build.EXACT_ARGS.size == 160 and _build.CLASSIC_ARGS.size == 208
+    assert exact[1]["kHeldShards"] >= 1 and classic[1]["kHeldShards"] >= 1
+    assert "sizeof(ExactArgs) == %d" % _build.EXACT_ARGS.size in exact[0]
+    assert "sizeof(ClassicArgs) == %d" % _build.CLASSIC_ARGS.size in \
+        classic[0]
+    assert _build.EXACT_ARGS.size == 176 and _build.CLASSIC_ARGS.size == 224
+    assert _build.EXACT_ARGS.format.startswith("<14Qq2q6i")
