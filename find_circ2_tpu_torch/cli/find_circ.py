@@ -28,6 +28,7 @@ from find_circ2_tpu_torch.io.bed import write_bed
 from find_circ2_tpu_torch.io.fastq import decode_anchor_name, read_fastq
 from find_circ2_tpu_torch.io.genome import Genome
 from find_circ2_tpu_torch.models.aggregate import Aggregator
+from find_circ2_tpu_torch.utils.profiling import StageTimes, timed
 
 
 def reads_from_anchor_fastq(path):
@@ -155,7 +156,10 @@ def build_parser() -> argparse.ArgumentParser:
                    help="JSONL resume journal: completed batches replay "
                    "from disk on rerun")
     p.add_argument("--profile", action="store_true",
-                   help="print per-stage timings to stderr")
+                   help="print the set-up seconds and, once the outputs "
+                   "are written, the seconds of every stage from the "
+                   "stream to the writers (rows, filter, write) to "
+                   "stderr")
     return p
 
 
@@ -316,26 +320,28 @@ def _run(args, nproc: int, mesh) -> int:
         times, t_stream = _profile_start(args, t_setup)
         for name, seq in src:
             agg.add(call_read(genome, index, name, seq, cfg, prefilter))
-    if times is not None:
-        print(times.report(wall=time.perf_counter() - t_stream),
-              file=sys.stderr)
     if nproc > 1 and not _merge_processes(args, agg, nproc):
+        _profile_end(times, t_stream)
         return 0
-    rows = agg.rows(sample_name=args.name, prefix=args.prefix)
+    with timed(times, "rows"):
+        rows = agg.rows(sample_name=args.name, prefix=args.prefix)
     if args.filter:
         from find_circ2_tpu_torch.io.bed import passes_filter
-        rows = [r for r in rows
-                if passes_filter(r, args.max_span, args.min_support,
-                                 args.max_edits)]
-    out = sys.stdout if args.output == "-" else open(args.output, "wt")
-    try:
-        write_bed(out, rows)
-    finally:
-        if out is not sys.stdout:
-            out.close()
-    if args.stats:
-        with open(args.stats, "wt") as fh:
-            fh.write("\n".join(agg.stats.lines()) + "\n")
+        with timed(times, "filter"):
+            rows = [r for r in rows
+                    if passes_filter(r, args.max_span, args.min_support,
+                                     args.max_edits)]
+    with timed(times, "write"):
+        out = sys.stdout if args.output == "-" else open(args.output, "wt")
+        try:
+            write_bed(out, rows)
+        finally:
+            if out is not sys.stdout:
+                out.close()
+        if args.stats:
+            with open(args.stats, "wt") as fh:
+                fh.write("\n".join(agg.stats.lines()) + "\n")
+    _profile_end(times, t_stream)
     return 0
 
 
@@ -344,11 +350,18 @@ def _profile_start(args, t_setup: float):
     set-up seconds; (None, None) without it."""
     if not args.profile:
         return None, None
-    from find_circ2_tpu_torch.utils.profiling import StageTimes
     t_stream = time.perf_counter()
     print(f"setup\t{t_stream - t_setup:.3f}s\tgenome, index and "
           "device tables", file=sys.stderr)
     return StageTimes(), t_stream
+
+
+def _profile_end(times, t_stream: float) -> None:
+    """Under --profile, the stage table from the stream's start to now
+    on stderr."""
+    if times is not None:
+        print(times.report(wall=time.perf_counter() - t_stream),
+              file=sys.stderr)
 
 
 def _merge_processes(args, agg: Aggregator, nproc: int) -> bool:

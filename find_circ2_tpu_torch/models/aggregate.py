@@ -19,6 +19,7 @@ from find_circ2_tpu_torch.config import (
 from find_circ2_tpu_torch.io.bed import JunctionRow, renumber
 from find_circ2_tpu_torch.io.genome import Genome
 from find_circ2_tpu_torch.models.oracle import ReadCall
+from find_circ2_tpu_torch.utils.profiling import span
 
 
 def category_flags(circular: bool, breakpoints: int, uniq_bridges: int,
@@ -364,34 +365,37 @@ class Aggregator:
                               agg.uniq_bridges, agg.signal, strandmatch)
 
     def rows(self, sample_name: str = "sample", prefix: str = "") -> list[JunctionRow]:
-        self._drain_batches()
-        out = []
-        for agg in self.junctions.values():
-            chrom = self.genome.chrom_names[agg.chrom_idx]
-            offset = int(self.genome.chrom_offsets[agg.chrom_idx])
-            strandmatch = self._strandmatch(agg)
-            out.append(JunctionRow(
-                chrom=chrom,
-                start=agg.start - offset,
-                end=agg.end - offset,
-                name="",  # assigned by renumber()
-                n_reads=agg.n_reads,
-                strand=SENSE_CHARS[agg.sense],
-                n_uniq=len(agg.seqs),
-                uniq_bridges=agg.uniq_bridges,
-                best_qual_left=agg.best_qual_left,
-                best_qual_right=agg.best_qual_right,
-                tissues=sample_name,
-                tiss_counts=str(agg.n_reads),
-                edits=agg.edits,
-                anchor_overlap=agg.overlap,
-                breakpoints=agg.n_bp,
-                signal=agg.signal,
-                strandmatch=strandmatch,
-                category=self._category(agg, strandmatch),
-            ))
-        self.stats.counts["circular_junctions"] = sum(
-            1 for a in self.junctions.values() if a.kind == KIND_CIRCULAR)
-        self.stats.counts["linear_junctions"] = sum(
-            1 for a in self.junctions.values() if a.kind != KIND_CIRCULAR)
-        return renumber(out, prefix)
+        with span("drain"):
+            self._drain_batches()
+        with span("build"):
+            out = []
+            for agg in self.junctions.values():
+                chrom = self.genome.chrom_names[agg.chrom_idx]
+                offset = int(self.genome.chrom_offsets[agg.chrom_idx])
+                strandmatch = self._strandmatch(agg)
+                out.append(JunctionRow(
+                    chrom=chrom,
+                    start=agg.start - offset,
+                    end=agg.end - offset,
+                    name="",  # assigned by renumber()
+                    n_reads=agg.n_reads,
+                    strand=SENSE_CHARS[agg.sense],
+                    n_uniq=len(agg.seqs),
+                    uniq_bridges=agg.uniq_bridges,
+                    best_qual_left=agg.best_qual_left,
+                    best_qual_right=agg.best_qual_right,
+                    tissues=sample_name,
+                    tiss_counts=str(agg.n_reads),
+                    edits=agg.edits,
+                    anchor_overlap=agg.overlap,
+                    breakpoints=agg.n_bp,
+                    signal=agg.signal,
+                    strandmatch=strandmatch,
+                    category=self._category(agg, strandmatch),
+                ))
+            self.stats.counts["circular_junctions"] = sum(
+                1 for a in self.junctions.values() if a.kind == KIND_CIRCULAR)
+            self.stats.counts["linear_junctions"] = sum(
+                1 for a in self.junctions.values() if a.kind != KIND_CIRCULAR)
+        with span("renumber"):
+            return renumber(out, prefix)

@@ -50,6 +50,7 @@ from find_circ2_tpu_torch.ops.anchor_align import (
 from find_circ2_tpu_torch.ops.detect import (PACK_FIELDS, detect_core,
                                             detect_core_packed)
 from find_circ2_tpu_torch.ops.packed import pack_words
+from find_circ2_tpu_torch.utils.profiling import span, timed
 
 # Largest table (buckets) for which DeviceIndex.build makes the K1 v4
 # neighbour table itself; beyond it the one-time build is a deliberate
@@ -242,10 +243,13 @@ def detect_batch_packed_fast(words, nbases: int, table, ntable, meta,
 
 def _to_device(dindex: DeviceIndex, arr: np.ndarray, lens: np.ndarray):
     dev = dindex.device
-    rc = revcomp_batch(np.asarray(arr), np.asarray(lens))
-    return (torch.from_numpy(np.ascontiguousarray(arr)).to(dev),
-            torch.from_numpy(np.ascontiguousarray(lens, np.int32)).to(dev),
-            torch.from_numpy(rc).to(dev))
+    with span("revcomp"):
+        rc = revcomp_batch(np.asarray(arr), np.asarray(lens))
+    with span("upload"):
+        return (torch.from_numpy(np.ascontiguousarray(arr)).to(dev),
+                torch.from_numpy(np.ascontiguousarray(lens, np.int32))
+                .to(dev),
+                torch.from_numpy(rc).to(dev))
 
 
 def dispatch_packed(dindex: DeviceIndex, arr, lens, cfg: Config,
@@ -256,13 +260,14 @@ def dispatch_packed(dindex: DeviceIndex, arr, lens, cfg: Config,
     `redo_if_overflow` when they are read."""
     d = dindex
     reads, lens_t, rc = _to_device(d, arr, lens)
-    if d.ntable is not None:
-        return detect_batch_packed_fast(
-            d.words, d.nbases, d.table, d.ntable, d.meta, d.chrom_offsets,
-            reads, lens_t, cfg, prefilter, rc=rc)
-    return detect_batch_packed(d.words, d.nbases, d.table, d.meta,
-                               d.chrom_offsets, reads, lens_t, cfg,
-                               prefilter, rc=rc)
+    with span("launch"):
+        if d.ntable is not None:
+            return detect_batch_packed_fast(
+                d.words, d.nbases, d.table, d.ntable, d.meta,
+                d.chrom_offsets, reads, lens_t, cfg, prefilter, rc=rc)
+        return detect_batch_packed(d.words, d.nbases, d.table, d.meta,
+                                   d.chrom_offsets, reads, lens_t, cfg,
+                                   prefilter, rc=rc)
 
 
 def redo_if_overflow(dindex: DeviceIndex | None, res: dict, arr, lens,
@@ -328,14 +333,15 @@ class HostCopy:
     On the CPU the tensor is used as it is."""
 
     def __init__(self, packed: torch.Tensor) -> None:
-        if packed.device.type == "cuda":
-            self.host = torch.empty(packed.shape, dtype=packed.dtype,
-                                    pin_memory=True)
-            self.host.copy_(packed, non_blocking=True)
-            self.event = torch.cuda.Event()
-            self.event.record(torch.cuda.current_stream(packed.device))
-        else:
-            self.host, self.event = packed, None
+        with span("readback"):
+            if packed.device.type == "cuda":
+                self.host = torch.empty(packed.shape, dtype=packed.dtype,
+                                        pin_memory=True)
+                self.host.copy_(packed, non_blocking=True)
+                self.event = torch.cuda.Event()
+                self.event.record(torch.cuda.current_stream(packed.device))
+            else:
+                self.host, self.event = packed, None
 
     def numpy(self) -> np.ndarray:
         if self.event is not None:
@@ -436,7 +442,6 @@ def run_reads(dindex: DeviceIndex | None, reads, cfg: Config = Config(),
     disk; `times` (utils.profiling.StageTimes) collects per-stage wall
     time.
     """
-    import contextlib
     from collections import deque
 
     bs = batch_size or cfg.batch_size
@@ -454,14 +459,10 @@ def run_reads(dindex: DeviceIndex | None, reads, cfg: Config = Config(),
     # detect: (batch_id, batch_calls with None slots, slots, handle).
     finishing: deque = deque()
 
-    def timed(name):
-        return times.stage(name) if times is not None \
-            else contextlib.nullcontext()
-
     def finalize() -> None:
         this_id, batch_calls, route_slots, handle = finishing.popleft()
         if handle is not None:
-            with timed("explore_multihit"):
+            with timed(times, "explore_multihit"):
                 calls = explorer.fetch(handle)
             for slot, call in zip(route_slots, calls):
                 batch_calls[slot] = call
@@ -486,7 +487,7 @@ def run_reads(dindex: DeviceIndex | None, reads, cfg: Config = Config(),
         """A detect batch's calls: rescued reads re-called on the host
         now, routed reads dispatched to the explorer (their slots stay
         None until finalize)."""
-        with timed("device_detect"):
+        with timed(times, "device_detect"):
             res = redo_if_overflow(dindex, unpack_results(copy.numpy()),
                                    arr, blens, cfg, prefilter, redo)
         batch_calls: list[ReadCall] = []
@@ -515,21 +516,21 @@ def run_reads(dindex: DeviceIndex | None, reads, cfg: Config = Config(),
                     routed.append((name, seq))
                     batch_calls.append(None)
                     continue
-                with timed("slowpath_multihit"):
+                with timed(times, "slowpath_multihit"):
                     batch_calls.append(call_read_multi(
                         slowpath[0], slowpath[1], name, seq, cfg,
                         prefilter))
                 continue
             batch_calls.append(call_from_row(res, i, name, seq))
         if rescued:
-            with timed("slowpath_rescue"):
+            with timed(times, "slowpath_rescue"):
                 calls = call_reads_multi_batch(slowpath[0], slowpath[1],
                                                rescued, cfg, prefilter)
             for slot, call in zip(rescue_slots, calls):
                 batch_calls[slot] = call
         handle = None
         if routed:
-            with timed("explore_dispatch"):
+            with timed(times, "explore_dispatch"):
                 handle = explorer.dispatch(routed)
         return batch_calls, route_slots, handle
 
@@ -547,9 +548,9 @@ def run_reads(dindex: DeviceIndex | None, reads, cfg: Config = Config(),
                     f"input has {len(buf)}: input changed since journal")
             inflight.append((this_id, replay, None, None, None))
         else:
-            with timed("encode"):
+            with timed(times, "encode"):
                 arr, lens = encode_batch([seq for _, seq in buf], bs, Lp)
-            with timed("device_dispatch"):
+            with timed(times, "device_dispatch"):
                 copy = HostCopy(
                     dispatch(arr, lens) if dispatch is not None
                     else dispatch_packed(dindex, arr, lens, cfg, prefilter))

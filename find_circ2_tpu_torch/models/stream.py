@@ -15,6 +15,7 @@ from __future__ import annotations
 
 import gzip
 import os
+import time
 
 import numpy as np
 
@@ -32,6 +33,7 @@ from find_circ2_tpu_torch.models.pipeline import (
     DeviceExplorer, DeviceIndex, HostCopy, dispatch_packed, redo_if_overflow,
     revcomp_batch, unpack_results)
 from find_circ2_tpu_torch.utils.journal import FastBatch
+from find_circ2_tpu_torch.utils.profiling import count, timed
 
 CHUNK = 16 << 20  # bytes per read(2) chunk
 
@@ -46,7 +48,9 @@ class _RescuePool:
     worker must answer a ping within PING_S at start-up, or the run goes
     inline from the start instead of losing TIMEOUT_S on its first
     batch. Any failure (no fork, no answer, crash, timeout) permanently
-    falls back to in-process calls — results are identical either way."""
+    falls back to in-process calls — results are identical either way.
+    `fetch` gives the calls and the microseconds their computation took,
+    in the worker or inline."""
 
     TIMEOUT_S = 120.0
     PING_S = 10.0
@@ -77,9 +81,7 @@ class _RescuePool:
 
     def fetch(self, handle):
         if isinstance(handle, list):  # sync marker
-            genome, index, cfg, prefilter = self.args
-            return call_reads_multi_batch(genome, index, handle, cfg,
-                                          prefilter)
+            return _recall(*self.args, handle)
         try:
             return handle.get(timeout=self.TIMEOUT_S)
         except Exception:
@@ -107,9 +109,16 @@ def _rescue_ping() -> bool:
     return True
 
 
+def _recall(genome, index, cfg, prefilter: bool, items):
+    """The batched host re-calls of (name, seq) items, and the
+    microseconds they took."""
+    t0 = time.perf_counter()
+    calls = call_reads_multi_batch(genome, index, items, cfg, prefilter)
+    return calls, round(1e6 * (time.perf_counter() - t0))
+
+
 def _rescue_entry(items):
-    genome, index, cfg, prefilter = _RESCUE_STATE
-    return call_reads_multi_batch(genome, index, items, cfg, prefilter)
+    return _recall(*_RESCUE_STATE, items)
 
 
 def _iter_records(path):
@@ -169,7 +178,6 @@ def run_fastq(dindex: DeviceIndex | None, path, agg: Aggregator,
     stats cover its own batches; the caller sums them over the processes.
     The ranks together process each read once, and the junction merge is
     order-free, so the merged output equals a one-process run."""
-    import contextlib
     from collections import deque
 
     if not native.available():
@@ -183,38 +191,44 @@ def run_fastq(dindex: DeviceIndex | None, path, agg: Aggregator,
     if explore is None:
         explore = (slowpath is not None and dindex is not None
                    and dindex.ext is not None)
-    explorer = DeviceExplorer(dindex, cfg, prefilter) if explore else None
-    rpool = None
-    if (slowpath is not None and cfg.rescue_anchor_mm >= 2
-            and journal is None):
-        rpool = _RescuePool(slowpath[0], slowpath[1], cfg, prefilter)
-        if rpool.pool is None:
-            rpool = None
+    with timed(times, "stream_start"):
+        explorer = (DeviceExplorer(dindex, cfg, prefilter) if explore
+                    else None)
+        rpool = None
+        if (slowpath is not None and cfg.rescue_anchor_mm >= 2
+                and journal is None):
+            rpool = _RescuePool(slowpath[0], slowpath[1], cfg, prefilter)
+            if rpool.pool is None:
+                rpool = None
     # Batches whose host re-calls or explore programs are still running:
     # (batch_id, n_reads, counts, batch_calls, rescue_handle,
     #  multihit_handle, explore_handle, routed_hashes)
     finishing: deque = deque()
 
-    def timed(name):
-        return times.stage(name) if times is not None \
-            else contextlib.nullcontext()
+    def fetched(handle) -> list[ReadCall]:
+        """A host re-call handle's calls; the microseconds the worker
+        (or the inline fallback) spent on them go to the counter
+        `worker_us` of the stage around."""
+        calls, us = rpool.fetch(handle)
+        count("worker_us", us)
+        return calls
 
     def finalize() -> None:
         batch_id, n_reads, counts, batch_calls, rhandle, mhandle, \
             xhandle, rhashes = finishing.popleft()
         if rhandle is not None:
-            with timed("slowpath_rescue"):
-                batch_calls = batch_calls + rpool.fetch(rhandle)
+            with timed(times, "slowpath_rescue"):
+                batch_calls = batch_calls + fetched(rhandle)
         if mhandle is not None:
-            with timed("slowpath_multihit"):
-                batch_calls = batch_calls + rpool.fetch(mhandle)
+            with timed(times, "slowpath_multihit"):
+                batch_calls = batch_calls + fetched(mhandle)
         if xhandle is not None and rhashes is not None:
             # Array-mode explore: the rows aggregate through add_batch
             # with the hashes of the batch's encoded rows; the other
             # statuses are counted in bulk.
-            with timed("explore_multihit"):
+            with timed(times, "explore_multihit"):
                 resx = explorer.fetch_arrays(xhandle)
-            with timed("aggregate"):
+            with timed(times, "aggregate"):
                 st_x = resx["status"]
                 jm = st_x == ST_JUNCTION
                 agg.add_batch(resx, np.flatnonzero(jm), rhashes[jm])
@@ -224,9 +238,9 @@ def run_fastq(dindex: DeviceIndex | None, path, agg: Aggregator,
                 for st in np.unique(rest):
                     agg.stats.add_status(int(st), int((rest == st).sum()))
         elif xhandle is not None:
-            with timed("explore_multihit"):
+            with timed(times, "explore_multihit"):
                 batch_calls = batch_calls + explorer.fetch(xhandle)
-        with timed("aggregate"):
+        with timed(times, "aggregate"):
             for call in batch_calls:
                 agg.add(call)
         if journal is not None:
@@ -253,20 +267,21 @@ def run_fastq(dindex: DeviceIndex | None, path, agg: Aggregator,
         """Batched host re-call of (name, seq) items: a handle for
         finalize when the worker runs, else the calls now."""
         if rpool is not None:
-            with timed("rescue_dispatch"):
+            with timed(times, "rescue_dispatch"):
                 return rpool.submit(items), []
-        with timed(stage):
-            return None, call_reads_multi_batch(
-                slowpath[0], slowpath[1], items, cfg, prefilter)
+        with timed(times, stage):
+            calls, us = _recall(*slowpath, cfg, prefilter, items)
+            count("worker_us", us)
+            return None, calls
 
     def consume() -> None:
         batch_id, buf, spans, sel, copy, arr, blens = inflight.popleft()
-        with timed("device_detect"):
+        with timed(times, "device_detect"):
             res = redo_if_overflow(dindex, unpack_results(copy.numpy()),
                                    arr, blens, cfg, prefilter, redo)
         # The slow-path stages keep their own timers; "aggregate" must
         # not enclose them or the report double-counts.
-        with timed("aggregate"):
+        with timed(times, "aggregate"):
             status = res["status"][:sel.size]
             multi = res["multi"][:sel.size]
             # §2 2-mm anchor rescue [FROZEN v4] takes precedence over
@@ -349,11 +364,13 @@ def run_fastq(dindex: DeviceIndex | None, path, agg: Aggregator,
                 "slowpath_rescue")
             batch_calls.extend(calls)
         if array_explore:
-            with timed("explore_dispatch"):
+            with timed(times, "explore_dispatch"):
+                count("reads", int(ridx_route.size))
                 xhandle = explorer.dispatch_arrays(arr[ridx_route],
                                                    blens[ridx_route])
         elif explorer is not None and ridx_route.size:
-            with timed("explore_dispatch"):
+            with timed(times, "explore_dispatch"):
+                count("reads", int(ridx_route.size))
                 xhandle = explorer.dispatch(
                     [(read_name(i), read_seq(i)) for i in ridx_route])
         elif ridx_route.size:
@@ -371,7 +388,7 @@ def run_fastq(dindex: DeviceIndex | None, path, agg: Aggregator,
 
     def process(buf: bytes, spans: np.ndarray) -> None:
         nonlocal next_batch_id
-        with timed("encode"):
+        with timed(times, "encode"):
             lens_all = (spans[:, 3] - spans[:, 2]).astype(np.int64)
             short = lens_all < a2
             long_ = lens_all > Lp
@@ -392,15 +409,15 @@ def run_fastq(dindex: DeviceIndex | None, path, agg: Aggregator,
                 replay(done[batch_id], min(bs, ok_idx.size - lo))
                 continue
             sel = ok_idx[lo:lo + bs]
-            arr = np.full((bs, Lp), RPAD_CODE, np.uint8)
-            lens = np.zeros(bs, np.int32)
-            with timed("encode"):
+            with timed(times, "encode"):
+                arr = np.full((bs, Lp), RPAD_CODE, np.uint8)
+                lens = np.zeros(bs, np.int32)
                 native.encode_reads(buf, spans[sel, 2], spans[sel, 3],
                                     arr[:sel.size], lens[:sel.size],
                                     _CODE_LUT)
                 if revcomp:
                     arr = revcomp_batch(arr, lens)
-            with timed("device_dispatch"):
+            with timed(times, "device_dispatch"):
                 copy = HostCopy(
                     dispatch(arr, lens) if dispatch is not None
                     else dispatch_packed(dindex, arr, lens, cfg, prefilter))
@@ -413,7 +430,7 @@ def run_fastq(dindex: DeviceIndex | None, path, agg: Aggregator,
     try:
         it = _iter_records(path)
         while True:
-            with timed("read_parse"):
+            with timed(times, "read_parse"):
                 item = next(it, None)
             if item is None:
                 break
@@ -423,5 +440,6 @@ def run_fastq(dindex: DeviceIndex | None, path, agg: Aggregator,
         while finishing:
             finalize()
     finally:
-        if rpool is not None:
-            rpool.close()
+        with timed(times, "stream_stop"):
+            if rpool is not None:
+                rpool.close()

@@ -55,6 +55,7 @@ from find_circ2_tpu_torch.ops.detect import (PACK_FIELDS, detect_core,
 from find_circ2_tpu_torch.ops.merge import (ALL_FIELDS, merge_junctions,
                                             merge_tables)
 from find_circ2_tpu_torch.ops.packed import pack_words
+from find_circ2_tpu_torch.utils.profiling import span
 
 
 def _data_axes(mesh) -> tuple[str, ...]:
@@ -141,11 +142,13 @@ class ShardedEngine:
             raise ValueError(f"batch of {reads.shape[0]} does not split over "
                              f"{n} data rows")
         per = reads.shape[0] // n
-        rc = revcomp_batch(reads, lens)
-        return [(row, *(torch.from_numpy(np.ascontiguousarray(
-                        x[r * per:(r + 1) * per])).to(row.device)
-                        for x in (reads, lens, rc)))
-                for r, row in enumerate(self.rows)]
+        with span("revcomp"):
+            rc = revcomp_batch(reads, lens)
+        with span("upload"):
+            return [(row, *(torch.from_numpy(np.ascontiguousarray(
+                            x[r * per:(r + 1) * per])).to(row.device)
+                            for x in (reads, lens, rc)))
+                    for r, row in enumerate(self.rows)]
 
     def _align_row(self, row: _Row, reads, lens, classic: bool):
         """One data row's K1 over its index shards: (hits_a, hits_b,
@@ -186,9 +189,11 @@ class ShardedEngine:
 
     def _packed(self, reads, lens, classic: bool) -> torch.Tensor:
         dev = self.rows[0].device
-        return torch.cat([self._packed_row(*part, classic=classic)
-                          .to(dev, non_blocking=True)
-                          for part in self._split(reads, lens)])
+        parts = self._split(reads, lens)
+        with span("launch"):
+            return torch.cat([self._packed_row(*part, classic=classic)
+                              .to(dev, non_blocking=True)
+                              for part in parts])
 
     def detect(self, reads: np.ndarray, lens: np.ndarray) -> dict:
         """reads uint8 [B, Lp], lens int32 [B]; B % n_data == 0. The

@@ -2,30 +2,45 @@
 
 The reference offers only ad-hoc progress counters (SURVEY.md §5); here
 every pipeline stage is timed and the north-star reads/s figure
-(BASELINE.json:2) is first-class. `torch_trace` wraps torch.profiler for
-host and device traces.
+(BASELINE.json:2) is first-class.
+
+Spans nest by context: while `StageTimes.stage(name)` runs, that
+recorder and the span's key are the current span, and code below it
+opens a child with `span(name)`, keyed `<parent key>/<name>`, or adds
+to a counter with `count(name, n)`, keyed the same way, without being
+handed the recorder. With no current span both do nothing.
 """
 
 from __future__ import annotations
 
 import contextlib
+import contextvars
 import time
 from dataclasses import dataclass, field
+
+# (recorder, key) of the innermost open stage or span, or None.
+_CURRENT: contextvars.ContextVar = contextvars.ContextVar(
+    "fc2t_current_span", default=None)
+_NULL = contextlib.nullcontext()
 
 
 @dataclass
 class StageTimes:
+    """Seconds (`totals`) and entries (`counts`) of each stage and span
+    by key, and the counters (in `counts` only)."""
     totals: dict = field(default_factory=dict)
     counts: dict = field(default_factory=dict)
     n_reads: int = 0
 
     @contextlib.contextmanager
     def stage(self, name: str):
+        token = _CURRENT.set((self, name))
         t0 = time.perf_counter()
         try:
             yield
         finally:
             dt = time.perf_counter() - t0
+            _CURRENT.reset(token)
             self.totals[name] = self.totals.get(name, 0.0) + dt
             self.counts[name] = self.counts.get(name, 0) + 1
 
@@ -33,18 +48,33 @@ class StageTimes:
         self.n_reads += n
 
     def report(self, wall: float | None = None) -> str:
-        """Stage table, most expensive first.
+        """Stage table, most expensive first; each span's children below
+        it, indented, most expensive first, then its counters.
 
         With `wall` (end-to-end seconds measured by the caller), a
-        residual line shows how much wall time the stage timers do NOT
+        residual line shows how much wall time the root stages do NOT
         cover — so untimed cost can never hide (VERDICT r3 weak #2) —
         and reads_per_s is computed over the true wall, not the timed
         subtotal."""
         lines = []
-        total = sum(self.totals.values())
-        for name, t in sorted(self.totals.items(),
-                              key=lambda kv: -kv[1]):
-            lines.append(f"{name}\t{t:.3f}s\t{self.counts[name]}x")
+        spans = sorted(self.totals.items(), key=lambda kv: -kv[1])
+        counters = sorted(k for k in self.counts if k not in self.totals)
+
+        def parent(key: str) -> str:
+            p = key.rpartition("/")[0]
+            return p if p in self.totals else ""
+
+        def emit(under: str, indent: str) -> None:
+            for name, t in spans:
+                if parent(name) == under:
+                    lines.append(f"{indent}{name}\t{t:.3f}s\t"
+                                 f"{self.counts[name]}x")
+                    emit(name, indent + "  ")
+            for name in counters:
+                if parent(name) == under:
+                    lines.append(f"{indent}{name}\t{self.counts[name]}")
+        emit("", "")
+        total = sum(t for k, t in self.totals.items() if "/" not in k)
         if wall is not None:
             resid = wall - total
             lines.append(f"wall\t{wall:.3f}s\tuntimed residual "
@@ -55,22 +85,29 @@ class StageTimes:
         return "\n".join(lines)
 
 
-@contextlib.contextmanager
-def torch_trace(logdir: str | None):
-    """Wrap a block in a torch.profiler trace of the host and, where a
-    CUDA card is present, the device, when logdir is given; the Chrome
-    trace goes to `logdir/trace.json`."""
-    if not logdir:
-        yield
-        return
-    import os
+def timed(times: StageTimes | None, name: str):
+    """`times.stage(name)`, or a block that records nothing where
+    `times` is None."""
+    return _NULL if times is None else times.stage(name)
 
-    import torch
-    from torch.profiler import ProfilerActivity, profile
-    activities = [ProfilerActivity.CPU]
-    if torch.cuda.is_available():
-        activities.append(ProfilerActivity.CUDA)
-    os.makedirs(logdir, exist_ok=True)
-    with profile(activities=activities) as prof:
-        yield
-    prof.export_chrome_trace(os.path.join(logdir, "trace.json"))
+
+def span(name: str):
+    """A child of the current span, `<parent key>/<name>`, timed by the
+    parent's recorder; a block that records nothing outside any span."""
+    cur = _CURRENT.get()
+    if cur is None:
+        return _NULL
+    rec, key = cur
+    return rec.stage(f"{key}/{name}")
+
+
+def count(name: str, n: int = 1) -> None:
+    """Add n to the current span's counter `<parent key>/<name>` (in the
+    recorder's `counts`, never in its `totals`); nothing outside any
+    span."""
+    cur = _CURRENT.get()
+    if cur is None:
+        return
+    rec, key = cur
+    k = f"{key}/{name}"
+    rec.counts[k] = rec.counts.get(k, 0) + n

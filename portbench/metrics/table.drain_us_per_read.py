@@ -1,0 +1,13 @@
+"""The group-by of the batched junction summaries into the junction table
+(models/aggregate.Aggregator._drain_batches): microseconds of the
+`pass.rows/drain` span (StageTimes, host clock) over the measured
+window, per library read. 0 where the span's parent never ran; nothing
+where the program times no such span."""
+
+
+def read(run):
+    if "pass.rows" not in run.stage_s:
+        return 0.0
+    if "pass.rows/drain" not in run.stage_s:
+        return None
+    return 1e6 * run.stage_s["pass.rows/drain"] / run.reads

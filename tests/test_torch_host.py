@@ -8,7 +8,6 @@ False)."""
 
 import dataclasses
 import io
-import json
 import os
 
 import numpy as np
@@ -434,15 +433,6 @@ def test_stage_times_report():
         t.add_reads(12345)
         reports.append((t.report(), t.report(wall=2.0)))
     assert reports[0] == reports[1]
-
-
-def test_torch_trace_writes_a_chrome_trace(tmp_path):
-    with pprofiling.torch_trace(str(tmp_path / "trace")):
-        torch.arange(1000).sum()
-    with open(tmp_path / "trace" / "trace.json") as fh:
-        assert "traceEvents" in json.load(fh)
-    with pprofiling.torch_trace(None):
-        pass
 
 
 def _cli_args(which, tmp_path):
