@@ -1346,29 +1346,27 @@ def detect_inputs(d, arr, lens, cfg) -> tuple:
     ntable, meta, stacked anchors) and detect_core_packed's arguments
     before `cfg`, with K1 v4's hits and overflow flag."""
     import torch
-    from find_circ2_tpu_torch.models.pipeline import revcomp_batch
     from find_circ2_tpu_torch.ops.anchor_align import (
         align_anchor_pair_fast, read_anchors)
     dev = d.device
     reads = torch.from_numpy(arr).to(dev)
     lens_t = torch.from_numpy(lens).to(dev)
-    rc = torch.from_numpy(revcomp_batch(arr, lens)).to(dev)
     anchors_a, anchors_b = read_anchors(reads, lens_t, cfg)
     hits_a, hits_b, overflow = align_anchor_pair_fast(
         d.table, d.ntable, d.meta, anchors_a, anchors_b, cfg)
     return ((d.table, d.ntable, d.meta, torch.cat([anchors_a, anchors_b])),
-            (d.words, d.nbases, d.chrom_offsets, reads, lens_t, rc, hits_a,
+            (d.words, d.nbases, d.chrom_offsets, reads, lens_t, hits_a,
              hits_b, overflow))
 
 
 def _first_rows(core_args, m: int) -> tuple:
     """detect_core_packed's arguments cut to their first m reads."""
     from find_circ2_tpu_torch.ops.anchor_align import AnchorHits
-    words, nbases, offsets, reads, lens, rc, ha, hb, overflow = core_args
+    words, nbases, offsets, reads, lens, ha, hb, overflow = core_args
 
     def cut(t):
         return t[:m].contiguous()
-    return (words, nbases, offsets, cut(reads), cut(lens), cut(rc),
+    return (words, nbases, offsets, cut(reads), cut(lens),
             AnchorHits(*map(cut, ha)), AnchorHits(*map(cut, hb)), overflow)
 
 
@@ -1417,19 +1415,24 @@ def detect_bounds(exact_args, core_args, cfg, prefilter: bool,
     read once, each output written once) and its int32 operations over
     the SMs' 32-bit rate. Probe: the anchors, four 32-byte rows an anchor,
     meta, 30 output bytes an anchor; EXACT_OPS_PER_ANCHOR an anchor. Core:
-    the bases [0, len) of each read and of its reverse complement, the
-    lengths, both anchors' five hit fields, each read's two K2 windows of
-    len + 2 bases and (prefilter on) two prefilter windows of len bases,
+    the bases [0, len) of each read twice, as the read and as its reverse
+    complement (the kernel builds the second from the read's row; the
+    count stays as portbench/yardstick/bounds.py froze it), the lengths,
+    both anchors' five hit fields, each read's two K2 windows of len + 2
+    bases and (prefilter on) two prefilter windows of len bases,
     half a byte a base (rows of length 0 need none), the chromosome
     offsets, the overflow flag, the [B, 14] rows; DETECT_OPS_PER_SPLIT for
     every valid split. With `row_rate` (random 32-byte rows a second, as
     gather_rows moved them in this run) also the probe's random-row
     floor: its 4 n rows at that rate, which says how far its bytes bound
-    is reachable (the bytes bound stays the bound)."""
+    is reachable (the bytes bound stays the bound). `core_args` are
+    detect_core_packed's arguments; portbench/tests pass them with a
+    reverse complement after `lens`, which is not read."""
     import torch
     table, ntable, meta, anchors = exact_args
     n, a = anchors.shape
-    words, nbases, offsets, reads, lens, rc, ha, hb, overflow = core_args
+    offsets, reads, lens = core_args[2:5]
+    ha = core_args[-3]
     B, Lp = reads.shape
     row = 4 * table.shape[1]
     out = {}
@@ -1555,17 +1558,16 @@ def check_detect(dindex, batches, genome, cfg, card,
     arr, lens, prefilter = batches[0]
     small = dataclasses.replace(cfg, exact_fallback_slots=REDO_SLOTS)
     reads, lens_t = (torch.from_numpy(x).to(dev) for x in (arr, lens))
-    rc = torch.from_numpy(tpipe.revcomp_batch(arr, lens)).to(dev)
 
     def fast(c):
         return tpipe.detect_batch_packed_fast(
             d.words, d.nbases, d.table, d.ntable, d.meta, d.chrom_offsets,
-            reads, lens_t, c, prefilter, rc)
+            reads, lens_t, c, prefilter)
 
     def classic():
         return tpipe.detect_batch_packed(
             d.words, d.nbases, d.table, d.meta, d.chrom_offsets, reads,
-            lens_t, cfg, prefilter, rc)
+            lens_t, cfg, prefilter)
 
     before = td.launches
     rows = {"forced": fast(small), "classic": classic(), "fast": fast(cfg)}
@@ -2517,7 +2519,7 @@ def _record_inputs(sh, batches, eng, cfg) -> tuple:
     from find_circ2_tpu_torch.ops import anchor_align as ta
     sets, exact, hits, idx, slot, full = [], [], [], [], [], []
     for arr, lens in batches:
-        _, reads, lens_t, _ = eng._split(arr, lens)[0]
+        _, reads, lens_t = eng._split(arr, lens)[0]
         both = torch.cat(ta.read_anchors(reads, lens_t, cfg))
         k = min(cfg.exact_fallback_slots, both.shape[0])
         e = torch.stack([ta.exact_records(*s[:3], both, cfg, owns=s.owns)

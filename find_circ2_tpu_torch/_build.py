@@ -188,11 +188,11 @@ GATHER_ARGS = struct.Struct("<5Q2qQ4i")
 # anchor_len, prefilter_mm, pair_rescue, prefilter, device.
 EXPLORE_ARGS = struct.Struct("<25Qq10i")
 
-# csrc/detect.cu's DetectArgs: words, chrom_offsets, reads, rc, lens, out,
+# csrc/detect.cu's DetectArgs: words, chrom_offsets, reads, lens, out,
 # overflow, then per anchor (A, B) pos, strand, aligned, n_best, qual;
 # stream, nbases; then B, Lp, n_chroms, anchor_len, prefilter_mm,
 # prefilter, device, reserved.
-DETECT_ARGS = struct.Struct("<18Qq8i")
+DETECT_ARGS = struct.Struct("<17Qq8i")
 
 # csrc/exact_stats.cu's ExactArgs: anchors, table, ntable, meta, then the
 # outputs aligned, pos, strand, mm, n_best, second_mm, qual, resolved,

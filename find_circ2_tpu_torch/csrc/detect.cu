@@ -16,21 +16,27 @@
 // windows and [B, Lp+1] split grids.
 //
 // What bounds it on this card. A 4096-read batch moves about 3 MB (the
-// reads and their reverse complements, the hit fields, four windows of
-// its length a read, the [B, 14] rows): under a microsecond at 3.35
-// TB/s. Its arithmetic, about a dozen 32-bit operations for each valid
-// split, is less. chip_smoke.py computes both from each run's shapes.
-// What a read waits for is latency: its hit fields, then the genome
-// windows at its anchors' positions, two dependent round trips that no
-// design removes. The windows are data-dependent gathers of a few dozen
-// bytes, so neither tensor cores nor TMA apply; what the design does:
+// reads, the hit fields, four windows of its length a read, the [B, 14]
+// rows): under a microsecond at 3.35 TB/s. Its arithmetic, about a dozen
+// 32-bit operations for each valid split, is less. chip_smoke.py computes
+// both from each run's shapes. What a read waits for is latency: its hit
+// fields, then the genome windows at its anchors' positions, two
+// dependent round trips that no design removes. The windows are
+// data-dependent gathers of a few dozen bytes, so neither tensor cores
+// nor TMA apply; what the design does:
 //
 //  - Two round trips a read, no more. The first issues every load that
 //    needs no position: the length, all ten hit fields, the overflow
-//    flag, and the first round's read and reverse-complement bases as
-//    4-byte words (any row alignment). The second issues the four
-//    windows' nibble words (csrc/nibbles.cuh's format) and, with them,
-//    both anchors' chromosome lookups, a kGroup-way search by ballot.
+//    flag, and the first round's read bases as 4-byte words (any row
+//    alignment). The second issues the four windows' nibble words
+//    (csrc/nibbles.cuh's format), the first round's reverse-complement
+//    bases and, with them, both anchors' chromosome lookups, a
+//    kGroup-way search by ballot.
+//  - The reverse complement is no input: a lane reads its eight
+//    reverse-complement bases as the read's bases len-8-k0 .. len-1-k0
+//    (rc_nibbles), from the row the group already loads, so they come
+//    from L1, and reverses and complements them in registers. The host
+//    computes and uploads nothing for it.
 //  - kReadsPerWarp reads a warp: lane g of a read's group takes splits
 //    8g .. 8g+7 of each round, and a read takes as many rounds as its
 //    length needs (one up to 8 kGroup bases), so lanes do not idle on
@@ -79,8 +85,7 @@ struct DetectArgs {
     const int32_t* words;          // nibble-packed genome (ops/packed.py)
     const int64_t* chrom_offsets;  // [n_chroms], ascending
     const uint8_t* reads;          // [B, Lp] codes
-    const uint8_t* rc;             // [B, Lp] reverse complements
-    const int32_t* lens;           // [B]
+    const int32_t* lens;           // [B], each in [0, Lp]
     int32_t* out;                  // [B, 14], PACK_FIELDS order
     const uint8_t* overflow;       // 0-d bool: multi bit 3, or null
     DetectAnchor anchor[2];        // anchors A and B
@@ -89,7 +94,7 @@ struct DetectArgs {
     int B, Lp, n_chroms, anchor_len, prefilter_mm, prefilter, device,
         reserved;
 };
-static_assert(sizeof(DetectArgs) == 184, "layout packed by ops/detect");
+static_assert(sizeof(DetectArgs) == 176, "layout packed by ops/detect");
 
 // Built with FC2T_DETECT_STAMPS (ops/detect.detect_stage_cycles), lane 0
 // of each warp records its SM clock at the start and after each stage,
@@ -160,6 +165,24 @@ __device__ __forceinline__ uint32_t row_nibbles(const uint8_t* row, int p,
     // Codes < 16: byte 0 of y is code 0 | code 1 << 4, byte 2 code 2 |
     // code 3 << 4.
     return __byte_perm(lo | lo >> 4, hi | hi >> 4, 0x6420);
+}
+
+// Bases k0 .. k0+7 (0 <= k0 < n) of the reverse complement of a read of
+// n <= Lp bases, as nibbles, base k0 lowest, from the read's own row:
+// base k is the complement of read base n-1-k, so the word is read
+// bases p .. p+7, p = n-8-k0, in reverse order. Where p < 0 (the read's
+// first bases, the reverse complement's last) it is the row's first
+// eight, reversed and shifted right by 4 * -p <= 28. A, C, G and T
+// complement as c ^ 3; N and the padding stay. Bases at or past n are
+// anything (row_nibbles' contract).
+__device__ __forceinline__ uint32_t rc_nibbles(const uint8_t* row, int n,
+                                               int k0, int Lp) {
+    const int p = n - 8 - k0;
+    uint32_t w = row_nibbles(row, p > 0 ? p : 0, Lp);
+    w = __byte_perm(w, 0, 0x0123);                       // bytes reversed
+    w = (w >> 4 & 0x0f0f0f0fu) | (w & 0x0f0f0f0fu) << 4;  // nibbles too
+    if (p < 0) w >>= 4 * -p;
+    return w ^ 3u * (~(w >> 2) & 0x11111111u);
 }
 
 // A lane's nibble words of one genome window that starts at base s: the
@@ -283,14 +306,12 @@ detect_kernel(const __grid_constant__ DetectArgs a) {
     const int Lp = a.Lp, al = a.anchor_len;
     const uint32_t ua = (uint32_t)al;
     const uint8_t* read = a.reads + (size_t)b * Lp;
-    const uint8_t* rcrow = a.rc + (size_t)b * Lp;
     const DetectAnchor& A = a.anchor[0];
     const DetectAnchor& Bn = a.anchor[1];
     const auto* words = reinterpret_cast<const uint32_t*>(a.words);
 
     // The first round trip: everything that does not depend on a
-    // position, the first round's read and reverse-complement bases
-    // included.
+    // position or the length, the first round's read bases included.
     const int len = a.lens[b];
     const long long pos_a = A.pos[b], pos_b = Bn.pos[b];
     const int str_a = A.strand[b], str_b = Bn.strand[b];
@@ -299,16 +320,13 @@ detect_kernel(const __grid_constant__ DetectArgs a) {
     const int qual_a = A.qual[b], qual_b = Bn.qual[b];
     const int overflow = a.overflow ? (a.overflow[0] != 0) : 0;
     uint32_t qf = 0, qr = 0;
-    if (8 * gl < Lp) {
-        qf = row_nibbles(read, 8 * gl, Lp);
-        qr = row_nibbles(rcrow, 8 * gl, Lp);
-    }
+    if (8 * gl < Lp) qf = row_nibbles(read, 8 * gl, Lp);
 #ifdef FC2T_DETECT_STAMPS
     {
         const unsigned dep = __reduce_xor_sync(
             kFull, (unsigned)(len ^ pos_a ^ pos_b ^ str_a ^ str_b ^ al_a ^
                               al_b ^ nb_a ^ nb_b ^ qual_a ^ qual_b ^
-                              overflow) ^ qf ^ qr);
+                              overflow) ^ qf);
         if (lane == 0) DSTAMP(at + 1, dep);
     }
 #endif
@@ -345,6 +363,7 @@ detect_kernel(const __grid_constant__ DetectArgs a) {
     // whatever the length: the signal of a read without a valid split is
     // that of split 0.
     const int lim = len < Lp ? len : Lp;
+    if (8 * gl < lim) qr = rc_nibbles(read, lim, 8 * gl, Lp);
     const int kmax = len - al < Lp ? len - al : Lp;
     const int span = lim > kmax + 1 ? lim : kmax + 1;  // k0 < span matter
     const int rounds = __reduce_max_sync(
@@ -368,7 +387,7 @@ detect_kernel(const __grid_constant__ DetectArgs a) {
     {
         const unsigned dep = __reduce_xor_sync(
             kFull, ga.x0 ^ ga.x1 ^ ga.x2 ^ gb.x0 ^ gb.x1 ^ gb.x2 ^ wpa.x0 ^
-                       wpa.x1 ^ wpb.x0 ^ wpb.x1 ^ chrom_a ^ chrom_b);
+                       wpa.x1 ^ wpb.x0 ^ wpb.x1 ^ chrom_a ^ chrom_b ^ qr);
         if (lane == 0) DSTAMP(at + 2, dep);
     }
 #endif
@@ -388,7 +407,7 @@ detect_kernel(const __grid_constant__ DetectArgs a) {
             qf = qr = 0;
             if (k0 < lim) {
                 qf = row_nibbles(read, k0, Lp);
-                qr = row_nibbles(rcrow, k0, Lp);
+                qr = rc_nibbles(read, lim, k0, Lp);
             }
             if (k0 < span) {
                 ga = load_win(words, sA, m, 1);
@@ -573,8 +592,8 @@ detect_kernel(const __grid_constant__ DetectArgs a) {
 extern "C" int fc2t_detect(const DetectArgs* a) {
     if (a->B <= 0) return 0;
     // Packed split keys ((2 Lp) * 8 + 6) * (Lp + 2) + Lp stay below 2^31.
-    if (a->rc == nullptr || a->Lp < 1 || a->Lp > 4096 || a->n_chroms < 1 ||
-        a->nbases < a->Lp + 2)
+    if (a->reads == nullptr || a->Lp < 1 || a->Lp > 4096 ||
+        a->n_chroms < 1 || a->nbases < a->Lp + 2)
         return -(int)cudaErrorInvalidValue;
     int dev = -1;
     cudaError_t err = cudaGetDevice(&dev);

@@ -154,7 +154,10 @@ def encode_batch(seqs, rows: int, Lp: int):
 
 
 def revcomp_batch(arr: np.ndarray, lens: np.ndarray) -> np.ndarray:
-    """Host-side left-aligned reverse complement of an encoded batch."""
+    """Host-side left-aligned reverse complement of an encoded batch. No
+    detect path calls it (the detect kernel and ops/detect's plain
+    version build the reverse complement themselves); `--pe`'s second
+    mates (models/stream.run_fastq) and the tests do."""
     Lp = arr.shape[1]
     pos = np.arange(Lp, dtype=np.int64)[None, :]
     idx = np.clip(lens[:, None] - 1 - pos, 0, Lp - 1)
@@ -209,8 +212,8 @@ def detect_batch_phased(dindex: "DeviceIndex", reads, lens, cfg: Config,
 
 
 def detect_batch_packed(words, nbases: int, table, meta, chrom_offsets,
-                        reads, lens, cfg: Config, prefilter: bool,
-                        rc) -> torch.Tensor:
+                        reads, lens, cfg: Config,
+                        prefilter: bool) -> torch.Tensor:
     """Full classic detection step (enumeration K1) -> int32 [B, 14]."""
     with record_function("read_anchors"):
         anchors_a, anchors_b = read_anchors(reads, lens, cfg)
@@ -219,12 +222,12 @@ def detect_batch_packed(words, nbases: int, table, meta, chrom_offsets,
                                            anchors_b, cfg)
     with record_function("detect_core"):
         return detect_core_packed(words, nbases, chrom_offsets, reads, lens,
-                                  rc, hits_a, hits_b, None, cfg, prefilter)
+                                  hits_a, hits_b, None, cfg, prefilter)
 
 
 def detect_batch_packed_fast(words, nbases: int, table, ntable, meta,
                              chrom_offsets, reads, lens, cfg: Config,
-                             prefilter: bool, rc) -> torch.Tensor:
+                             prefilter: bool) -> torch.Tensor:
     """detect_batch_packed on the K1 v4 exact-first path. Identical rows,
     except that `multi` bit 3 carries the batch-wide fallback-overflow
     flag: when set, the batch's fast-path statistics are not to be
@@ -237,19 +240,15 @@ def detect_batch_packed_fast(words, nbases: int, table, ntable, meta,
         table, ntable, meta, anchors_a, anchors_b, cfg)
     with record_function("detect_core"):
         return detect_core_packed(words, nbases, chrom_offsets, reads, lens,
-                                  rc, hits_a, hits_b, overflow, cfg,
-                                  prefilter)
+                                  hits_a, hits_b, overflow, cfg, prefilter)
 
 
 def _to_device(dindex: DeviceIndex, arr: np.ndarray, lens: np.ndarray):
     dev = dindex.device
-    with span("revcomp"):
-        rc = revcomp_batch(np.asarray(arr), np.asarray(lens))
     with span("upload"):
         return (torch.from_numpy(np.ascontiguousarray(arr)).to(dev),
                 torch.from_numpy(np.ascontiguousarray(lens, np.int32))
-                .to(dev),
-                torch.from_numpy(rc).to(dev))
+                .to(dev))
 
 
 def dispatch_packed(dindex: DeviceIndex, arr, lens, cfg: Config,
@@ -259,15 +258,15 @@ def dispatch_packed(dindex: DeviceIndex, arr, lens, cfg: Config,
     otherwise. Returns the packed rows without waiting; pair with
     `redo_if_overflow` when they are read."""
     d = dindex
-    reads, lens_t, rc = _to_device(d, arr, lens)
+    reads, lens_t = _to_device(d, arr, lens)
     with span("launch"):
         if d.ntable is not None:
             return detect_batch_packed_fast(
                 d.words, d.nbases, d.table, d.ntable, d.meta,
-                d.chrom_offsets, reads, lens_t, cfg, prefilter, rc=rc)
+                d.chrom_offsets, reads, lens_t, cfg, prefilter)
         return detect_batch_packed(d.words, d.nbases, d.table, d.meta,
                                    d.chrom_offsets, reads, lens_t, cfg,
-                                   prefilter, rc=rc)
+                                   prefilter)
 
 
 def redo_if_overflow(dindex: DeviceIndex | None, res: dict, arr, lens,
@@ -285,10 +284,10 @@ def redo_if_overflow(dindex: DeviceIndex | None, res: dict, arr, lens,
     if dindex is None or dindex.ntable is None:
         return res
     d = dindex
-    reads, lens_t, rc = _to_device(d, arr, lens)
+    reads, lens_t = _to_device(d, arr, lens)
     packed = detect_batch_packed(d.words, d.nbases, d.table, d.meta,
                                  d.chrom_offsets, reads, lens_t, cfg,
-                                 prefilter, rc=rc)
+                                 prefilter)
     return unpack_results(packed.cpu().numpy())
 
 

@@ -8,11 +8,13 @@ both anchor placements, pairing and strand canonicalization, its
 chromosome, K2's best split over two (Lp+2)-wide genome windows, the
 frozen status priority and `multi`, as one int32 row in PACK_FIELDS
 order. On the card that is one hand-written CUDA kernel per batch
-(csrc/detect.cu, sixteen lanes per read; its header says why); a CPU
-tensor takes the plain version, `detect_core_packed_ref` (`detect_core`,
-then `_pack`). `detect_core` is also the unpacked entries' core. The
-fallback-overflow flag of K1 v4 is a 0-d device bool that the kernel ORs
-into `multi` bit 3, so no host sync is added.
+(csrc/detect.cu, sixteen lanes per read; its header says why), which
+builds each read's reverse complement from the read's own row; a CPU
+tensor takes the plain version, `detect_core_packed_ref` (`detect_core`
+on the reverse complements of `_revcomp_device`, then `_pack`).
+`detect_core` is also the unpacked entries' core. The fallback-overflow
+flag of K1 v4 is a 0-d device bool that the kernel ORs into `multi` bit
+3, so no host sync is added.
 """
 
 from __future__ import annotations
@@ -54,8 +56,8 @@ _HIT_FIELDS = (("pos", torch.int64), ("strand", torch.int32),
 
 
 def _revcomp_device(reads: torch.Tensor, lens: torch.Tensor) -> torch.Tensor:
-    """models/pipeline.revcomp_batch on the device, for callers without
-    a host batch."""
+    """models/pipeline.revcomp_batch on the tensors' device: each read's
+    left-aligned reverse complement, RPAD past its length."""
     Lp = reads.shape[1]
     pos = torch.arange(Lp, device=reads.device)[None, :]
     lens = lens.to(torch.int64)[:, None]
@@ -81,8 +83,8 @@ def detect_core(words, nbases: int, chrom_offsets, reads, lens, hits_a,
     Row status follows the oracle's priority order exactly [FROZEN]:
     prefiltered > unaligned_A > unaligned_B > diff_strand > diff_chrom >
     anchors_overlap > no_junction > junction. `rc` is each read's
-    left-aligned reverse complement: revcomp_batch, computed on the host,
-    on the streaming paths; None builds it on the device.
+    left-aligned reverse complement (revcomp_batch); None builds it with
+    `_revcomp_device`.
     """
     if rc is None:
         rc = _revcomp_device(reads, lens)
@@ -170,27 +172,27 @@ def _pack(res: dict) -> torch.Tensor:
 
 
 def detect_core_packed_ref(words, nbases: int, chrom_offsets, reads, lens,
-                           rc, hits_a, hits_b, overflow, cfg: Config,
+                           hits_a, hits_b, overflow, cfg: Config,
                            prefilter: bool) -> torch.Tensor:
-    """Plain version of detect_core_packed: detect_core, the overflow
-    flag ORed into `multi` bit 3, and the packing."""
+    """Plain version of detect_core_packed: detect_core on the reverse
+    complements `_revcomp_device` builds, the overflow flag ORed into
+    `multi` bit 3, and the packing."""
     res = detect_core(words, nbases, chrom_offsets, reads, lens, hits_a,
-                      hits_b, cfg, prefilter, rc)
+                      hits_b, cfg, prefilter)
     if overflow is not None:
         res["multi"] = res["multi"] | (overflow.to(torch.int32) << 3)
     return _pack(res)
 
 
-def _check(words, nbases: int, chrom_offsets, reads, lens, rc, hits_a,
-           hits_b, overflow) -> list:
+def _check(words, nbases: int, chrom_offsets, reads, lens, hits_a, hits_b,
+           overflow) -> list:
     """Every tensor the kernel reads, in DetectArgs order (None for an
     absent overflow), after checking that it is what the kernel takes;
     raises otherwise."""
     B, Lp = reads.shape
     want = [(words, torch.int32, (words.shape[0],)),
             (chrom_offsets, torch.int64, (chrom_offsets.shape[0],)),
-            (reads, torch.uint8, (B, Lp)),
-            (rc, torch.uint8, (B, Lp)), (lens, torch.int32, (B,)),
+            (reads, torch.uint8, (B, Lp)), (lens, torch.int32, (B,)),
             (overflow, torch.bool, ())]
     for hits in (hits_a, hits_b):
         want += [(getattr(hits, f), dt, (B,)) for f, dt in _HIT_FIELDS]
@@ -224,23 +226,19 @@ def _check(words, nbases: int, chrom_offsets, reads, lens, rc, hits_a,
     return [t for t, _, _ in want]
 
 
-def detect_core_packed(words, nbases: int, chrom_offsets, reads, lens, rc,
+def detect_core_packed(words, nbases: int, chrom_offsets, reads, lens,
                        hits_a, hits_b, overflow, cfg: Config,
                        prefilter: bool = True) -> torch.Tensor:
-    """Detect's core after K1 as int32 [B, 14] rows in PACK_FIELDS order. `reads` uint8 [B, Lp], `lens` int32 [B], `rc` each
-    read's left-aligned reverse complement (uint8 [B, Lp];
-    models/pipeline.revcomp_batch), `hits_a`/`hits_b` the anchors'
-    AnchorHits, `overflow` a 0-d bool ORed into `multi` bit 3 (or None).
-    CPU tensors take the plain version; CUDA tensors launch
-    csrc/detect.cu on the current stream (one launch, no wait) or
-    raise."""
-    if rc is None:
-        raise ValueError("detect_core_packed: rc is required (each read's "
-                         "reverse complement, models/pipeline."
-                         "revcomp_batch)")
-    args = (words, nbases, chrom_offsets, reads, lens, rc, hits_a, hits_b,
+    """Detect's core after K1 as int32 [B, 14] rows in PACK_FIELDS order.
+    `reads` uint8 [B, Lp], `lens` int32 [B] (each in [0, Lp]),
+    `hits_a`/`hits_b` the anchors' AnchorHits, `overflow` a 0-d bool ORed
+    into `multi` bit 3 (or None). Each read's reverse complement is built
+    from its row, by the kernel as by the plain version. CPU tensors take
+    the plain version; CUDA tensors launch csrc/detect.cu on the current
+    stream (one launch, no wait) or raise."""
+    args = (words, nbases, chrom_offsets, reads, lens, hits_a, hits_b,
             overflow)
-    tensors = [t for t in (words, chrom_offsets, reads, lens, rc, overflow,
+    tensors = [t for t in (words, chrom_offsets, reads, lens, overflow,
                            *hits_a, *hits_b) if t is not None]
     if all(t.is_cpu for t in tensors):
         return detect_core_packed_ref(*args, cfg, prefilter)
@@ -264,7 +262,7 @@ def _launch(args: tuple, cfg: Config, prefilter: bool,
     lib = lib or _build.load()
     with torch.cuda.device(dev):
         got = lib.fc2t_detect(_build.DETECT_ARGS.pack(
-            *ptrs[:5], out.data_ptr(), *ptrs[5:],
+            *ptrs[:4], out.data_ptr(), *ptrs[4:],
             torch._C._cuda_getCurrentRawStream(dev), nbases, B, Lp,
             chrom_offsets.shape[0], cfg.anchor_len, cfg.prefilter_mm,
             int(prefilter), dev, 0))
@@ -281,7 +279,7 @@ STAGES = ("hit-field loads", "read and window loads", "split scan",
 READS_PER_WARP = 2
 
 
-def detect_stage_cycles(words, nbases: int, chrom_offsets, reads, lens, rc,
+def detect_stage_cycles(words, nbases: int, chrom_offsets, reads, lens,
                         hits_a, hits_b, overflow, cfg: Config,
                         prefilter: bool = True):
     """detect_core_packed on CUDA tensors through the measurement build of
@@ -289,7 +287,7 @@ def detect_stage_cycles(words, nbases: int, chrom_offsets, reads, lens, rc,
     of each warp's stages, its first lane's clock64 at the start and where
     each stage's results are first used; a warp takes READS_PER_WARP
     reads). One launch, counted on `launches`."""
-    args = (words, nbases, chrom_offsets, reads, lens, rc, hits_a, hits_b,
+    args = (words, nbases, chrom_offsets, reads, lens, hits_a, hits_b,
             overflow)
     warps = -(-reads.shape[0] // READS_PER_WARP)
     return _build.stamped("fc2t_detect_stamps", warps, len(STAGES), reads,

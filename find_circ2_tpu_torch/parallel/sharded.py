@@ -45,8 +45,7 @@ from find_circ2_tpu_torch.index.hashtable import (M32, build_neighbor_table,
                                                   shard_neighbor_tables,
                                                   shard_query_table)
 from find_circ2_tpu_torch.io.genome import Genome
-from find_circ2_tpu_torch.models.pipeline import (revcomp_batch,
-                                                  unpack_results)
+from find_circ2_tpu_torch.models.pipeline import unpack_results
 from find_circ2_tpu_torch.ops.anchor_align import (
     Shard, align_anchor_pair_fast_sharded, align_anchor_pair_sharded,
     key_ranges, read_anchors)
@@ -135,19 +134,17 @@ class ShardedEngine:
 
     def _split(self, reads: np.ndarray, lens: np.ndarray):
         """This process's batch (its local slice of the global batch in a
-        multi-process run) as one (row, reads, lens, rc) per data row,
-        each on its row's device; rc is computed on the host."""
+        multi-process run) as one (row, reads, lens) per data row, each
+        on its row's device."""
         n = len(self.rows)
         if reads.shape[0] % n:
             raise ValueError(f"batch of {reads.shape[0]} does not split over "
                              f"{n} data rows")
         per = reads.shape[0] // n
-        with span("revcomp"):
-            rc = revcomp_batch(reads, lens)
         with span("upload"):
             return [(row, *(torch.from_numpy(np.ascontiguousarray(
                             x[r * per:(r + 1) * per])).to(row.device)
-                            for x in (reads, lens, rc)))
+                            for x in (reads, lens)))
                     for r, row in enumerate(self.rows)]
 
     def _align_row(self, row: _Row, reads, lens, classic: bool):
@@ -165,25 +162,25 @@ class ShardedEngine:
             return (*align_anchor_pair_sharded(row.shards, anchors_a,
                                                anchors_b, cfg), None)
 
-    def _detect_row(self, row: _Row, reads, lens, rc,
+    def _detect_row(self, row: _Row, reads, lens,
                     classic: bool = False) -> dict:
         """One data row's detect_core result dict; on the exact-first
         path `multi` bit 3 carries the row's fallback-overflow flag."""
         hits_a, hits_b, overflow = self._align_row(row, reads, lens, classic)
         res = detect_core(row.words, self.nbases, row.chrom_offsets, reads,
-                          lens, hits_a, hits_b, self.cfg, self.prefilter, rc)
+                          lens, hits_a, hits_b, self.cfg, self.prefilter)
         if overflow is not None:
             res["multi"] = res["multi"] | (overflow.to(torch.int32) << 3)
         return res
 
-    def _packed_row(self, row: _Row, reads, lens, rc,
+    def _packed_row(self, row: _Row, reads, lens,
                     classic: bool) -> torch.Tensor:
         """One data row's packed rows: K1, then detect_core_packed (the
         kernel on the card)."""
         hits_a, hits_b, overflow = self._align_row(row, reads, lens, classic)
         with record_function("detect_core"):
             return detect_core_packed(row.words, self.nbases,
-                                      row.chrom_offsets, reads, lens, rc,
+                                      row.chrom_offsets, reads, lens,
                                       hits_a, hits_b, overflow, self.cfg,
                                       self.prefilter)
 
@@ -219,11 +216,11 @@ class ShardedEngine:
         """The classic path's packed rows (the fallback-overflow redo)."""
         return self._packed(reads, lens, classic=True)
 
-    def _merge_row(self, row: _Row, reads, lens, rc) -> dict:
+    def _merge_row(self, row: _Row, reads, lens) -> dict:
         """One data row's classic detect result as merge_junctions reads
         it: its packed rows (detect_core_packed, the kernel on the card)
         unpacked on the row's device, start and end back to int64."""
-        packed = self._packed_row(row, reads, lens, rc, classic=True)
+        packed = self._packed_row(row, reads, lens, classic=True)
         res = {k: packed[:, i].contiguous()
                for i, k in enumerate(PACK_FIELDS[:-1])}
         for k in ("start", "end"):

@@ -141,7 +141,7 @@ class DetectCase:
     ext_id: np.ndarray     # int32 [T, 2] ext row of each slot
     reads: np.ndarray      # uint8 [B, Lp], RPAD past each length
     lens: np.ndarray       # int32 [B]
-    rc: np.ndarray         # uint8 [B, Lp] left-aligned reverse complements
+    rc: np.ndarray         # uint8 [B, Lp] revcomp_batch's, for the reference
     hits: list             # per anchor, {AnchorHits field: numpy [B]}
     anchors: np.ndarray    # uint8 [n, a] for the probe
     coincident: int        # anchors of keys whose two buckets coincide
@@ -423,6 +423,15 @@ def _hits(fields: dict, device) -> AnchorHits:
                         for f in AnchorHits._fields))
 
 
+def on_strand(case: DetectCase, strand: int) -> DetectCase:
+    """The case with both anchors' hits on `strand` in every row: 1 puts
+    every read's K2 and prefilter on its reverse complement, 0 on the
+    read itself."""
+    return dataclasses.replace(case, hits=[
+        {**h, "strand": np.full_like(h["strand"], strand)}
+        for h in case.hits])
+
+
 def core_args(case: DetectCase, device="cpu", overflow=None) -> tuple:
     """detect_core_packed's arguments before `cfg` for a case, on
     `device`; `overflow` None or a bool for the 0-d flag."""
@@ -432,8 +441,7 @@ def core_args(case: DetectCase, device="cpu", overflow=None) -> tuple:
                                                       device=device)
     return (dev(pack_words(case.genome.codes)), len(case.genome),
             dev(case.genome.chrom_offsets), dev(case.reads), dev(case.lens),
-            dev(case.rc), _hits(case.hits[0], device),
-            _hits(case.hits[1], device), flag)
+            _hits(case.hits[0], device), _hits(case.hits[1], device), flag)
 
 
 def exact_args(case: DetectCase, device="cpu", shift: int = 0) -> tuple:

@@ -151,8 +151,7 @@ def test_detect_kernels_match_plain_on_card(case, cuda_device):
             return tp.detect_batch_packed_fast(
                 words, len(g), *(torch.from_numpy(x).to(dev) for x in (
                     case.table, case.ntable, case.meta, g.chrom_offsets,
-                    case.reads, case.lens)), cfg, True,
-                torch.from_numpy(case.rc).to(dev))
+                    case.reads, case.lens)), cfg, True)
         assert torch.equal(run(cuda_device).cpu(), run("cpu"))
     for got, want in zip(_sharded_rows(case, cuda_device),
                          _sharded_rows(case, "cpu")):
@@ -188,7 +187,7 @@ def test_classic_kernels_match_plain_on_card(case, cuda_device):
         return tp.detect_batch_packed(
             words, len(g), *(torch.from_numpy(x).to(dev) for x in (
                 case.table, case.meta, g.chrom_offsets, case.reads,
-                case.lens)), CFG, True, torch.from_numpy(case.rc).to(dev))
+                case.lens)), CFG, True)
     assert torch.equal(redo(cuda_device).cpu(), redo("cpu"))
 
     def k1(dev):

@@ -531,9 +531,9 @@ def test_profiler_labels_are_unchanged(case):
     with profile(activities=[ProfilerActivity.CPU]) as prof:
         tp.detect_batch_packed_fast(
             words, len(g), table, torch.from_numpy(case.ntable), meta,
-            offsets, reads, lens, CFG, True, torch.from_numpy(case.rc))
+            offsets, reads, lens, CFG, True)
         tp.detect_batch_packed(words, len(g), table, meta, offsets, reads,
-                               lens, CFG, True, torch.from_numpy(case.rc))
+                               lens, CFG, True)
         tx.explore_batch_packed(words, len(g), table, meta, ext, ext_id,
                                 offsets, reads[:16], lens[:16], CFG)
     names = {e.name for e in prof.events()}
@@ -557,8 +557,7 @@ def test_classic_redo_plain_matches_jax(case):
     got = tp.detect_batch_packed(
         detect_cases.core_args(case)[0], len(g), table, meta,
         torch.from_numpy(g.chrom_offsets), torch.from_numpy(case.reads),
-        torch.from_numpy(case.lens), CFG, True,
-        torch.from_numpy(case.rc)).numpy()
+        torch.from_numpy(case.lens), CFG, True).numpy()
     want = np.asarray(_jax_classic(
         jnp.asarray(pack_nibbles(g.codes)), len(g), jnp.asarray(case.table),
         jnp.asarray(case.meta), jnp.asarray(g.chrom_offsets.astype(

@@ -123,6 +123,43 @@ def test_detect_core_plain_matches_jax_on_edge_cases(case, prefilter,
         assert st[0] != jconfig.ST_DIFF_CHROM != st[3]
 
 
+@pytest.mark.parametrize("strand", [None, 0, 1],
+                         ids=["mixed", "plus", "minus"])
+@pytest.mark.parametrize("edge", [None, *detect_cases.EDGE_CASES],
+                         ids=["case", *detect_cases.EDGE_CASES])
+def test_detect_core_builds_the_reverse_complement(case, edge, strand):
+    """detect_core_packed takes no reverse complement: its plain version
+    builds each read's from the read (_revcomp_device, equal to
+    revcomp_batch's) and gives the rows that detect_core gives on
+    revcomp_batch's and that the reference gives, with the prefilter on
+    and off; with the hits as they are, every read on '+' or every read
+    on '-' (K2 and both prefilter counts on the reverse complement). The
+    batches hold reads with N, odd lengths, length 2a, length Lp and
+    padding rows of length 0, and one an Lp off 4 bytes."""
+    c, cfg = (case, CFG) if edge is None else _edge(edge)
+    if strand is not None:
+        c = detect_cases.on_strand(c, strand)
+    args = detect_cases.core_args(c, "cpu", False)
+    reads, lens = args[3:5]
+    assert torch.equal(td._revcomp_device(reads, lens),
+                       torch.from_numpy(tp.revcomp_batch(c.reads, c.lens)))
+    for prefilter in (True, False):
+        got = td.detect_core_packed(*args, cfg, prefilter)
+        with_rc = td._pack(td.detect_core(
+            *args[:5], *args[5:7], cfg, prefilter,
+            rc=torch.from_numpy(c.rc)))
+        assert torch.equal(got, with_rc)
+        assert np.array_equal(got.numpy(),
+                              _jax_case_rows(c, prefilter, False, cfg))
+    Lp, a = c.reads.shape[1], cfg.anchor_len
+    inside = np.arange(Lp)[None, :] < c.lens[:, None]
+    assert {0, 2 * a, Lp} <= set(c.lens.tolist())
+    assert (c.lens % 2 == 1).any() and (c.reads[inside] == 4).any()
+    assert (Lp % 4 != 0) == (edge == "long-rows")
+    if strand is None:
+        assert {0, 1} <= set(c.hits[0]["strand"].tolist())
+
+
 def test_pinned_rows_pin_what_they_say(case):
     """The pinned rows of detect_cases give what PINNED says."""
     rows = tp.unpack_results(td.detect_core_packed(
@@ -217,8 +254,7 @@ def test_detect_fast_plain_matches_jax_on_edge_cases(case, prefilter):
             words, len(g), torch.from_numpy(case.table),
             torch.from_numpy(case.ntable), torch.from_numpy(case.meta),
             torch.from_numpy(g.chrom_offsets), torch.from_numpy(case.reads),
-            torch.from_numpy(case.lens), cfg, prefilter,
-            torch.from_numpy(case.rc)).numpy()
+            torch.from_numpy(case.lens), cfg, prefilter).numpy()
         assert np.array_equal(got, want)
         assert ((got[:, 12] & 8) != 0).all() == \
             (cfg.exact_fallback_slots < CASE_ROWS)
@@ -251,8 +287,7 @@ def _on(x, device):
 
 def test_detect_routes_cpu_tensors_to_plain(case, monkeypatch):
     """CPU tensors take detect_core_packed_ref and launch nothing; tensors
-    on two devices, or on one that is not a CUDA card, raise, and so does
-    a missing reverse complement."""
+    on two devices, or on one that is not a CUDA card, raise."""
     args = detect_cases.core_args(case, "cpu", True)
     got = _routes(lambda *a: td.detect_core_packed(*a, CFG, True),
                   "detect_core_packed_ref", td, "launches", args,
@@ -265,10 +300,38 @@ def test_detect_routes_cpu_tensors_to_plain(case, monkeypatch):
     meta = [_on(x, "meta") for x in args]
     with pytest.raises(ValueError, match="CUDA device"):
         td.detect_core_packed(*meta, CFG, True)
-    no_rc = list(args)
-    no_rc[5] = None
-    with pytest.raises(ValueError, match="rc is required"):
-        td.detect_core_packed(*no_rc, CFG, True)
+
+
+def test_detect_args_carry_no_reverse_complement():
+    """The kernel takes no reverse complement: neither detect_core_packed,
+    its plain version nor the stage clocks' entry has an `rc`, DetectArgs
+    has no such field, and its fields' bytes add up to the size the
+    kernel asserts and _build.DETECT_ARGS packs."""
+    import inspect
+    for fn in (td.detect_core_packed, td.detect_core_packed_ref,
+               td.detect_stage_cycles, tp.detect_batch_packed,
+               tp.detect_batch_packed_fast):
+        assert "rc" not in inspect.signature(fn).parameters, fn.__name__
+    src = open(os.path.join(CSRC, "detect.cu")).read()
+    body = re.search(r"struct DetectArgs \{(.*?)\};", src, re.S).group(1)
+    fields = [" ".join(f.split())
+              for f in re.sub(r"//[^\n]*", "", body).split(";")
+              if f.strip()]
+    size, names = 0, []
+    for f in fields:
+        got = re.findall(r"(\w+)(?:\[(\d+)\])? ?(?:,|$)", f)
+        names += [n for n, _ in got]
+        if f.startswith("DetectAnchor"):    # five pointers an anchor
+            size += sum(5 * 8 * int(k or 1) for _, k in got)
+        else:
+            size += (8 if "*" in f or f.startswith("long long")
+                     else 4) * len(got)
+    assert "rc" not in names and names[:5] == [
+        "words", "chrom_offsets", "reads", "lens", "out"]
+    assert names[-8:] == ["B", "Lp", "n_chroms", "anchor_len",
+                          "prefilter_mm", "prefilter", "device", "reserved"]
+    assert size == _build.DETECT_ARGS.size
+    assert "sizeof(DetectArgs) == %d" % size in src
 
 
 def test_exact_routes_cpu_tensors_to_plain(case, monkeypatch):
@@ -326,7 +389,7 @@ def test_detect_c_call_runs_on_the_tensors_device(case, monkeypatch):
 
     monkeypatch.setattr(_build, "load", lambda: Lib())
     _stub_cuda(monkeypatch)
-    monkeypatch.setattr(td, "_check", lambda *a: [args[3]] * 16)
+    monkeypatch.setattr(td, "_check", lambda *a: [args[3]] * 15)
     before = td.launches
     out = td._launch(args, CFG, True)
     assert out.shape == (CASE_ROWS, 14) and td.launches == before + 1
@@ -392,7 +455,7 @@ def test_stage_cycles_reach_the_stamped_c_calls(case, monkeypatch):
     _stub_cuda(monkeypatch)
     monkeypatch.setattr(_build, "load_stamped", lambda: lib)
     monkeypatch.setattr(torch.cuda, "synchronize", lambda *a: None)
-    monkeypatch.setattr(td, "_check", lambda *a: [None] * 16)
+    monkeypatch.setattr(td, "_check", lambda *a: [None] * 15)
     monkeypatch.setattr(ta, "_check_exact", lambda *a: None)
     made = []
     zeros = torch.zeros
@@ -521,8 +584,7 @@ def test_profiler_labels_split_a_batch(case):
             words, len(g), torch.from_numpy(case.table),
             torch.from_numpy(case.ntable), torch.from_numpy(case.meta),
             torch.from_numpy(g.chrom_offsets), torch.from_numpy(case.reads),
-            torch.from_numpy(case.lens), CFG, True,
-            torch.from_numpy(case.rc))
+            torch.from_numpy(case.lens), CFG, True)
     names = {e.name for e in prof.events()}
     assert {"read_anchors", "k1_exact", "k1_fallback",
             "detect_core"} <= names

@@ -97,8 +97,7 @@ def test_classic_rows_match_jax(lib):
         arr, lens, CFG, True, rc=rc))
     got = tp.detect_batch_packed(
         td.words, td.nbases, td.table, td.meta, td.chrom_offsets,
-        torch.from_numpy(arr), torch.from_numpy(lens), CFG, True,
-        rc=torch.from_numpy(rc))
+        torch.from_numpy(arr), torch.from_numpy(lens), CFG, True)
     assert np.array_equal(got.numpy(), want)
 
 

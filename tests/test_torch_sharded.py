@@ -166,8 +166,8 @@ def test_overflow_redo_matches_classic():
     td = tp.DeviceIndex.build(sim.genome, idx, cfg, device="cpu")
     classic = tp.detect_batch_packed(
         td.words, td.nbases, td.table, td.meta, td.chrom_offsets,
-        torch.from_numpy(reads), torch.from_numpy(lens), cfg, True,
-        rc=torch.from_numpy(tp.revcomp_batch(reads, lens))).numpy()
+        torch.from_numpy(reads), torch.from_numpy(lens), cfg,
+        True).numpy()
     assert np.array_equal(redo, classic)
     got = eng.detect(reads, lens)
     assert not (got["multi"] & 8).any()
