@@ -13,77 +13,27 @@ processes joined over gloo on localhost.
   path, SAM input on the per-read path, journal write and resume; a
   journal written under another sharding is refused.
 
-Every subprocess is waited on with a timeout, and once one process
-fails its peers are killed; the workers' process group has a timeout of
-its own. So a dead rank fails its test in seconds instead of hanging
-the run.
+The processes run through tests/launcher.py's `run_all`, which kills
+every rank's process group once one fails or its deadline passes; the
+workers' torch.distributed group has a timeout of its own. So a dead
+rank fails its test in seconds instead of hanging the run.
 """
 
 import json
 import os
-import socket
-import subprocess
 import sys
-import time
 
 import numpy as np
 import pytest
 
-ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+from launcher import ROOT, free_port, run_all
+
 DATA = os.path.join(ROOT, "test_data")
 CLI = [sys.executable, "-m", "find_circ2_tpu_torch.cli.main", "find_circ"]
 SIM = dict(seed=77, n_circ=5, n_linear=3, reads_per_junction=4,
            n_contiguous=8, n_random=4, err_rate=0.3)
 B = 64
 WORKER_TIMEOUT_S = 60
-
-
-def _free_port():
-    s = socket.socket()
-    s.bind(("localhost", 0))
-    port = s.getsockname()[1]
-    s.close()
-    return port
-
-
-def _env():
-    env = dict(os.environ)
-    env["PYTHONPATH"] = ROOT + os.pathsep + env.get("PYTHONPATH", "")
-    return env
-
-
-def _start(cmds, logdir):
-    """One process per command, its output to a file in `logdir`."""
-    procs = []
-    for i, cmd in enumerate(cmds):
-        with open(os.path.join(logdir, f"rank{i}.log"), "wb") as fh:
-            procs.append(subprocess.Popen(cmd, env=_env(), stdout=fh,
-                                          stderr=subprocess.STDOUT))
-    return procs
-
-
-def _wait_all(procs, logdir, timeout):
-    """Waits for every process and returns their outputs. As soon as one
-    fails, or at the timeout, the others are killed: a dead rank fails
-    the test at once instead of leaving its peers waiting in a
-    collective."""
-    deadline = time.monotonic() + timeout
-    try:
-        while any(p.poll() is None for p in procs):
-            if (any(p.returncode for p in procs)
-                    or time.monotonic() > deadline):
-                break
-            time.sleep(0.1)
-    finally:
-        for p in procs:
-            if p.poll() is None:
-                p.kill()
-                p.wait()
-    outs = []
-    for i in range(len(procs)):
-        with open(os.path.join(logdir, f"rank{i}.log"), "rb") as fh:
-            outs.append(fh.read().decode(errors="replace"))
-    return outs
 
 
 def _batch():
@@ -165,13 +115,12 @@ def _expected():
 @pytest.mark.parametrize("hier", [False, True])
 def test_two_process_merge_matches_single(tmp_path, hier):
     want_table, want_n = _expected()
-    port = _free_port()
-    procs = _start([[sys.executable, os.path.abspath(__file__), str(pid), "2",
-                     str(port), str(tmp_path)] + (["hier"] if hier else [])
-                    for pid in range(2)], tmp_path)
-    outs = _wait_all(procs, tmp_path, 300)
-    for p, out in zip(procs, outs):
-        assert p.returncode == 0, out[-3000:]
+    port = free_port()
+    rcs, outs = run_all([[sys.executable, os.path.abspath(__file__), str(pid),
+                          "2", str(port), str(tmp_path)]
+                         + (["hier"] if hier else []) for pid in range(2)],
+                        tmp_path / "logs")
+    assert rcs == [0, 0], "\n====\n".join(outs)
     for pid in range(2):
         with open(tmp_path / f"out_{pid}.json") as fh:
             got = json.load(fh)
@@ -219,24 +168,20 @@ def _args_for(tmp_path, tag, inputs, base):
     return CLI + [str(f) for f in inputs] + a
 
 
-def _run_single(tmp_path, inputs, base, timeout=600):
-    out = subprocess.run(_args_for(tmp_path, "single", inputs, base),
-                         env=_env(), timeout=timeout, capture_output=True,
-                         text=True)
-    assert out.returncode == 0, out.stderr[-2000:]
+def _run_single(tmp_path, inputs, base):
+    rcs, outs = run_all([_args_for(tmp_path, "single", inputs, base)],
+                        tmp_path / "single_logs")
+    assert rcs == [0], outs[0]
 
 
-def _run_nproc(tmp_path, inputs, base, extra=(), tag="nproc", timeout=600):
-    port = _free_port()
-    logdir = tmp_path / f"{tag}_logs"
-    logdir.mkdir()
-    procs = _start([_args_for(tmp_path, tag, inputs, base)
-                    + ["--nproc", "2", "--proc-id", str(pid),
-                       "--coordinator", f"localhost:{port}"] + list(extra)
-                    for pid in range(2)], logdir)
-    outs = _wait_all(procs, logdir, timeout)
-    for p in procs:
-        assert p.returncode == 0, "\n====\n".join(o[-2000:] for o in outs)
+def _run_nproc(tmp_path, inputs, base, extra=(), tag="nproc"):
+    port = free_port()
+    rcs, outs = run_all([_args_for(tmp_path, tag, inputs, base)
+                         + ["--nproc", "2", "--proc-id", str(pid),
+                            "--coordinator", f"localhost:{port}"]
+                         + list(extra) for pid in range(2)],
+                        tmp_path / f"{tag}_logs")
+    assert rcs == [0, 0], "\n====\n".join(outs)
 
 
 def _assert_equal_outputs(tmp_path, tag="nproc"):
