@@ -365,7 +365,8 @@ def _profile_end(times, t_stream: float) -> None:
 
 
 def _merge_processes(args, agg: Aggregator, nproc: int) -> bool:
-    """Every process writes its junction table to {output}.part{rank};
+    """Every process writes its junction reads' columns
+    (Aggregator.read_columns) to {output}.part{rank};
     the stats counters are summed over gloo, which is also the barrier
     before process 0 reads the parts. Returns True on process 0, whose
     `agg` then holds the merged table and the summed stats."""
@@ -375,9 +376,8 @@ def _merge_processes(args, agg: Aggregator, nproc: int) -> bool:
                                                            stats_to_vec)
     order = Stats.REDUCE_ORDER
     part = f"{args.output}.part{args.proc_id}"
-    agg._drain_batches()     # buffered summaries -> junction dict
     with open(part, "wb") as fh:
-        pickle.dump(agg.junctions, fh)
+        pickle.dump(agg.read_columns(), fh)
     total = allreduce_counts(stats_to_vec(agg.stats, order))
     if args.proc_id != 0:
         return False

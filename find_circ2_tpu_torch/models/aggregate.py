@@ -1,25 +1,33 @@
 """Junction aggregation, category flags, and BED table construction.
 
-Host-side, shared verbatim by the CPU oracle and the TPU device path —
-per-read `ReadCall` records flow in, `JunctionRow`s flow out. Semantics:
-SPEC.md §5 / SURVEY.md §3.5 (single pass over a junction dict at EOF).
+Host-side, shared by the CPU oracle and the device path — per-read
+`ReadCall` records and device result rows flow in, `JunctionRow`s flow
+out. Semantics: SPEC.md §5 / SURVEY.md §3.5 (one pass over every
+junction read at EOF). The table stays columnar from the buffered reads
+to the rows: one sort in the BED's own order, reductions by segment.
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass, field
+from itertools import repeat
+
+import numpy as np
 
 from find_circ2_tpu_torch.config import (
     Config,
     KIND_CIRCULAR,
     SENSE_CHARS,
+    SENSE_MINUS,
+    SENSE_PLUS,
     ST_JUNCTION,
     STATUS_NAMES,
 )
-from find_circ2_tpu_torch.io.bed import JunctionRow, renumber
+from find_circ2_tpu_torch.io.bed import JunctionRow
 from find_circ2_tpu_torch.io.genome import Genome
+from find_circ2_tpu_torch.io.twobit import _BASE_LUT
 from find_circ2_tpu_torch.models.oracle import ReadCall
-from find_circ2_tpu_torch.utils.profiling import span
+from find_circ2_tpu_torch.utils.profiling import count, span
 
 
 def category_flags(circular: bool, breakpoints: int, uniq_bridges: int,
@@ -46,23 +54,30 @@ def category_flags(circular: bool, breakpoints: int, uniq_bridges: int,
     return ",".join(flags)
 
 
-@dataclass
-class JunctionAgg:
-    kind: int
-    chrom_idx: int
-    start: int                # global coordinate
-    end: int
-    sense: int
-    signal: str
-    n_reads: int = 0
-    seqs: set = field(default_factory=set)
-    uniq_bridges: int = 0
-    best_qual_left: int = 0
-    best_qual_right: int = 0
-    edits: int = 1 << 30
-    overlap: int = 1 << 30
-    n_bp: int = 1 << 30
-    n_strand_match: int = 0   # reads whose alignment strand == sense
+def category_table() -> np.ndarray:
+    """The 32 categories by code: a junction's category is a function of
+    five tests, bit 4 circular, 3 one breakpoint, 2 a unique bridge, 1
+    signal GTAG, 0 strandmatch MATCH. Built by category_flags itself,
+    which stays the single source of truth."""
+    return np.array([
+        category_flags(bool(c & 16), 1 if c & 8 else 2, 1 if c & 4 else 0,
+                       "GTAG" if c & 2 else "", "MATCH" if c & 1 else "")
+        for c in range(32)], dtype=object)
+
+
+# Strandmatch by code: all reads on the junction's sense, none, some;
+# "NA" when the library is not stranded.
+STRANDMATCH = np.array(["MATCH", "MISMATCH", "PARTIAL", "NA"], dtype=object)
+STRANDS = np.array([SENSE_CHARS[SENSE_PLUS], SENSE_CHARS[SENSE_MINUS]],
+                   dtype=object)
+
+# The table's one sort (chromosome name, start, end, sense, circular
+# first) is io/bed.renumber's (chrom, start, end, strand, category) only
+# while '+' sorts before '-' and every circular category before every
+# linear one; start and end differ from the BED's by one offset a
+# chromosome.
+assert STRANDS[0] < STRANDS[1]
+assert max(category_table()[16:]) < min(category_table()[:16])
 
 
 @dataclass
@@ -103,7 +118,6 @@ _SEQ_W: dict[int, "np.ndarray"] = {}
 
 
 def _seq_weights(Lp: int):
-    import numpy as np
     w = _SEQ_W.get(Lp)
     if w is None:
         rng = np.random.default_rng(0xF1FC2)
@@ -114,7 +128,6 @@ def _seq_weights(Lp: int):
 
 def seq_hash(seq: str, Lp: int) -> int:
     """Hash of one processed read sequence (scalar path)."""
-    import numpy as np
     from find_circ2_tpu_torch.config import RPAD_CODE
     from find_circ2_tpu_torch.io.twobit import seq_to_codes
     codes = np.full(Lp, RPAD_CODE, np.uint8)
@@ -126,25 +139,30 @@ def seq_hash(seq: str, Lp: int) -> int:
 
 def seq_hash_batch(arr: "np.ndarray"):
     """Hashes of an RPAD-padded encoded batch (uint8 [n, Lp])."""
-    import numpy as np
     w = _seq_weights(arr.shape[1])
     return (arr.astype(np.uint64) * w[None, :]).sum(axis=1,
                                                     dtype=np.uint64)
 
 
+# The columns of a buffered junction read and their types, in the order
+# `add` keeps them: the junction key, the evidence, the signal's 4 ASCII
+# bytes and the read's seq_hash.
+COLUMNS = {**dict.fromkeys(("kind", "chrom", "start", "end", "sense", "ql",
+                            "qr", "e", "o", "b", "smatch"), np.int64),
+           "signal": np.dtype("S4"), "hash": np.uint64}
+
+
 class Aggregator:
-    """Accumulates ReadCalls into the junction dictionary."""
+    """Accumulates junction reads, as ReadCalls (`add`) or device result
+    rows (`add_batch`), into one buffer of read columns; `table` groups
+    them by junction once, at the end."""
 
     def __init__(self, genome: Genome, cfg: Config = Config()) -> None:
         self.genome = genome
         self.cfg = cfg
-        self.junctions: dict[tuple, JunctionAgg] = {}
         self.stats = Stats()
-        # Buffered vectorized batch summaries (add_batch); merged into
-        # `junctions` lazily by _drain_batches — one python-loop pass
-        # over globally-distinct junctions instead of one per batch.
-        self._batches: list = []
-        self._batch_pairs: list = []
+        self._chunks: list[dict] = []     # read columns (add_batch, merges)
+        self._calls: list[tuple] = []     # add's COLUMNS
 
     def add(self, call: ReadCall) -> None:
         self.stats.add("reads_total")
@@ -153,249 +171,160 @@ class Aggregator:
             return
         self.stats.add("circular_reads" if call.kind == KIND_CIRCULAR
                        else "linear_reads")
-        key = (call.kind, call.chrom_idx, call.start, call.end, call.sense)
-        agg = self.junctions.get(key)
-        if agg is None:
-            agg = JunctionAgg(kind=call.kind, chrom_idx=call.chrom_idx,
-                              start=call.start, end=call.end,
-                              sense=call.sense, signal=call.signal)
-            self.junctions[key] = agg
-        agg.n_reads += 1
-        agg.seqs.add(seq_hash(call.seq, self.cfg.max_read_len))
-        uniq = self.cfg.min_uniq_qual
-        if call.qual_left >= uniq and call.qual_right >= uniq:
-            agg.uniq_bridges += 1
-        agg.best_qual_left = max(agg.best_qual_left, call.qual_left)
-        agg.best_qual_right = max(agg.best_qual_right, call.qual_right)
-        agg.edits = min(agg.edits, call.edits)
-        agg.overlap = min(agg.overlap, call.overlap)
-        agg.n_bp = min(agg.n_bp, call.n_bp)
-        if call.align_strand == call.sense:
-            agg.n_strand_match += 1
+        self._calls.append((
+            call.kind, call.chrom_idx, call.start, call.end, call.sense,
+            call.qual_left, call.qual_right, call.edits, call.overlap,
+            call.n_bp, int(call.align_strand == call.sense), call.signal,
+            seq_hash(call.seq, self.cfg.max_read_len)))
 
     def add_batch(self, res: dict, idx, seq_hashes) -> None:
         """Vectorized twin of `add` for unpacked device result rows.
 
         `res` is pipeline.unpack_results output, `idx` the row indices
         to aggregate (all must have status == ST_JUNCTION), `seq_hashes`
-        the `seq_hash_batch` values aligned with `idx`. Raw columns are
-        buffered; ALL grouping happens in `_drain_batches` as one global
-        group-by over every buffered read (one np.unique instead of one
-        per batch). Bit-identical to looping `add` (all accumulators are
-        commutative ints/sets, and `signal` is a pure function of the
-        junction key, so merge order is immaterial; tests/test_native.py
-        pins BED equality)."""
-        import numpy as np
-
+        the `seq_hash_batch` values aligned with `idx`. The rows' columns
+        are buffered beside `add`'s; `table` groups every buffered read
+        at once, so the result equals looping `add` (every reduction is
+        commutative, and `signal` is a pure function of the junction
+        key)."""
         n = len(idx)
         if n == 0:
             return
         self.stats.add("reads_total", n)
         self.stats.add_status(ST_JUNCTION, n)
-        kind = res["kind"][idx].astype(np.int64)
+        kind = res["kind"][idx]
         n_circ = int((kind == KIND_CIRCULAR).sum())
         if n_circ:
             self.stats.add("circular_reads", n_circ)
         if n - n_circ:
             self.stats.add("linear_reads", n - n_circ)
-        self._batches.append(dict(
-            kind=kind,
-            chrom=res["chrom"][idx].astype(np.int64),
-            start=res["start"][idx].astype(np.int64),
-            end=res["end"][idx].astype(np.int64),
-            sense=res["sense"][idx].astype(np.int64),
-            ql=res["qual_left"][idx].astype(np.int64),
-            qr=res["qual_right"][idx].astype(np.int64),
-            e=res["edits"][idx].astype(np.int64),
-            o=res["overlap"][idx].astype(np.int64),
-            b=res["n_bp"][idx].astype(np.int64),
-            smatch=(res["sense"][idx]
-                    == res["align_strand"][idx]).astype(np.int64),
-            signal=res["signal"][idx],
+        sense = res["sense"][idx]
+        self._chunks.append(dict(
+            kind=kind, chrom=res["chrom"][idx], start=res["start"][idx],
+            end=res["end"][idx], sense=sense, ql=res["qual_left"][idx],
+            qr=res["qual_right"][idx], e=res["edits"][idx],
+            o=res["overlap"][idx], b=res["n_bp"][idx],
+            smatch=sense == res["align_strand"][idx],
+            signal=_BASE_LUT[res["signal"][idx]].view("S4")[:, 0],
             hash=np.asarray(seq_hashes, np.uint64)))
 
-    def _drain_batches(self) -> None:
-        """Merge the buffered read columns into the junction dict: one
-        global group-by over all buffered junction reads."""
-        import numpy as np
-        if not self._batches:
-            return
+    def read_columns(self) -> dict:
+        """Every junction read buffered so far, `add`'s included, as one
+        dict of COLUMNS: what a process of a --nproc run hands to process
+        0's `merge_from`."""
+        if self._calls:
+            self._chunks.append({f: np.array(c, t) for (f, t), c in
+                                 zip(COLUMNS.items(), zip(*self._calls))})
+            self._calls = []
+        chunks = self._chunks
+        if len(chunks) != 1 or any(chunks[0][f].dtype != t
+                                   for f, t in COLUMNS.items()):
+            self._chunks = [{
+                f: np.concatenate([np.zeros(0, t)] + [c[f] for c in chunks])
+                .astype(t, copy=False) for f, t in COLUMNS.items()}]
+        return self._chunks[0]
 
-        def col(field):
-            return np.concatenate([b[field] for b in self._batches])
+    def merge_from(self, reads: dict) -> None:
+        """Fold another process's junction reads (its `read_columns`)
+        into this table — the final cross-host merge of a multi-process
+        run (SURVEY.md §2.4 DP row). `table` groups all reads at once, so
+        the result equals a joint single-process run bit for bit,
+        n_uniq included (the sequence hashes of a junction are
+        deduplicated over every process's reads)."""
+        self._chunks.append(reads)
 
-        # Group-by over the 5-part junction key, packed into two int64
-        # words + one stable lexsort (np.unique(axis=0)'s void-view
-        # sort cost ~half the final-table stage). Group ORDER differs
-        # from unique's row-lexicographic order, which is immaterial:
-        # junctions land in a dict and rows() renumbers by the frozen
-        # sort key. kind/sense are 1 bit, chrom_idx < 2^28, global
-        # start/end < 2^33 (uint32 + gaps).
-        kind_c, chrom_c = col("kind"), col("chrom")
-        start_c, end_c, sense_c = col("start"), col("end"), col("sense")
-        k1 = ((kind_c << 62) | (sense_c << 61) | (chrom_c << 33)
-              | start_c)
-        k2 = end_c
-        N = k1.size
+    def table(self) -> dict:
+        """The junction table: one entry a junction in the BED's order
+        (chromosome name, start, end, strand, circular before linear),
+        each a column over the junctions: the key (`kind`, `chrom`,
+        global `start` and `end`, `sense`), `signal` ('S4'), and the
+        evidence `n_reads`, `n_uniq`, `uniq_bridges`, `best_qual_left`,
+        `best_qual_right`, `edits`, `overlap`, `n_bp`, `n_strand_match`.
+        Counts the reads it groups (`reads`) and the junctions
+        (`junctions`) under the current span."""
+        r = self.read_columns()
+        N = r["kind"].size
+        count("reads", N)
+        names = self.genome.chrom_names
+        rank = np.empty(len(names), np.int64)
+        rank[sorted(range(len(names)), key=names.__getitem__)] = \
+            np.arange(len(names))
+        # One stable sort on two int64 words: (name rank, start) and
+        # (end, sense, linear); rank < 2^28, global start and end < 2^33.
+        k1 = (rank[r["chrom"]] << 33) | r["start"]
+        k2 = (r["end"] << 2) | (r["sense"] << 1) | (r["kind"]
+                                                     != KIND_CIRCULAR)
         order = np.lexsort((k2, k1))
-        k1s, k2s = k1[order], k2[order]
-        newg = np.empty(N, bool)
-        newg[0] = True
-        newg[1:] = (k1s[1:] != k1s[:-1]) | (k2s[1:] != k2s[:-1])
-        ginv = np.empty(N, np.int64)
-        ginv[order] = np.cumsum(newg) - 1
-        rep = order[newg]               # first original row per group
-        guk = np.stack([kind_c[rep], chrom_c[rep], start_c[rep],
-                        end_c[rep], sense_c[rep]], axis=1)
-        G = guk.shape[0]
+        k1, k2 = k1[order], k2[order]
+        newg = np.ones(N, bool)
+        newg[1:] = (k1[1:] != k1[:-1]) | (k2[1:] != k2[:-1])
+        heads = np.flatnonzero(newg)
+        G = heads.size
+        count("junctions", G)
+        first = order[heads]
+        t = {f: r[f][first] for f in ("kind", "chrom", "start", "end",
+                                      "sense", "signal")}
+        t["n_reads"] = np.diff(heads, append=N)
 
-        def seg_sum(v):
-            out = np.zeros(G, np.int64)
-            np.add.at(out, ginv, v)
-            return out
-
-        def seg_opt(v, op, init):
-            out = np.full(G, init, np.int64)
-            op.at(out, ginv, v)
-            return out
+        def seg(ufunc, v):
+            return ufunc.reduceat(v[order], heads)
 
         uniq = self.cfg.min_uniq_qual
-        ql_c, qr_c = col("ql"), col("qr")
-        nb = np.bincount(ginv, minlength=G).astype(np.int64)
-        bridges = seg_sum((ql_c >= uniq) & (qr_c >= uniq))
-        smatch = seg_sum(col("smatch"))
-        ql = seg_opt(ql_c, np.maximum, 0)
-        qr = seg_opt(qr_c, np.maximum, 0)
-        e = seg_opt(col("e"), np.minimum, 1 << 30)
-        o = seg_opt(col("o"), np.minimum, 1 << 30)
-        bmin = seg_opt(col("b"), np.minimum, 1 << 30)
-        sig = np.concatenate([b["signal"] for b in self._batches])
-        # Bulk-decode one representative signal per group ([G, 4] codes
-        # -> 4-char strings in one LUT pass; signal is a pure function
-        # of the junction key, so any representative is exact).
-        from find_circ2_tpu_torch.io.twobit import _BASE_LUT
-        sig_bytes = _BASE_LUT[sig[rep]].tobytes()
-        sig_l = [sig_bytes[4 * g:4 * g + 4].decode("ascii")
-                 for g in range(G)]
-
-        # Distinct (junction, seq_hash) pairs across all batches:
-        # stable lexsort + adjacent-dedupe, sorted by group id.
-        h = col("hash").view(np.int64)
-        po = np.lexsort((h, ginv))
-        gs, hs = ginv[po], h[po]
-        keep = np.empty(N, bool)
-        keep[0] = True
-        keep[1:] = (gs[1:] != gs[:-1]) | (hs[1:] != hs[:-1])
-        pj, ph = gs[keep], hs[keep]
-        pb = np.searchsorted(pj, np.arange(G + 1))
-
-        self._batches = []
-        self._batch_pairs = []
-        # Bulk-convert once (python ints); per-element np scalar
-        # conversions dominated this loop at ~10k distinct junctions.
-        keys_l = list(map(tuple, guk.tolist()))
-        nb_l, bridges_l, smatch_l = nb.tolist(), bridges.tolist(), \
-            smatch.tolist()
-        ql_l, qr_l = ql.tolist(), qr.tolist()
-        e_l, o_l, b_l = e.tolist(), o.tolist(), bmin.tolist()
-        pb_l = pb.tolist()
-        ph_l = ph.astype(np.uint64).tolist()
-        junctions = self.junctions
-        for g in range(G):
-            key = keys_l[g]
-            agg = junctions.get(key)
-            if agg is None:
-                # Fresh junction: construct with final accumulator
-                # values directly (the common case — one batch-path
-                # junction per key).
-                junctions[key] = JunctionAgg(
-                    kind=key[0], chrom_idx=key[1], start=key[2],
-                    end=key[3], sense=key[4],
-                    signal=sig_l[g],
-                    n_reads=nb_l[g],
-                    seqs=set(ph_l[pb_l[g]:pb_l[g + 1]]),
-                    uniq_bridges=bridges_l[g],
-                    best_qual_left=ql_l[g], best_qual_right=qr_l[g],
-                    edits=e_l[g], overlap=o_l[g], n_bp=b_l[g],
-                    n_strand_match=smatch_l[g])
-                continue
-            agg.n_reads += nb_l[g]
-            agg.seqs.update(ph_l[pb_l[g]:pb_l[g + 1]])
-            agg.uniq_bridges += bridges_l[g]
-            agg.best_qual_left = max(agg.best_qual_left, ql_l[g])
-            agg.best_qual_right = max(agg.best_qual_right, qr_l[g])
-            agg.edits = min(agg.edits, e_l[g])
-            agg.overlap = min(agg.overlap, o_l[g])
-            agg.n_bp = min(agg.n_bp, b_l[g])
-            agg.n_strand_match += smatch_l[g]
-
-    def merge_from(self, junctions: dict) -> None:
-        """Fold another process's junction dict into this one — the
-        final cross-host merge of a multi-process run (SURVEY.md §2.4
-        DP row; all accumulators are commutative, so the result equals
-        a joint single-process run bit for bit, including n_uniq:
-        sequence SETS union rather than summing partial counts)."""
-        self._drain_batches()
-        for key, o in junctions.items():
-            a = self.junctions.get(key)
-            if a is None:
-                self.junctions[key] = o
-                continue
-            a.n_reads += o.n_reads
-            a.seqs |= o.seqs
-            a.uniq_bridges += o.uniq_bridges
-            a.best_qual_left = max(a.best_qual_left, o.best_qual_left)
-            a.best_qual_right = max(a.best_qual_right, o.best_qual_right)
-            a.edits = min(a.edits, o.edits)
-            a.overlap = min(a.overlap, o.overlap)
-            a.n_bp = min(a.n_bp, o.n_bp)
-            a.n_strand_match += o.n_strand_match
-
-    def _strandmatch(self, agg: JunctionAgg) -> str:
-        if not self.cfg.stranded:
-            return "NA"
-        if agg.n_strand_match == agg.n_reads:
-            return "MATCH"
-        if agg.n_strand_match == 0:
-            return "MISMATCH"
-        return "PARTIAL"
-
-    def _category(self, agg: JunctionAgg, strandmatch: str) -> str:
-        return category_flags(agg.kind == KIND_CIRCULAR, agg.n_bp,
-                              agg.uniq_bridges, agg.signal, strandmatch)
+        t["uniq_bridges"] = seg(np.add, ((r["ql"] >= uniq)
+                                         & (r["qr"] >= uniq)).astype(np.int64))
+        t["n_strand_match"] = seg(np.add, r["smatch"])
+        # The per-call reductions start from 0 (maxima) and 2^30 (minima).
+        t["best_qual_left"] = np.maximum(seg(np.maximum, r["ql"]), 0)
+        t["best_qual_right"] = np.maximum(seg(np.maximum, r["qr"]), 0)
+        for f, v in (("edits", "e"), ("overlap", "o"), ("n_bp", "b")):
+            t[f] = np.minimum(seg(np.minimum, r[v]), 1 << 30)
+        # Distinct sequences a junction: the reads sorted by (junction,
+        # hash), one count a new pair.
+        gid = np.cumsum(newg) - 1
+        h = r["hash"][order]
+        po = np.lexsort((h, gid))
+        gs, hs = gid[po], h[po]
+        newp = np.ones(N, bool)
+        newp[1:] = (gs[1:] != gs[:-1]) | (hs[1:] != hs[:-1])
+        t["n_uniq"] = np.bincount(gs[newp], minlength=G)
+        return t
 
     def rows(self, sample_name: str = "sample", prefix: str = "") -> list[JunctionRow]:
         with span("drain"):
-            self._drain_batches()
-        with span("build"):
-            out = []
-            for agg in self.junctions.values():
-                chrom = self.genome.chrom_names[agg.chrom_idx]
-                offset = int(self.genome.chrom_offsets[agg.chrom_idx])
-                strandmatch = self._strandmatch(agg)
-                out.append(JunctionRow(
-                    chrom=chrom,
-                    start=agg.start - offset,
-                    end=agg.end - offset,
-                    name="",  # assigned by renumber()
-                    n_reads=agg.n_reads,
-                    strand=SENSE_CHARS[agg.sense],
-                    n_uniq=len(agg.seqs),
-                    uniq_bridges=agg.uniq_bridges,
-                    best_qual_left=agg.best_qual_left,
-                    best_qual_right=agg.best_qual_right,
-                    tissues=sample_name,
-                    tiss_counts=str(agg.n_reads),
-                    edits=agg.edits,
-                    anchor_overlap=agg.overlap,
-                    breakpoints=agg.n_bp,
-                    signal=agg.signal,
-                    strandmatch=strandmatch,
-                    category=self._category(agg, strandmatch),
-                ))
-            self.stats.counts["circular_junctions"] = sum(
-                1 for a in self.junctions.values() if a.kind == KIND_CIRCULAR)
-            self.stats.counts["linear_junctions"] = sum(
-                1 for a in self.junctions.values() if a.kind != KIND_CIRCULAR)
+            t = self.table()
+        circ = t["kind"] == KIND_CIRCULAR
         with span("renumber"):
-            return renumber(out, prefix)
+            # <prefix>circ_<i:06d> and <prefix>norm_<i:06d>, counted in
+            # the table's order (SPEC.md §5).
+            nth = np.where(circ, np.cumsum(circ), np.cumsum(~circ))
+            cname, nname = f"{prefix}circ_", f"{prefix}norm_"
+            names = [f"{cname if c else nname}{i:06d}"
+                     for c, i in zip(circ.tolist(), nth.tolist())]
+        with span("build"):
+            n_reads, n_sm = t["n_reads"], t["n_strand_match"]
+            if self.cfg.stranded:
+                sm = np.where(n_sm == n_reads, 0, np.where(n_sm == 0, 1, 2))
+            else:
+                sm = np.full(n_reads.size, 3)
+            code = ((circ << 4) | ((t["n_bp"] == 1) << 3)
+                    | ((t["uniq_bridges"] >= 1) << 2)
+                    | ((t["signal"] == b"GTAG") << 1) | (sm == 0))
+            chrom = t["chrom"]
+            offset = self.genome.chrom_offsets[chrom]
+            n_l = n_reads.tolist()
+            # JunctionRow's fields in their order (io/bed.py).
+            out = list(map(
+                JunctionRow,
+                np.array(self.genome.chrom_names, object)[chrom].tolist(),
+                (t["start"] - offset).tolist(), (t["end"] - offset).tolist(),
+                names, n_l, STRANDS[t["sense"]].tolist(),
+                t["n_uniq"].tolist(), t["uniq_bridges"].tolist(),
+                t["best_qual_left"].tolist(), t["best_qual_right"].tolist(),
+                repeat(sample_name), map(str, n_l), t["edits"].tolist(),
+                t["overlap"].tolist(), t["n_bp"].tolist(),
+                t["signal"].astype("U4").tolist(),
+                STRANDMATCH[sm].tolist(), category_table()[code].tolist()))
+            n_circ = int(circ.sum())
+            self.stats.counts["circular_junctions"] = n_circ
+            self.stats.counts["linear_junctions"] = len(out) - n_circ
+        return out

@@ -361,6 +361,176 @@ def test_aggregator_bed_and_stats_text(sim):
     assert texts[0] == texts[1] and texts[1][0].count("\n") >= 8
 
 
+# Chromosomes whose names sort otherwise than their index order
+# ("chr1" < "chr10" < "chr2" < "chrX").
+CHROMS = (("chr2", 3_000), ("chr10", 2_000), ("chrX", 2_500), ("chr1", 1_500))
+
+
+def _junction_calls(module, genome, seed, n_reads=600):
+    """Junction ReadCalls (of `module`'s oracle) over CHROMS: 60 keys,
+    among them a circular and a linear junction at the same coordinates
+    and strand on every chromosome, each key with its own signal and
+    reads drawn from four sequences of its own; and 40 non-junction
+    calls."""
+    rng = np.random.default_rng(seed)
+    keys = []
+    for c, (_, length) in enumerate(CHROMS):
+        off = int(genome.chrom_offsets[c])
+        start = off + int(rng.integers(100, length // 2))
+        end = start + int(rng.integers(50, length // 2 - 10))
+        sense = int(rng.integers(0, 2))
+        keys += [(1, c, start, end, sense), (0, c, start, end, sense)]
+    while len(keys) < 60:
+        c = int(rng.integers(0, len(CHROMS)))
+        off = int(genome.chrom_offsets[c])
+        start = off + int(rng.integers(100, CHROMS[c][1] // 2))
+        keys.append((int(rng.integers(0, 2)), c, start,
+                     start + int(rng.integers(50, 500)),
+                     int(rng.integers(0, 2))))
+    signals = [("GTAG", "CTAC", "ATAC", "GCAG", "ANNT")[i % 5]
+               for i in range(len(keys))]
+    seqs = ["".join(rng.choice(list("ACGT"), int(rng.integers(60, 101))))
+            for _ in range(4 * len(keys))]
+    calls = []
+    for i in range(n_reads):
+        j = int(rng.integers(0, len(keys)))
+        kind, c, start, end, sense = keys[j]
+        calls.append(module.ReadCall(
+            name=f"r{i}", seq=seqs[4 * j + int(rng.integers(0, 4))],
+            status=rconfig.ST_JUNCTION, kind=kind, chrom_idx=c,
+            start=start, end=end, sense=sense,
+            align_strand=int(rng.integers(0, 2)),
+            edits=int(rng.integers(0, 3)), n_bp=int(rng.integers(1, 3)),
+            overlap=int(rng.integers(0, 4)),
+            qual_left=int(rng.integers(0, 21)),
+            qual_right=int(rng.integers(0, 21)), signal=signals[j]))
+    for i in range(40):
+        calls.append(module.ReadCall(name=f"x{i}", seq="ACGT" * 20,
+                                     status=int(rng.integers(1, 10))))
+    rng.shuffle(calls)
+    return calls
+
+
+def _port_feed(agg, calls, cfg, n_scalar, batch=97):
+    """The port's Aggregator fed the first `n_scalar` calls through add
+    and the junction calls after them through add_batch, `batch` rows of
+    unpacked result columns at a time, hashed as run_fastq hashes them."""
+    for call in calls[:n_scalar]:
+        agg.add(call)
+    rest = [c for c in calls[n_scalar:] if c.status == rconfig.ST_JUNCTION]
+    agg.stats.add("reads_total", len(calls) - n_scalar - len(rest))
+    for c in calls[n_scalar:]:
+        if c.status != rconfig.ST_JUNCTION:
+            agg.stats.add_status(c.status)
+    for lo in range(0, len(rest), batch):
+        part = rest[lo:lo + batch]
+        res = {f: np.array([getattr(c, a) for c in part], np.int32)
+               for f, a in (("kind", "kind"), ("chrom", "chrom_idx"),
+                            ("sense", "sense"), ("align_strand",
+                                                 "align_strand"),
+                            ("qual_left", "qual_left"),
+                            ("qual_right", "qual_right"),
+                            ("edits", "edits"), ("overlap", "overlap"),
+                            ("n_bp", "n_bp"))}
+        for f in ("start", "end"):
+            res[f] = np.array([getattr(c, f) for c in part], np.uint32)
+        res["signal"] = np.stack([ptwobit.seq_to_codes(c.signal)
+                                  for c in part])
+        arr = np.full((len(part), cfg.max_read_len), pconfig.RPAD_CODE,
+                      np.uint8)
+        for i, c in enumerate(part):
+            arr[i, :len(c.seq)] = ptwobit.seq_to_codes(c.seq)
+        agg.add_batch(res, np.arange(len(part)),
+                      paggregate.seq_hash_batch(arr))
+
+
+def _text(bed_m, agg, prefix):
+    buf = io.StringIO()
+    bed_m.write_bed(buf, agg.rows(sample_name="s", prefix=prefix))
+    return buf.getvalue(), agg.stats.lines()
+
+
+@pytest.mark.parametrize("stranded", [False, True])
+@pytest.mark.parametrize("prefix", ["", "T_"])
+@pytest.mark.parametrize("n_scalar", [0, 250, 640])
+def test_columnar_table_matches_reference_aggregator(stranded, prefix,
+                                                     n_scalar):
+    """The port's table fed through add and add_batch in turns (the same
+    junction across batches and across both paths) against the
+    reference's fed every call through add: BED and stats as text."""
+    texts = []
+    for m_agg, m_bed, m_or, m_cfg, m_genome in (
+            (raggregate, rbed, roracle, rconfig, rgenome),
+            (paggregate, pbed, poracle, pconfig, pgenome)):
+        cfg = m_cfg.Config(stranded=stranded)
+        genome = m_genome.Genome.from_records(
+            [(n, "ACGT" * (ln // 4)) for n, ln in CHROMS], cfg)
+        calls = _junction_calls(m_or, genome, seed=5)
+        agg = m_agg.Aggregator(genome, cfg)
+        if m_agg is raggregate:
+            for call in calls:
+                agg.add(call)
+        else:
+            _port_feed(agg, calls, cfg, n_scalar)
+        texts.append(_text(m_bed, agg, prefix))
+    bed, stats = texts[1]
+    assert texts[0] == texts[1]
+    rows = [line.split("\t") for line in bed.splitlines()[1:]]
+    assert [r[0] for r in rows] == sorted(r[0] for r in rows)
+    assert any(int(r[6]) < int(r[4]) for r in rows)        # n_uniq < n_reads
+    same = [(r[1], r[2], r[5]) for r in rows]
+    assert len(set(same)) < len(same)       # circular and linear coincide
+
+
+def test_merge_from_equals_one_joint_run():
+    """Two processes' tables, sharing junctions and sequences, merged
+    through read_columns (pickled, as find_circ --nproc hands them over)
+    and merge_from: the same table, BED and stats as one joint run."""
+    import pickle
+    cfg = pconfig.Config(stranded=True)
+    genome = pgenome.Genome.from_records(
+        [(n, "ACGT" * (ln // 4)) for n, ln in CHROMS], cfg)
+    calls = _junction_calls(poracle, genome, seed=9)
+    joint = paggregate.Aggregator(genome, cfg)
+    _port_feed(joint, calls, cfg, 300)
+    ranks = [paggregate.Aggregator(genome, cfg) for _ in range(2)]
+    _port_feed(ranks[0], calls[0::2], cfg, 150)
+    _port_feed(ranks[1], calls[1::2], cfg, 40)
+    ranks[0].merge_from(pickle.loads(pickle.dumps(ranks[1].read_columns())))
+    for k, v in ranks[1].stats.counts.items():
+        ranks[0].stats.add(k, v)
+    want, got = joint.table(), ranks[0].table()
+    assert set(want) == set(got)
+    for f in want:
+        assert np.array_equal(want[f], got[f]), f
+    assert (got["n_uniq"] < got["n_reads"]).any()
+    assert _text(pbed, joint, "p") == _text(pbed, ranks[0], "p")
+
+
+def test_table_order_is_renumbers():
+    """The table's one sort gives io/bed.renumber's order, and the
+    category table its strings: rows sorted and named again by renumber
+    come out unchanged."""
+    cfg = pconfig.Config(stranded=True)
+    genome = pgenome.Genome.from_records(
+        [(n, "ACGT" * (ln // 4)) for n, ln in CHROMS], cfg)
+    agg = paggregate.Aggregator(genome, cfg)
+    _port_feed(agg, _junction_calls(poracle, genome, seed=3), cfg, 100)
+    rows = agg.rows(prefix="q")
+    want = [astuple(r) for r in rows]
+    again = pbed.renumber([dataclasses.replace(r, name="") for r in
+                           reversed(rows)], "q")
+    assert [astuple(r) for r in again] == want
+    for r in rows:
+        assert r.category == paggregate.category_flags(
+            r.category.startswith("CIRCULAR"), r.breakpoints,
+            r.uniq_bridges, r.signal, r.strandmatch)
+    empty = paggregate.Aggregator(genome, cfg)
+    assert empty.rows() == []
+    assert empty.stats.lines() == ["circular_junctions\t0",
+                                   "linear_junctions\t0"]
+
+
 def test_journal_records_match(tmp_path, sim):
     """Both packages' journals write the same bytes for the same calls,
     and each replays the other's."""

@@ -180,6 +180,24 @@ def test_one_pass_records_every_key_the_benchmark_reads(lib, monkeypatch):
     assert t.counts["stream_start"] == t.counts["stream_stop"] == 1
 
 
+def test_final_table_counts_its_reads_and_junctions(lib):
+    """The final table's spans, and the counters under `drain`: the
+    junction reads it grouped and the junctions (BED rows) they gave."""
+    t = StageTimes()
+    bed, stats = one_pass(lib, t)
+    for key in ("pass.rows/drain", "pass.rows/build", "pass.rows/renumber"):
+        assert t.counts[key] == 1, key
+    counts = dict(line.split("\t") for line in stats.splitlines())
+    reads = int(counts.get("circular_reads", 0)) + int(
+        counts.get("linear_reads", 0))
+    junctions = int(counts["circular_junctions"]) + int(
+        counts["linear_junctions"])
+    assert t.counts["pass.rows/drain/reads"] == reads > junctions > 0
+    assert t.counts["pass.rows/drain/junctions"] == junctions \
+        == bed.count("\n") - 1
+    assert "pass.rows/drain/reads" not in t.totals
+
+
 def test_one_pass_output_equals_without_a_recorder(lib):
     assert one_pass(lib, StageTimes()) == one_pass(lib, None)
 
