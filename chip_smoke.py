@@ -834,7 +834,7 @@ def _profile_value(report: str, key: str) -> float:
 @contextlib.contextmanager
 def watch_explorer():
     """While the block runs, count what DeviceExplorer.dispatch_arrays
-    (every §2b explore chunk of both streaming loops goes through it)
+    (every §2b explore chunk of the streaming loop goes through it)
     does: its calls, chunks, routed reads, the launches of K1's
     enumeration kernel (classic_anchor_stats) made inside it, and every
     routed row (uint8 codes, int32 lengths). Also keep the DeviceIndex
@@ -3032,7 +3032,7 @@ def main_path(device: str, library: dict, card: str,
     from find_circ2_tpu_torch.utils.profiling import StageTimes
     from find_circ2_tpu_torch.utils.simulate import rnase_r_library
     from find_circ2_tpu_torch.cli import main as cli
-    from find_circ2_tpu_torch.models.pipeline import run_reads
+    from find_circ2_tpu_torch.models.stream import run_reads
     from find_circ2_tpu_torch.ops import anchor_align as ta
     from find_circ2_tpu_torch.ops import detect as td
     from find_circ2_tpu_torch.ops import explore as tx

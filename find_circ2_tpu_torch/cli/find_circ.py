@@ -256,8 +256,8 @@ def _run(args, nproc: int, mesh) -> int:
         else:
             journal = RunJournal(args.journal)
     from find_circ2_tpu_torch import native
-    from find_circ2_tpu_torch.models.pipeline import DeviceIndex, run_reads
-    from find_circ2_tpu_torch.models.stream import run_fastq
+    from find_circ2_tpu_torch.models.pipeline import DeviceIndex
+    from find_circ2_tpu_torch.models.stream import run_fastq, run_reads
     slowpath = (genome, index)
     native_fastq = args.reads_format == "fastq" and native.available()
     if args.backend == "device" and not native_fastq \
@@ -277,7 +277,7 @@ def _run(args, nproc: int, mesh) -> int:
 
     if args.backend == "device" and mesh is not None:
         # The sharded engine in place of the single-device step; same
-        # streaming loops and aggregation.
+        # streaming loop and aggregation.
         from find_circ2_tpu_torch.parallel.mesh import make_mesh, round_robin
         from find_circ2_tpu_torch.parallel.sharded import ShardedEngine
         n = mesh[0] * mesh[1]

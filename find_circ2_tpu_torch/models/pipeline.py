@@ -11,9 +11,10 @@ classic_anchor_stats; ops/detect.detect_core_packed);
 ops/detect.detect_core is the core's plain version, which CPU tensors
 and the unpacked entries take. Reads whose anchors tie at the best hit go
 through the §2b explore program (ops/explore, `DeviceExplorer`) one
-stage later. Host code (`run_reads`) batches reads, streams them through
-the device steps and yields the oracle's ReadCalls, so the CPU oracle
-and this path give byte-identical BED tables.
+stage later. The streaming loop (models/stream) batches reads and
+streams them through these device steps; `call_from_row` turns a result
+row into the oracle's ReadCall, so the CPU oracle and this path give
+byte-identical BED tables.
 
 Global positions are int64 tensors holding the reference's uint32
 values; sums that wrap there are masked with `& 0xFFFFFFFF` here.
@@ -27,30 +28,19 @@ import numpy as np
 import torch
 from torch.profiler import record_function
 
-from find_circ2_tpu_torch.config import (
-    RPAD_CODE,
-    Config,
-    ST_JUNCTION,
-    ST_PREFILTERED,
-    ST_TOO_LONG,
-    ST_TOO_SHORT,
-    ST_UNALIGNED_A,
-    ST_UNALIGNED_B,
-)
+from find_circ2_tpu_torch.config import RPAD_CODE, Config, ST_JUNCTION
 from find_circ2_tpu_torch.index.build import SeedIndex, build_index
 from find_circ2_tpu_torch.index.hashtable import (build_neighbor_table,
                                                   build_query_table)
 from find_circ2_tpu_torch.io.genome import Genome
 from find_circ2_tpu_torch.io.twobit import codes_to_seq, seq_to_codes
-from find_circ2_tpu_torch.models.multihit import (call_read_multi,
-                                                  call_reads_multi_batch)
 from find_circ2_tpu_torch.models.oracle import ReadCall
 from find_circ2_tpu_torch.ops.anchor_align import (
     AnchorHits, align_anchor_pair, align_anchor_pair_fast, read_anchors)
 from find_circ2_tpu_torch.ops.detect import (PACK_FIELDS, detect_core,
                                             detect_core_packed)
 from find_circ2_tpu_torch.ops.packed import pack_words
-from find_circ2_tpu_torch.utils.profiling import span, timed
+from find_circ2_tpu_torch.utils.profiling import span
 
 # Largest table (buckets) for which DeviceIndex.build makes the K1 v4
 # neighbour table itself; beyond it the one-time build is a deliberate
@@ -328,7 +318,7 @@ def call_from_row(res: dict, i: int, name: str, seq: str) -> ReadCall:
 class HostCopy:
     """A packed device result on its way to the host: a non-blocking
     copy into pinned memory plus a CUDA event recorded behind it, so the
-    streaming loops can enqueue later batches before reading this one.
+    streaming loop can enqueue later batches before reading this one.
     On the CPU the tensor is used as it is."""
 
     def __init__(self, packed: torch.Tensor) -> None:
@@ -373,20 +363,6 @@ class DeviceExplorer:
         self.cfg = cfg
         self.prefilter = prefilter
 
-    def dispatch(self, items: list[tuple[str, str]]):
-        """Enqueue routed (name, seq) reads of valid length; returns a
-        handle for `fetch`."""
-        arr, lens = encode_batch([seq for _, seq in items], len(items),
-                                 self.cfg.max_read_len)
-        return items, self.dispatch_arrays(arr, lens)
-
-    def fetch(self, handle) -> list[ReadCall]:
-        """Wait for a `dispatch` handle; its ReadCalls in order."""
-        items, chunks = handle
-        res = self.fetch_arrays(chunks)
-        return [call_from_row(res, i, name, seq)
-                for i, (name, seq) in enumerate(items)]
-
     def dispatch_arrays(self, arr: np.ndarray, lens: np.ndarray):
         """Enqueue already-encoded routed reads (uint8 [n, Lp], int32
         [n]), as the streaming loop's batch holds them; returns a handle
@@ -413,172 +389,3 @@ class DeviceExplorer:
         arrays over all chunks (row i = routed read i)."""
         packed = np.concatenate([copy.numpy()[:n] for n, copy in chunks])
         return unpack_results(packed)
-
-
-def run_reads(dindex: DeviceIndex | None, reads, cfg: Config = Config(),
-              prefilter: bool = True, batch_size: int | None = None,
-              journal=None, times=None, pipeline_depth: int = 2,
-              slowpath=None, dispatch=None, explore: bool | None = None,
-              redo=None):
-    """Host streaming loop: batch (name, seq) reads, run the device step
-    `pipeline_depth` batches ahead of the readback, and return the
-    ReadCalls in input order.
-
-    `slowpath` = (genome, index) enables SPEC §2b multi-hit pairing and
-    the §2 2-mm anchor rescue. Without it multi reads keep their
-    single-best device result. `explore` picks where §2b runs: None uses
-    the device program (`DeviceExplorer`) when the index has §2b extras,
-    else the host twin (models/multihit); True forces the device program
-    (ValueError without extras); False forces the host twin. All three
-    give the same calls. The 2-mm rescue always runs on the host.
-
-    `dispatch(arr [bs, Lp] uint8, lens [bs] int32) -> packed rows`
-    replaces the single-device step, and `redo(arr, lens)` its classic
-    redo of a fallback-overflow batch: the sharded engine plugs in here
-    (parallel.sharded.ShardedEngine.dispatch_packed, .redo_packed), with
-    `dindex` None and no device explore. With a
-    `journal` (utils.journal.RunJournal) completed batches replay from
-    disk; `times` (utils.profiling.StageTimes) collects per-stage wall
-    time.
-    """
-    from collections import deque
-
-    bs = batch_size or cfg.batch_size
-    Lp = cfg.max_read_len
-    buf: list[tuple[str, str]] = []
-    out: list[ReadCall] = []
-    done = journal.completed_batches() if journal is not None else {}
-    batch_id = 0
-    inflight: deque = deque()   # (batch_id, records, HostCopy, arr, lens)
-    if explore is None:
-        explore = (slowpath is not None and dindex is not None
-                   and dindex.ext is not None)
-    explorer = DeviceExplorer(dindex, cfg, prefilter) if explore else None
-    # Batches whose routed reads await explore results, one stage behind
-    # detect: (batch_id, batch_calls with None slots, slots, handle).
-    finishing: deque = deque()
-
-    def finalize() -> None:
-        this_id, batch_calls, route_slots, handle = finishing.popleft()
-        if handle is not None:
-            with timed(times, "explore_multihit"):
-                calls = explorer.fetch(handle)
-            for slot, call in zip(route_slots, calls):
-                batch_calls[slot] = call
-        if journal is not None and this_id is not None:
-            journal.record(this_id, batch_calls)
-        if times is not None and this_id is not None:
-            times.add_reads(len(batch_calls))
-        out.extend(batch_calls)
-
-    def consume() -> None:
-        this_id, records, copy, arr, blens = inflight.popleft()
-        if copy is None:            # journal replay / loose ReadCalls
-            finishing.append((None, records, (), None))
-        else:
-            finishing.append((this_id, *recall(records, copy, arr, blens)))
-        # One explore-pending batch stays in flight, so its program
-        # overlaps the next detect batch.
-        while len(finishing) > 1:
-            finalize()
-
-    def recall(records, copy, arr, blens):
-        """A detect batch's calls: rescued reads re-called on the host
-        now, routed reads dispatched to the explorer (their slots stay
-        None until finalize)."""
-        with timed(times, "device_detect"):
-            res = redo_if_overflow(dindex, unpack_results(copy.numpy()),
-                                   arr, blens, cfg, prefilter, redo)
-        batch_calls: list[ReadCall] = []
-        route_slots: list[int] = []
-        routed: list[tuple[str, str]] = []
-        rescue_slots: list[int] = []
-        rescued: list[tuple[str, str]] = []
-        for i, (name, seq) in enumerate(records):
-            status = int(res["status"][i])
-            if (slowpath is not None and cfg.rescue_anchor_mm >= 2
-                    and status in (ST_UNALIGNED_A, ST_UNALIGNED_B)
-                    and res["multi"][i] & 2):
-                # §2 2-mm anchor rescue [FROZEN v4], batched below; only
-                # reads whose mate anchor aligned can pass its mate gate.
-                # It precedes §2b: the explore program knows only the
-                # <=1-mm ball.
-                rescue_slots.append(len(batch_calls))
-                rescued.append((name, seq))
-                batch_calls.append(None)
-                continue
-            if ((slowpath is not None or explorer is not None)
-                    and res["multi"][i] & 1 and status != ST_PREFILTERED):
-                # SPEC §2b: anchor best-hit tie -> pair exploration.
-                if explorer is not None:
-                    route_slots.append(len(batch_calls))
-                    routed.append((name, seq))
-                    batch_calls.append(None)
-                    continue
-                with timed(times, "slowpath_multihit"):
-                    batch_calls.append(call_read_multi(
-                        slowpath[0], slowpath[1], name, seq, cfg,
-                        prefilter))
-                continue
-            batch_calls.append(call_from_row(res, i, name, seq))
-        if rescued:
-            with timed(times, "slowpath_rescue"):
-                calls = call_reads_multi_batch(slowpath[0], slowpath[1],
-                                               rescued, cfg, prefilter)
-            for slot, call in zip(rescue_slots, calls):
-                batch_calls[slot] = call
-        handle = None
-        if routed:
-            with timed(times, "explore_dispatch"):
-                handle = explorer.dispatch(routed)
-        return batch_calls, route_slots, handle
-
-    def flush() -> None:
-        nonlocal batch_id
-        if not buf:
-            return
-        this_id = batch_id
-        batch_id += 1
-        if this_id in done:
-            replay = done[this_id]
-            if len(replay) != len(buf):
-                raise ValueError(
-                    f"journal batch {this_id} has {len(replay)} calls, "
-                    f"input has {len(buf)}: input changed since journal")
-            inflight.append((this_id, replay, None, None, None))
-        else:
-            with timed(times, "encode"):
-                arr, lens = encode_batch([seq for _, seq in buf], bs, Lp)
-            with timed(times, "device_dispatch"):
-                copy = HostCopy(
-                    dispatch(arr, lens) if dispatch is not None
-                    else dispatch_packed(dindex, arr, lens, cfg, prefilter))
-            inflight.append((this_id, list(buf), copy, arr, lens))
-        buf.clear()
-        if len(inflight) > pipeline_depth:
-            consume()
-
-    def loose(call: ReadCall) -> None:
-        # Skipped reads keep their position relative to batch results
-        # by riding the same FIFO (coalesced when consecutive).
-        if inflight and inflight[-1][0] is None:
-            inflight[-1][1].append(call)
-        else:
-            inflight.append((None, [call], None, None, None))
-
-    for name, seq in reads:
-        if len(seq) < 2 * cfg.anchor_len:
-            loose(ReadCall(name, seq, ST_TOO_SHORT))
-            continue
-        if len(seq) > cfg.max_read_len:
-            loose(ReadCall(name, seq, ST_TOO_LONG))
-            continue
-        buf.append((name, seq))
-        if len(buf) == bs:
-            flush()
-    flush()
-    while inflight:
-        consume()
-    while finishing:
-        finalize()
-    return out

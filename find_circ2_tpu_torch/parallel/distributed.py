@@ -21,12 +21,8 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
-from find_circ2_tpu_torch.config import Config
-from find_circ2_tpu_torch.index.build import SeedIndex
-from find_circ2_tpu_torch.io.genome import Genome
 from find_circ2_tpu_torch.parallel.mesh import (Mesh, mesh_over,
                                                 visible_devices, world)
-from find_circ2_tpu_torch.parallel.sharded import ShardedEngine
 
 # Seconds a process waits for the others, at start-up and in each
 # collective, before it fails. `find_circ --nproc` meets the others at
@@ -96,10 +92,3 @@ def stats_to_vec(stats, order) -> np.ndarray:
     """Stats counters -> fixed-order vector for allreduce_counts."""
     return np.asarray([stats.counts.get(k, 0) for k in order], np.int64)
 
-
-def make_engine(genome: Genome, index: SeedIndex, cfg: Config = Config(),
-                prefilter: bool = True, index_parallel: int | None = None,
-                devices=None) -> ShardedEngine:
-    """ShardedEngine over the global mesh (one process or several)."""
-    return ShardedEngine(genome, index, global_mesh(index_parallel, devices),
-                         cfg, prefilter)

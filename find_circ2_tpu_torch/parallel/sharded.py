@@ -207,7 +207,7 @@ class ShardedEngine:
     def dispatch_packed(self, reads: np.ndarray, lens: np.ndarray
                         ) -> torch.Tensor:
         """The packed rows of a batch, enqueued without waiting (the
-        streaming loops' `dispatch`). Pair with `redo_packed` on the
+        streaming loop's `dispatch`). Pair with `redo_packed` on the
         multi bit 3 overflow flag (their `redo`)."""
         return self._packed(reads, lens, classic=False)
 

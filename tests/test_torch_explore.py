@@ -1,5 +1,5 @@
 """The PyTorch port's §2b multi-hit explore path (find_circ2_tpu_torch/ops/
-explore, models/pipeline.DeviceExplorer and the streaming loops' explore
+explore, models/pipeline.DeviceExplorer and the streaming loop's explore
 modes) against the reference JAX package and the CPU oracle on the CPU,
 on repeat-rich RNase-R libraries. Tolerance 0: every output is an
 integer."""
@@ -23,7 +23,7 @@ from find_circ2_tpu.ops import anchor_align as ja
 from find_circ2_tpu.ops import explore as jx
 from find_circ2_tpu.utils.simulate import rnase_r_library
 from find_circ2_tpu_torch.models import pipeline as tp
-from find_circ2_tpu_torch.models.stream import run_fastq
+from find_circ2_tpu_torch.models.stream import run_fastq, run_reads
 from find_circ2_tpu_torch.ops import anchor_align as ta
 from find_circ2_tpu_torch.ops import explore as tx
 from find_circ2_tpu_torch.ops.packed import pack_words
@@ -250,7 +250,8 @@ def test_explore_core_positions_above_2gb_match_jax():
 @pytest.mark.parametrize("mode", ["reads", "arrays"])
 def test_device_explorer_crosses_chunk_boundary(lib, jax_rows, mode):
     """More than BUCKETS[-1] routed reads split into a full chunk and a
-    padded one; both dispatch modes return the reference's rows in
+    padded one; the result arrays ("arrays"), and the ReadCalls the
+    streaming loop makes of them ("reads"), are the reference's rows in
     order."""
     _, _, _, td, reads = lib
     n = tp.DeviceExplorer.BUCKETS[-1] + 77
@@ -258,15 +259,14 @@ def test_device_explorer_crosses_chunk_boundary(lib, jax_rows, mode):
     items = (reads * reps)[:n]
     want = np.tile(jax_rows[True], (reps, 1))[:n]
     ex = tp.DeviceExplorer(td, CFG)
+    arr, lens = _encode(items)
+    chunks = ex.dispatch_arrays(arr, lens)
+    assert [c for c, _ in chunks] == [1024, 77]
+    got = ex.fetch_arrays(chunks)
     if mode == "reads":
-        handle = ex.dispatch(items)
-        assert [c for c, _ in handle[1]] == [1024, 77]
-        assert ex.fetch(handle) == _calls(want, items)
+        assert [tp.call_from_row(got, i, *r) for i, r in enumerate(items)] \
+            == _calls(want, items)
     else:
-        arr, lens = _encode(items)
-        chunks = ex.dispatch_arrays(arr, lens)
-        assert [c for c, _ in chunks] == [1024, 77]
-        got = ex.fetch_arrays(chunks)
         ref = tp.unpack_results(want)
         assert set(got) == set(ref)
         for key in ref:
@@ -288,9 +288,9 @@ def test_run_reads_explore_modes_match_oracle(lib, oracle_calls, explore):
     2-mm rescue on."""
     sim, index, _, td, _ = lib
     times = StageTimes()
-    calls = tp.run_reads(td, sim.reads[:200], CFG, batch_size=64,
-                         times=times, slowpath=(sim.genome, index),
-                         explore=explore)
+    calls = run_reads(td, sim.reads[:200], CFG, batch_size=64,
+                      times=times, slowpath=(sim.genome, index),
+                      explore=explore)
     assert [astuple(c) for c in calls] == [astuple(c) for c in oracle_calls]
     ran = "explore_dispatch" if explore is None else "slowpath_multihit"
     gone = "slowpath_multihit" if explore is None else "explore_dispatch"
@@ -308,7 +308,7 @@ def test_explore_true_without_extras_raises(tmp_path, entry):
     slowpath = (sim.genome, index)
     with pytest.raises(ValueError, match="extras"):
         if entry == "run_reads":
-            tp.run_reads(td, sim.reads, CFG, slowpath=slowpath, explore=True)
+            run_reads(td, sim.reads, CFG, slowpath=slowpath, explore=True)
         else:
             fq = tmp_path / "r.fastq"
             fq.write_text("@r\n" + "ACGT" * 20 + "\n+\n" + "I" * 80 + "\n")

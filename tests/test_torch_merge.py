@@ -19,6 +19,7 @@ from find_circ2_tpu.parallel.sharded import ShardedEngine as JEngine
 from find_circ2_tpu.utils.simulate import simulate
 from find_circ2_tpu_torch.models import pipeline as tp
 from find_circ2_tpu_torch.models.aggregate import Aggregator
+from find_circ2_tpu_torch.models.stream import run_reads
 from find_circ2_tpu_torch.ops import merge as tm
 from find_circ2_tpu_torch.parallel.mesh import make_mesh
 from find_circ2_tpu_torch.parallel.sharded import ShardedEngine
@@ -58,7 +59,7 @@ def test_device_merge_matches_host_aggregation():
     for k in jres:
         assert np.array_equal(res[k].numpy(), np.asarray(jres[k])), k
     agg = Aggregator(sim.genome, CFG)
-    for c in tp.run_reads(td, sim.reads, CFG):
+    for c in run_reads(td, sim.reads, CFG):
         agg.add(c)
     table = {k: v.numpy() for k, v in
              tm.merge_junctions(res, torch.from_numpy(lens), CFG).items()}

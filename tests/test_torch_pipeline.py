@@ -29,7 +29,7 @@ from find_circ2_tpu_torch.cli import main as cli_main
 from find_circ2_tpu_torch.io.bed import write_bed as twrite_bed
 from find_circ2_tpu_torch.models import pipeline as tp
 from find_circ2_tpu_torch.models.aggregate import Aggregator as TAggregator
-from find_circ2_tpu_torch.models.stream import run_fastq
+from find_circ2_tpu_torch.models.stream import run_fastq, run_reads
 from find_circ2_tpu_torch.utils.journal import RunJournal
 from find_circ2_tpu_torch.utils.profiling import StageTimes
 
@@ -110,8 +110,7 @@ def test_overflow_redo_keeps_oracle_equality(lib):
     arr, lens = _batch(sim.reads, cfg.batch_size)
     packed = tp.dispatch_packed(td, arr, lens, cfg).numpy()
     assert (tp.unpack_results(packed)["multi"] & 8).all()
-    calls = tp.run_reads(td, sim.reads, cfg,
-                         slowpath=(sim.genome, index))
+    calls = run_reads(td, sim.reads, cfg, slowpath=(sim.genome, index))
     assert len(calls) == len(sim.reads)
     for (name, seq), dc in zip(sim.reads, calls):
         assert astuple(dc) == astuple(call_read(sim.genome, index, name, seq,
@@ -124,11 +123,15 @@ def _render(agg, write=write_bed):
     return buf.getvalue(), sorted(agg.stats.counts.items())
 
 
+def _reads(sim):
+    """The library's reads, one too short and one too long added."""
+    return list(sim.reads) + [("tiny", "ACGT" * 8), ("huge", "ACGT" * 50)]
+
+
 def _fastq(sim, tmp_path):
-    reads = list(sim.reads) + [("tiny", "ACGT" * 8), ("huge", "ACGT" * 50)]
     fq = tmp_path / "r.fastq"
     with open(fq, "wt") as fh:
-        for name, seq in reads:
+        for name, seq in _reads(sim):
             write_fastq(fh, FastqRecord(name, seq, "I" * len(seq)))
     return fq
 
@@ -199,24 +202,81 @@ def test_stalled_rescue_worker_runs_inline(lib, tmp_path, monkeypatch):
     assert took < Pool.TIMEOUT_S / 4, took
 
 
-def test_run_fastq_journal_explores_per_read(lib, tmp_path):
-    """With a journal, routed reads take the per-read explore mode
-    (ReadCalls for the replay records); BED and stats equal the
-    reference's, on the first run and on the replay."""
-    sim, index, jd, td = lib
+@pytest.fixture(scope="module")
+def jax_fastq(lib, tmp_path_factory):
+    """The reference's run_fastq on `_fastq`'s file, slow path on: its
+    BED and stats."""
+    sim, index, jd, _ = lib
+    fq = _fastq(sim, tmp_path_factory.mktemp("jax_fastq"))
+    agg = Aggregator(sim.genome, CFG)
+    jrun_fastq(jd, fq, agg, CFG, slowpath=(sim.genome, index))
+    return _render(agg)
+
+
+def test_run_fastq_journal_explores_from_rows(lib, jax_fastq, tmp_path,
+                                              monkeypatch):
+    """With a journal, routed reads are explored from the batch's own
+    rows (DeviceExplorer.dispatch_arrays), not on the host twin; BED and
+    stats equal the reference's, on the first run and on the replay."""
+    sim, index, _, td = lib
     fq = _fastq(sim, tmp_path)
-    sp = (sim.genome, index)
-    agg_j = Aggregator(sim.genome, CFG)
-    jrun_fastq(jd, fq, agg_j, CFG, slowpath=sp)
-    want = _render(agg_j)
+    seen = []       # the rows of each DeviceExplorer.dispatch_arrays call
+    orig = tp.DeviceExplorer.dispatch_arrays
+
+    def watched(self, arr, lens):
+        seen.append(int(arr.shape[0]))
+        return orig(self, arr, lens)
+    monkeypatch.setattr(tp.DeviceExplorer, "dispatch_arrays", watched)
     for run in range(2):
         agg_t = TAggregator(sim.genome, CFG)
         times = StageTimes()
-        run_fastq(td, fq, agg_t, CFG, slowpath=sp, times=times,
-                  journal=RunJournal(str(tmp_path / "j.jsonl")))
-        assert _render(agg_t, twrite_bed) == want
+        run_fastq(td, fq, agg_t, CFG, slowpath=(sim.genome, index),
+                  times=times, journal=RunJournal(str(tmp_path / "j.jsonl")))
+        assert _render(agg_t, twrite_bed) == jax_fastq
         assert ("explore_dispatch" in times.counts) == (run == 0)
         assert "slowpath_multihit" not in times.counts
+        if run == 0:
+            assert times.counts["explore_dispatch/reads"] == sum(seen) > 0
+            assert times.counts["explore_dispatch"] == len(seen)
+
+
+@pytest.mark.parametrize("journal", [False, True],
+                         ids=["no_journal", "journal"])
+@pytest.mark.parametrize("explore", [None, False],
+                         ids=["explore_device", "explore_host"])
+def test_one_loop_both_sources(lib, jax_fastq, tmp_path, explore, journal):
+    """Both sources of the one streaming loop over the same reads (tiny
+    and huge ones included): run_reads' calls added to an Aggregator, and
+    run_fastq, give the reference run_fastq's BED and stats, with §2b on
+    the device or on the host twin; every journal replays to them."""
+    sim, index, _, td = lib
+    reads = _reads(sim)
+    fq = _fastq(sim, tmp_path)
+    sp = (sim.genome, index)
+
+    def journal_of(name):
+        return RunJournal(str(tmp_path / name)) if journal else None
+
+    for run in range(1 + journal):
+        times = StageTimes()
+        calls = run_reads(td, reads, CFG, slowpath=sp, explore=explore,
+                          journal=journal_of("reads.jsonl"), times=times)
+        assert [c.name for c in calls] == [n for n, _ in reads]
+        agg = TAggregator(sim.genome, CFG)
+        for call in calls:
+            agg.add(call)
+        assert _render(agg, twrite_bed) == jax_fastq
+        assert ("device_dispatch" in times.counts) == (run == 0)
+        agg = TAggregator(sim.genome, CFG)
+        times = StageTimes()
+        run_fastq(td, fq, agg, CFG, slowpath=sp, explore=explore,
+                  journal=journal_of("fastq.jsonl"), times=times)
+        assert _render(agg, twrite_bed) == jax_fastq
+        assert ("device_dispatch" in times.counts) == (run == 0)
+        if run == 0:
+            host = "slowpath_multihit" in times.counts
+            assert host == (explore is False)
+            assert ("explore_dispatch" in times.counts) == (not host)
 
 
 def test_run_reads_matches_oracle_on_simulated_reads():
@@ -225,7 +285,7 @@ def test_run_reads_matches_oracle_on_simulated_reads():
     index = build_index(sim.genome, CFG)
     td = tp.DeviceIndex.build(sim.genome, index, CFG, device="cpu")
     for prefilter in (True, False):
-        calls = tp.run_reads(td, sim.reads, CFG, prefilter)
+        calls = run_reads(td, sim.reads, CFG, prefilter)
         want = [call_read(sim.genome, index, n, s, CFG, prefilter)
                 for n, s in sim.reads]
         assert [astuple(c) for c in calls] == [astuple(c) for c in want]

@@ -182,7 +182,7 @@ def test_streaming_loops_redo_through_engine(tmp_path):
     from find_circ2_tpu_torch.io.bed import write_bed
     from find_circ2_tpu_torch.models.aggregate import Aggregator
     from find_circ2_tpu_torch.models.oracle import call_read
-    from find_circ2_tpu_torch.models.stream import run_fastq
+    from find_circ2_tpu_torch.models.stream import run_fastq, run_reads
     cfg = dataclasses.replace(CFG, exact_fallback_slots=2)
     sim = simulate(seed=33, n_circ=5, n_linear=3, reads_per_junction=3,
                    n_contiguous=10, n_random=6, err_rate=0.3)
@@ -196,7 +196,7 @@ def test_streaming_loops_redo_through_engine(tmp_path):
         return eng.redo_packed(arr, lens)
 
     hooks = dict(dispatch=eng.dispatch_packed, redo=redo)
-    calls = tp.run_reads(None, sim.reads, cfg, slowpath=slowpath, **hooks)
+    calls = run_reads(None, sim.reads, cfg, slowpath=slowpath, **hooks)
     assert redone and len(calls) == len(sim.reads)
     for (name, seq), c in zip(sim.reads, calls):
         assert dataclasses.astuple(c) == dataclasses.astuple(
