@@ -1,16 +1,16 @@
 """Junction aggregation, category flags, and BED table construction.
 
 Host-side, shared by the CPU oracle and the device path — per-read
-`ReadCall` records and device result rows flow in, `JunctionRow`s flow
-out. Semantics: SPEC.md §5 / SURVEY.md §3.5 (one pass over every
-junction read at EOF). The table stays columnar from the buffered reads
-to the rows: one sort in the BED's own order, reductions by segment.
+`ReadCall` records and device result rows flow in, the BED table's
+columns (`JunctionRows`) flow out. Semantics: SPEC.md §5 / SURVEY.md
+§3.5 (one pass over every junction read at EOF). The table stays
+columnar from the buffered reads to the BED's lines: one sort in the
+BED's own order, reductions by segment.
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass, field
-from itertools import repeat
 
 import numpy as np
 
@@ -23,7 +23,7 @@ from find_circ2_tpu_torch.config import (
     ST_JUNCTION,
     STATUS_NAMES,
 )
-from find_circ2_tpu_torch.io.bed import JunctionRow
+from find_circ2_tpu_torch.io.bed import JunctionRows
 from find_circ2_tpu_torch.io.genome import Genome
 from find_circ2_tpu_torch.io.twobit import _BASE_LUT
 from find_circ2_tpu_torch.models.oracle import ReadCall
@@ -289,7 +289,10 @@ class Aggregator:
         t["n_uniq"] = np.bincount(gs[newp], minlength=G)
         return t
 
-    def rows(self, sample_name: str = "sample", prefix: str = "") -> list[JunctionRow]:
+    def rows(self, sample_name: str = "sample",
+             prefix: str = "") -> JunctionRows:
+        """The BED table as columns (`JunctionRows`); its `JunctionRow`s
+        are built only if a caller asks for one."""
         with span("drain"):
             t = self.table()
         circ = t["kind"] == KIND_CIRCULAR
@@ -312,18 +315,17 @@ class Aggregator:
             chrom = t["chrom"]
             offset = self.genome.chrom_offsets[chrom]
             n_l = n_reads.tolist()
-            # JunctionRow's fields in their order (io/bed.py).
-            out = list(map(
-                JunctionRow,
+            # BED_COLUMNS in their order (io/bed.py).
+            out = JunctionRows([
                 np.array(self.genome.chrom_names, object)[chrom].tolist(),
                 (t["start"] - offset).tolist(), (t["end"] - offset).tolist(),
                 names, n_l, STRANDS[t["sense"]].tolist(),
                 t["n_uniq"].tolist(), t["uniq_bridges"].tolist(),
                 t["best_qual_left"].tolist(), t["best_qual_right"].tolist(),
-                repeat(sample_name), map(str, n_l), t["edits"].tolist(),
-                t["overlap"].tolist(), t["n_bp"].tolist(),
-                t["signal"].astype("U4").tolist(),
-                STRANDMATCH[sm].tolist(), category_table()[code].tolist()))
+                [sample_name] * len(n_l), list(map(str, n_l)),
+                t["edits"].tolist(), t["overlap"].tolist(),
+                t["n_bp"].tolist(), t["signal"].astype("U4").tolist(),
+                STRANDMATCH[sm].tolist(), category_table()[code].tolist()])
             n_circ = int(circ.sum())
             self.stats.counts["circular_junctions"] = n_circ
             self.stats.counts["linear_junctions"] = len(out) - n_circ

@@ -444,10 +444,29 @@ def _port_feed(agg, calls, cfg, n_scalar, batch=97):
                       paggregate.seq_hash_batch(arr))
 
 
-def _text(bed_m, agg, prefix):
+def _bed(bed_m, rows):
     buf = io.StringIO()
-    bed_m.write_bed(buf, agg.rows(sample_name="s", prefix=prefix))
-    return buf.getvalue(), agg.stats.lines()
+    bed_m.write_bed(buf, rows)
+    return buf.getvalue()
+
+
+def _text(bed_m, agg, prefix):
+    return _bed(bed_m, agg.rows(sample_name="s", prefix=prefix)), \
+        agg.stats.lines()
+
+
+def _three_beds(bed_m, agg, prefix):
+    """The BED written from the rows untouched (the port writes its
+    table's columns), from the same rows once iterated (the port writes
+    its row objects), and from the rows passes_filter keeps."""
+    rows = agg.rows(sample_name="s", prefix=prefix)
+    beds = [_bed(bed_m, rows)]
+    every = list(rows)
+    beds.append(_bed(bed_m, rows))
+    kept = [r for r in rows if bed_m.passes_filter(r)]
+    assert 0 < len(kept) < len(every)
+    beds.append(_bed(bed_m, kept))
+    return beds, agg.stats.lines()
 
 
 @pytest.mark.parametrize("stranded", [False, True])
@@ -457,7 +476,9 @@ def test_columnar_table_matches_reference_aggregator(stranded, prefix,
                                                      n_scalar):
     """The port's table fed through add and add_batch in turns (the same
     junction across batches and across both paths) against the
-    reference's fed every call through add: BED and stats as text."""
+    reference's fed every call through add: BED and stats as text, the
+    BED written from the rows untouched, from the rows once iterated and
+    from the filter's rows (`_three_beds`)."""
     texts = []
     for m_agg, m_bed, m_or, m_cfg, m_genome in (
             (raggregate, rbed, roracle, rconfig, rgenome),
@@ -472,9 +493,10 @@ def test_columnar_table_matches_reference_aggregator(stranded, prefix,
                 agg.add(call)
         else:
             _port_feed(agg, calls, cfg, n_scalar)
-        texts.append(_text(m_bed, agg, prefix))
-    bed, stats = texts[1]
+        texts.append(_three_beds(m_bed, agg, prefix))
     assert texts[0] == texts[1]
+    bed = texts[1][0][0]
+    assert texts[1][0][1] == bed
     rows = [line.split("\t") for line in bed.splitlines()[1:]]
     assert [r[0] for r in rows] == sorted(r[0] for r in rows)
     assert any(int(r[6]) < int(r[4]) for r in rows)        # n_uniq < n_reads
@@ -529,6 +551,44 @@ def test_table_order_is_renumbers():
     assert empty.rows() == []
     assert empty.stats.lines() == ["circular_junctions\t0",
                                    "linear_junctions\t0"]
+
+
+@pytest.mark.parametrize("first", ["len", "index", "iter", "reversed",
+                                   "eq", "write"])
+def test_junction_rows_behave_as_their_list(first):
+    """`rows()`'s JunctionRows against the list of JunctionRow it stands
+    for, whichever of its list operations a caller asks for first: the
+    rows are built once, on the first that needs a row, and each line
+    written from the columns is that row's to_line."""
+    cfg = pconfig.Config(stranded=True)
+    genome = pgenome.Genome.from_records(
+        [(n, "ACGT" * (ln // 4)) for n, ln in CHROMS], cfg)
+    agg = paggregate.Aggregator(genome, cfg)
+    _port_feed(agg, _junction_calls(poracle, genome, seed=4), cfg, 60)
+    want = list(agg.rows(sample_name="s", prefix="q"))
+    assert type(want[0]) is pbed.JunctionRow and len(want) > 10
+    rows = agg.rows(sample_name="s", prefix="q")
+    assert isinstance(rows, pbed.JunctionRows) and rows.built is None
+    ops = {"len": lambda: len(rows) == len(want),
+           "index": lambda: (rows[0], rows[-1], rows[2:5])
+           == (want[0], want[-1], want[2:5]),
+           "iter": lambda: [r for r in rows] == want,
+           "reversed": lambda: list(reversed(rows)) == want[::-1],
+           "eq": lambda: rows == want and want == rows
+           and rows != want[:-1] and rows != tuple(want),
+           "write": lambda: _bed(pbed, rows).splitlines()[1:]
+           == [r.to_line() for r in want]}
+    assert ops[first]()
+    assert (rows.built is None) == (first in ("len", "write"))
+    built = rows.built
+    for name, op in ops.items():
+        assert op(), name
+    assert rows.built is not None and (built is None
+                                       or rows.built is built)
+    assert rows == agg.rows(sample_name="s", prefix="q")
+    empty = paggregate.Aggregator(genome, cfg).rows()
+    assert empty == [] and len(empty) == 0 and list(empty) == []
+    assert _bed(pbed, empty) == pbed.HEADER + "\n"
 
 
 def test_journal_records_match(tmp_path, sim):

@@ -12,7 +12,7 @@ import pytest
 
 from find_circ2_tpu_torch.config import Config
 from find_circ2_tpu_torch.index.build import build_index
-from find_circ2_tpu_torch.io.bed import write_bed
+from find_circ2_tpu_torch.io.bed import passes_filter, write_bed
 from find_circ2_tpu_torch.io.fastq import FastqRecord, write_fastq
 from find_circ2_tpu_torch.models import stream
 from find_circ2_tpu_torch.models.aggregate import Aggregator
@@ -200,6 +200,35 @@ def test_final_table_counts_its_reads_and_junctions(lib):
 
 def test_one_pass_output_equals_without_a_recorder(lib):
     assert one_pass(lib, StageTimes()) == one_pass(lib, None)
+
+
+def test_the_writer_counts_its_lines_by_path(lib):
+    """Under one stage, an unfiltered table's rows() and write_bed write
+    every junction from the columns (`table_lines`) and build no row; a
+    filter's iteration builds the rows under the stage's own `build` (a
+    second entry, after the columns'), and the kept rows are written one
+    row object at a time (`row_lines`)."""
+    sim, index, dindex, fq = lib
+    agg = Aggregator(sim.genome, CFG)
+    stream.run_fastq(dindex, fq, agg, CFG, slowpath=(sim.genome, index))
+    t = StageTimes()
+    with t.stage("pass"):
+        rows = agg.rows(sample_name="s")
+        bed = io.StringIO()
+        write_bed(bed, rows)
+    assert t.counts["pass/table_lines"] == len(rows) \
+        == bed.getvalue().count("\n") - 1 > 0
+    assert t.counts["pass/build"] == 1 and rows.built is None
+    assert "pass/row_lines" not in t.counts
+    with t.stage("rows"):
+        rows = agg.rows(sample_name="s")
+        kept = [r for r in rows if passes_filter(r)]
+    with t.stage("write"):
+        write_bed(io.StringIO(), kept)
+    assert t.counts["rows/build"] == 2
+    assert t.totals["rows/build"] <= t.totals["rows"]
+    assert t.counts["write/row_lines"] == len(kept) > 0
+    assert "write/table_lines" not in t.counts
 
 
 def test_inline_rescue_counts_its_own_worker_time(lib, monkeypatch):
