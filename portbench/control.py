@@ -27,7 +27,7 @@ def readings(root: str, workload: str, seeds: list[int],
              device: str = "cuda") -> list[dict]:
     """Per seed, the sound pass's and the control pass's numbers."""
     from find_circ2_tpu_torch.utils.profiling import StageTimes
-    from portbench import harness, library
+    from portbench import harness
     from portbench.reference import compare
     cell, cfg, garr, genome, index, dindex = harness.setup(root, workload,
                                                            device)
@@ -35,18 +35,16 @@ def readings(root: str, workload: str, seeds: list[int],
     control = {**fc, **cell.params["control"]}
     out = []
     for seed in seeds:
-        reads = library.make_reads(garr, cell.traffic, seed, cfg.anchor_len)
         with tempfile.TemporaryDirectory(prefix="portbench-") as tmp:
-            fastq = os.path.join(tmp, "library.fastq")
-            with open(fastq, "wb") as fh:
-                fh.write(library.fastq_bytes(reads))
-            rec = {"seed": seed, "reads": int(reads.shape[0])}
+            fastqs, n_reads = harness.write_library(
+                garr, cell.traffic, seed, cfg.anchor_len, tmp)
+            rec = {"seed": seed, "reads": n_reads}
             passes = {}
             for name, settings in (("sound", fc), ("control", control)):
                 prog = harness.Program(genome, index, dindex, cfg, settings,
-                                       fastq, tmp)
+                                       fastqs, tmp)
                 passes[name] = prog.one_pass(StageTimes())
-            ref = compare.reference(garr, fastq, fc, seed,
+            ref = compare.reference(garr, fastqs, fc, seed,
                                     harness.REFERENCE_WORKERS)
             rec["oracle_calls_differing"] = ref.oracle_calls_differing
             for name, (bed, stats) in passes.items():

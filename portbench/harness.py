@@ -9,8 +9,10 @@ traffic file `portbench/traffic/<traffic>.json`, the cell's file
 the number or None.
 
 A pass is what `find_circ` does after its set-up (cli/find_circ.py):
-an Aggregator, `run_fastq` over the library's FASTQ with §2b on the
-device and the host re-calls in their forked worker, the rows, the
+an Aggregator, `run_fastq` over each of the library's FASTQ files in
+turn with §2b on the device and the host re-calls in their forked
+worker (a paired-end configuration, `"pe": true`, reverse-complements
+every odd-indexed file, mate 2, as `--pe` does), the rows, the
 `--filter` stack where the configuration has it, and the BED and stats
 written. Passes run back to back until the window's seconds are up; the
 one running at the deadline finishes.
@@ -107,10 +109,16 @@ class Program:
     """The system under test after its set-up: the device index, the
     host slow path's genome and index, and the pass."""
 
-    def __init__(self, genome, index, dindex, cfg, fc: dict, fastq: str,
-                 outdir: str) -> None:
+    def __init__(self, genome, index, dindex, cfg, fc: dict,
+                 fastqs: list[str], outdir: str) -> None:
+        # find_circ --pe refuses an odd number of files; a configuration
+        # and a library that disagree on pairs would run as neither.
+        if bool(fc.get("pe", False)) != (len(fastqs) == 2):
+            raise SystemExit(f"portbench: a configuration with pe "
+                             f"{bool(fc.get('pe', False))} cannot run a "
+                             f"library of {len(fastqs)} file(s)")
         self.genome, self.index, self.dindex = genome, index, dindex
-        self.cfg, self.fc, self.fastq = cfg, fc, fastq
+        self.cfg, self.fc, self.fastqs = cfg, fc, fastqs
         self.bed_path = os.path.join(outdir, "junctions.bed")
         self.stats_path = os.path.join(outdir, "junctions.stats")
 
@@ -121,8 +129,10 @@ class Program:
         from find_circ2_tpu_torch.models.stream import run_fastq
         fc = self.fc
         agg = Aggregator(self.genome, self.cfg)
-        run_fastq(self.dindex, self.fastq, agg, self.cfg, fc["prefilter"],
-                  times=times, slowpath=(self.genome, self.index))
+        for fi, path in enumerate(self.fastqs):
+            run_fastq(self.dindex, path, agg, self.cfg, fc["prefilter"],
+                      times=times, slowpath=(self.genome, self.index),
+                      revcomp=bool(fc.get("pe", False) and fi % 2))
         with times.stage("pass.rows"):
             rows = agg.rows(sample_name=fc["name"], prefix=fc["prefix"])
             if fc["filter"]:
@@ -219,8 +229,7 @@ def check_capture(tallies: dict, counts: dict, stage_n: dict) -> None:
     fallback slice per `device_dispatch` stage, one routing count per
     `explore_dispatch` stage, and at least one explore chunk for each of
     them. A wrapper that never fired (a renamed function, one imported by
-    name) would leave the rooflines and `explore.routed_pct` reading less
-    work than was done."""
+    name) would leave the rooflines reading less work than was done."""
     batches = stage_n.get("device_dispatch", 0)
     want = {"detect_batches": batches, "slices": batches,
             "dispatches": stage_n.get("explore_dispatch", 0)}
@@ -231,6 +240,18 @@ def check_capture(tallies: dict, counts: dict, stage_n: dict) -> None:
         raise SystemExit(f"portbench: the traced passes' captures {got} "
                          f"(explore chunks {tallies['explore_chunks']}) "
                          f"disagree with the program's {want}")
+
+
+def check_routed(counts: dict, stage_n: dict) -> None:
+    """SystemExit unless the routing wrapper (`count_routed`) saw one call
+    a timed `explore_dispatch` stage and, where the program counts them
+    (`explore_dispatch/reads`), the reads its loop routed."""
+    want = (stage_n.get("explore_dispatch", 0),
+            stage_n.get("explore_dispatch/reads", counts.get("routed", 0)))
+    got = (counts.get("dispatches", 0), counts.get("routed", 0))
+    if got != want:
+        raise SystemExit(f"portbench: the routing wrapper counted "
+                         f"(dispatches, reads) {got}, the program {want}")
 
 
 def _real(lens) -> int:
@@ -326,6 +347,22 @@ def card_line() -> str:
         return f"nvidia-smi: {e}"
 
 
+def write_library(garr: dict, traffic: dict, seed: int, anchor_len: int,
+                  outdir: str) -> tuple[list[str], int]:
+    """The library for `seed` as FASTQ under `outdir`: the paths of its
+    files (`library.fastq`; `library_1.fastq` and `library_2.fastq` for
+    mate 1 and mate 2) and its reads, every mate counted."""
+    from portbench import library
+    files = library.make_library(garr, traffic, seed, anchor_len)
+    names = (["library.fastq"] if len(files) == 1 else
+             [f"library_{k + 1}.fastq" for k in range(len(files))])
+    paths = [os.path.join(outdir, n) for n in names]
+    for path, data in zip(paths, library.fastq_files(files)):
+        with open(path, "wb") as fh:
+            fh.write(data)
+    return paths, sum(int(r.shape[0]) for r in files)
+
+
 def setup(root: str, workload: str, device: str):
     """A cell's set-up up to its library: the cell, the port's Config,
     the genome arrays, the port's Genome and SeedIndex (from the index
@@ -356,20 +393,15 @@ def run_cell(root: str, workload: str, seed: int, seconds: float,
     """One run of a cell: the result object, its checks last."""
     import torch
     from find_circ2_tpu_torch.utils.profiling import StageTimes
-    from portbench import library
     from portbench.reference import compare
 
     cell, cfg, garr, genome, index, dindex = setup(root, workload, device)
     fc = cell.conf["find_circ"]
     on_card = device == "cuda"
-    reads = library.make_reads(garr, cell.traffic, seed, cfg.anchor_len)
-    n_reads = int(reads.shape[0])
     with tempfile.TemporaryDirectory(prefix="portbench-") as tmp:
-        fastq = os.path.join(tmp, "library.fastq")
-        with open(fastq, "wb") as fh:
-            fh.write(library.fastq_bytes(reads))
-        del reads
-        program = Program(genome, index, dindex, cfg, fc, fastq, tmp)
+        fastqs, n_reads = write_library(garr, cell.traffic, seed,
+                                        cfg.anchor_len, tmp)
+        program = Program(genome, index, dindex, cfg, fc, fastqs, tmp)
         outputs = {}
 
         def keep(out):
@@ -393,11 +425,8 @@ def run_cell(root: str, workload: str, seed: int, seconds: float,
                 if time.perf_counter() >= deadline:
                     break
             window_s = time.perf_counter() - t0
-        if trace and (counts.get("dispatches", 0)
-                      != times.counts.get("explore_dispatch", 0)):
-            raise SystemExit(f"portbench: {counts.get('dispatches', 0)} "
-                             f"explore dispatches counted, the program "
-                             f"timed {times.counts.get('explore_dispatch', 0)}")
+        if trace:
+            check_routed(counts, times.counts)
         log(f"window: {passes} passes, {passes * n_reads:,} reads in "
             f"{window_s:.3f} s; stages:\n{times.report(wall=window_s)}")
         peak = torch.cuda.max_memory_allocated() if on_card else 0
@@ -407,14 +436,14 @@ def run_cell(root: str, workload: str, seed: int, seconds: float,
         run = types.SimpleNamespace(
             reads=passes * n_reads, passes=passes, window_s=window_s,
             stage_s=dict(times.totals), stage_n=dict(times.counts),
-            routed=counts.get("routed", 0), profile=prof, bounds=tallies)
+            profile=prof, bounds=tallies)
         del program, dindex
         if on_card:
             torch.cuda.empty_cache()
         # The reference runs once the window has closed and the program's
         # device state is freed; every pass is held against it.
         t_ref = time.perf_counter()
-        ref = compare.reference(garr, fastq, fc, seed, REFERENCE_WORKERS)
+        ref = compare.reference(garr, fastqs, fc, seed, REFERENCE_WORKERS)
         ref_s = time.perf_counter() - t_ref
     worst = dict.fromkeys(PASS_NUMBERS, 0)
     failed_passes = 0

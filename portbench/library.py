@@ -25,6 +25,20 @@ substitutions with mean `errors_per_read` (independent base errors; the
 port's rnase_r_library gives at most one), and a junction read is
 reverse-complemented with probability `revcomp_frac`. The reads are
 shuffled, named `r<i>`, and written as FASTQ with quality `I`.
+
+`mates: 2` makes a paired-end library (`make_pairs`, loci traffic
+only), two files as `find_circ --pe` reads them. A draw's depth and the
+shares then count fragments. A fragment is `insert_mean` +- `insert_sd`
+bases long (normal, clipped to at least `read_len`); a junction fragment
+crosses its junction at an offset uniform in [anchor, length - anchor],
+so the junction lies in mate 1, in mate 2, in both (a fragment shorter
+than two reads) or in neither, and a circle shorter than its fragment is
+read around again. Mate 1 reads the fragment's first `read_len` bases,
+mate 2 the reverse complement of its last; a fragment is read from its
+other strand, mate 1 antisense and mate 2 sense, with probability
+`revcomp_frac` (1.0: dUTP / TruSeq Stranded libraries). Each mate takes
+its own substitutions. Pair i is `r<i>/1` in the first file and `r<i>/2`
+in the second (SPEC.md §7).
 """
 
 from __future__ import annotations
@@ -62,6 +76,36 @@ def _depths(n: int, mean: float) -> np.ndarray:
     return 1 + np.ceil(np.log1p(-u) / np.log1p(-p)).astype(np.int64)
 
 
+def _locus_draws(rng, genome, traffic):
+    """Per junction kind, (circular, chrom, j1, j2) of every draw over the
+    eligible loci, each repeated by its depth. A generator: the caller
+    draws from `rng` between the kinds, in the order make_reads always
+    has."""
+    for kind, draws, mean in (
+            ("circular", traffic["circ_draws"], traffic["circ_depth_mean"]),
+            ("linear", traffic["linear_draws"],
+             traffic["linear_depth_mean"])):
+        lk = genome["loci"][kind]
+        ok = (np.flatnonzero(lk["clean"])
+              if traffic["loci"] == "unique_flanks"
+              else np.arange(lk["chrom"].size))
+        if draws and not ok.size:
+            raise ValueError(f"no eligible {kind} locus")
+        pick = np.tile(ok, -(-int(draws) // max(ok.size, 1)))
+        pick = rng.permutation(pick)[:int(draws)]
+        depth = rng.permutation(_depths(pick.size, float(mean)))
+        at = np.repeat(pick, depth)
+        yield kind == "circular", lk["chrom"][at], lk["j1"][at], lk["j2"][at]
+
+
+def _shares(traffic, n_junction: int) -> tuple[int, int]:
+    """Contiguous and noise counts that make up their shares of the
+    library beside n_junction junction reads (or fragments)."""
+    rest = 1.0 - traffic["contiguous_frac"] - traffic["noise_frac"]
+    return (int(traffic["contiguous_frac"] * n_junction / rest),
+            int(traffic["noise_frac"] * n_junction / rest))
+
+
 def _mutate(rng, reads, rate):
     """Poisson(`rate`) substitutions in each read, each at a uniform
     position and to one of the three other bases (the port's `_mutate`
@@ -88,29 +132,11 @@ def make_reads(genome: dict, traffic: dict, seed: int,
     lens = genome["chrom_lengths"]
     L, a = int(traffic["read_len"]), anchor_len
     if traffic["junctions"] == "loci":
-        parts = []
-        for kind, draws, mean in (
-                ("circular", traffic["circ_draws"],
-                 traffic["circ_depth_mean"]),
-                ("linear", traffic["linear_draws"],
-                 traffic["linear_depth_mean"])):
-            lk = genome["loci"][kind]
-            ok = (np.flatnonzero(lk["clean"])
-                  if traffic["loci"] == "unique_flanks"
-                  else np.arange(lk["chrom"].size))
-            if draws and not ok.size:
-                raise ValueError(f"no eligible {kind} locus")
-            pick = np.tile(ok, -(-int(draws) // max(ok.size, 1)))
-            pick = rng.permutation(pick)[:int(draws)]
-            depth = rng.permutation(_depths(pick.size, float(mean)))
-            at = np.repeat(pick, depth)
-            parts.append(_junction_reads(rng, codes, offs, lk["chrom"][at],
-                                         lk["j1"][at], lk["j2"][at],
-                                         kind == "circular", L, a))
-        junction = np.concatenate(parts)
-        rest = 1.0 - traffic["contiguous_frac"] - traffic["noise_frac"]
-        n_cont = int(traffic["contiguous_frac"] * junction.shape[0] / rest)
-        n_noise = int(traffic["noise_frac"] * junction.shape[0] / rest)
+        junction = np.concatenate([
+            _junction_reads(rng, codes, offs, chrom, j1, j2, circular, L, a)
+            for circular, chrom, j1, j2 in _locus_draws(rng, genome,
+                                                        traffic)])
+        n_cont, n_noise = _shares(traffic, junction.shape[0])
     else:
         n_reads = int(traffic["n_reads"])
         n_bs = int(round(traffic["backsplice_frac"] * n_reads))
@@ -130,10 +156,121 @@ def make_reads(genome: dict, traffic: dict, seed: int,
     return reads[rng.permutation(reads.shape[0])]
 
 
-def fastq_bytes(reads: np.ndarray) -> bytes:
-    """The reads as FASTQ records `@r<i>`, quality `I` throughout."""
+def _fragment_ends(rng, codes, offs, lens, chrom, j1, j2, circular: bool,
+                   ins, L, a):
+    """The first and the last L bases of fragments of lengths `ins` over
+    junctions (j1, j2), chromosome-local, and each junction's offset in
+    its fragment. A circle's fragment runs [j2 - bp, j2) and on round the
+    circle from j1; an intron's runs [j1 - bp, j1) + [j2, ...), its
+    offset kept inside the chromosome."""
+    bp = rng.integers(a, ins - a + 1)
+    if not circular:
+        bp = np.clip(bp, np.maximum(a, ins - (lens[chrom] - j2)),
+                     np.minimum(ins - a, j1))
+    b, s, e = bp[:, None], j1[:, None], j2[:, None]
+    base = offs[chrom][:, None]
+
+    def at(k):
+        if circular:
+            return codes[base + s + np.mod(e - s - b + k, e - s)]
+        return codes[base + np.where(k < b, s - b + k, e + k - b)]
+    cols = np.arange(L)[None, :]
+    return at(cols), at(ins[:, None] - L + cols), bp
+
+
+def _contiguous_ends(rng, codes, offs, lens, ins, L):
+    c = rng.integers(0, lens.size, size=ins.size)
+    p = rng.integers(0, lens[c] - ins) + offs[c]
+    cols = np.arange(L)[None, :]
+    return (codes[p[:, None] + cols],
+            codes[(p + ins - L)[:, None] + cols], p)
+
+
+def _rc(reads: np.ndarray) -> np.ndarray:
+    return 3 - reads[:, ::-1]
+
+
+def make_pairs(genome: dict, traffic: dict, seed: int, anchor_len: int
+               ) -> tuple[np.ndarray, np.ndarray, dict]:
+    """uint8 codes [n_pairs, read_len] of mate 1 and of mate 2 of the
+    paired library for `seed` (`mates: 2`), in pair order, and per pair
+    its fragment: `source` (0 circular, 1 linear, 2 contiguous, 3
+    noise), `ins` its length, `bp` the junction's offset in it (-1
+    without), `j1`, `j2` the junction's genome positions (contiguous:
+    the fragment's start, and -1), `flip` whether it was read from its
+    other strand."""
+    if traffic["junctions"] != "loci":
+        raise ValueError("a paired library (mates: 2) needs loci traffic")
+    rng = np.random.default_rng(seed)
+    codes, offs = genome["codes"], genome["chrom_offsets"]
+    lens = genome["chrom_lengths"]
+    L, a = int(traffic["read_len"]), anchor_len
+    mean, sd = float(traffic["insert_mean"]), float(traffic["insert_sd"])
+
+    def inserts(n):
+        return np.maximum(np.rint(rng.normal(mean, sd, size=n)),
+                          L).astype(np.int64)
+    heads, tails, info = [], [], []
+    for circular, chrom, j1, j2 in _locus_draws(rng, genome, traffic):
+        ins = inserts(chrom.size)
+        h, t, bp = _fragment_ends(rng, codes, offs, lens, chrom, j1, j2,
+                                  circular, ins, L, a)
+        heads.append(h)
+        tails.append(t)
+        o = offs[chrom]
+        info.append((np.full(ins.size, 0 if circular else 1), ins, bp,
+                     j1 + o, j2 + o))
+    n_cont, n_noise = _shares(traffic, sum(h.shape[0] for h in heads))
+    ins = inserts(n_cont)
+    h, t, p = _contiguous_ends(rng, codes, offs, lens, ins, L)
+    heads.append(h)
+    tails.append(t)
+    info.append((np.full(n_cont, 2), ins, np.full(n_cont, -1), p,
+                 np.full(n_cont, -1)))
+    heads.append(rng.integers(0, 4, size=(n_noise, L), dtype=np.uint8))
+    tails.append(rng.integers(0, 4, size=(n_noise, L), dtype=np.uint8))
+    none = np.full(n_noise, -1)
+    info.append((np.full(n_noise, 3), none, none, none, none))
+    head = np.concatenate(heads).astype(np.uint8)
+    tail = np.concatenate(tails).astype(np.uint8)
+    _mutate(rng, head, traffic["errors_per_read"])
+    _mutate(rng, tail, traffic["errors_per_read"])
+    n = head.shape[0]
+    flip = rng.random(n) < traffic["revcomp_frac"]
+    mate1 = np.where(flip[:, None], _rc(tail), head)
+    mate2 = np.where(flip[:, None], head, _rc(tail))
+    order = rng.permutation(n)
+    fields = dict(zip(("source", "ins", "bp", "j1", "j2"),
+                      (np.concatenate(f).astype(np.int64)
+                       for f in zip(*info))))
+    fields["flip"] = flip
+    return (mate1[order], mate2[order],
+            {k: v[order] for k, v in fields.items()})
+
+
+def make_library(genome: dict, traffic: dict, seed: int,
+                 anchor_len: int) -> list[np.ndarray]:
+    """The library for `seed` as the reads of each FASTQ file: one file
+    of single reads, or mate 1's and mate 2's with `mates: 2`."""
+    if int(traffic.get("mates", 1)) == 2:
+        return list(make_pairs(genome, traffic, seed, anchor_len)[:2])
+    return [make_reads(genome, traffic, seed, anchor_len)]
+
+
+def fastq_bytes(reads: np.ndarray, suffix: bytes = b"") -> bytes:
+    """The reads as FASTQ records `@r<i><suffix>`, quality `I`
+    throughout."""
     n, L = reads.shape
     seqs = _ASCII[reads]
     qual = b"I" * L
-    return b"".join(b"@r%d\n%s\n+\n%s\n" % (i, seqs[i].tobytes(), qual)
+    return b"".join(b"@r%d%s\n%s\n+\n%s\n"
+                    % (i, suffix, seqs[i].tobytes(), qual)
                     for i in range(n))
+
+
+def fastq_files(files: list[np.ndarray]) -> list[bytes]:
+    """Each file of a library as FASTQ: `@r<i>`, or `@r<i>/1` and
+    `@r<i>/2` for the two mates of pair i."""
+    if len(files) == 1:
+        return [fastq_bytes(files[0])]
+    return [fastq_bytes(r, b"/%d" % (k + 1)) for k, r in enumerate(files)]

@@ -1,5 +1,6 @@
-"""The group-by of the batched junction summaries into the junction table
-(models/aggregate.Aggregator._drain_batches): microseconds of the
+"""The junction table from the aggregator's buffer of read columns
+(models/aggregate.Aggregator.table: one sort in the BED's order, the
+group-by and the reductions by segment): microseconds of the
 `pass.rows/drain` span (StageTimes, host clock) over the measured
 window, per library read. 0 where the span's parent never ran; nothing
 where the program times no such span."""

@@ -1,7 +1,10 @@
 """The plain reference of a pass, and its comparison with the program's.
 
 `reference` works a library out from the genome arrays and the FASTQ
-file the harness gave the program, in three parts:
+files the harness gave the program, in three parts (a paired-end
+configuration's mate 2, every odd-indexed file, is reverse-complemented
+first, as `find_circ --pe` does, SPEC.md §7, so every part, `n_uniq`'s
+deduplication too, sees the processed reads):
 
 - its own seed index (`seedindex.build_index`) and every read called by
   a frozen copy of the port's vectorised host caller
@@ -39,7 +42,7 @@ from portbench.reference.multihit import (anchor_candidates_batch,
                                           call_reads_multi_batch)
 from portbench.reference.oracle import call_read
 from portbench.reference.seedindex import build_index
-from portbench.reference.twobit import seq_to_codes
+from portbench.reference.twobit import revcomp_seq, seq_to_codes
 
 # Reads of a run held to the per-read oracle (about 41 reads/s a core;
 # a 2-mm rescue's read costs several times that), and the reads drawn
@@ -125,13 +128,25 @@ def reference_config(fc: dict) -> Config:
                   batch_size=int(fc["batch_size"]))
 
 
-def reference(genome_arrays: dict, fastq_path, fc: dict, seed: int,
+def processed_reads(fastq_paths, pe: bool) -> list[tuple[str, str]]:
+    """(name, sequence) of every record of the files in turn, each read
+    of an odd-indexed file reverse-complemented where `pe`."""
+    items = []
+    for fi, path in enumerate(fastq_paths):
+        recs = read_fastq(path)
+        if pe and fi % 2:
+            recs = [(name, revcomp_seq(seq)) for name, seq in recs]
+        items += recs
+    return items
+
+
+def reference(genome_arrays: dict, fastq_paths, fc: dict, seed: int,
               workers: int | None = None):
-    """The plain reference of the library at `fastq_path` under the
-    configuration's `find_circ` settings `fc`: its BED and stats text
-    (`bed`, `stats`), the plain recount's rows and counts (`rows`,
-    `counts`), and how many of the `oracle_sampled` reads the per-read
-    oracle calls otherwise than the vectorised caller
+    """The plain reference of the library in the files `fastq_paths`
+    under the configuration's `find_circ` settings `fc`: its BED and
+    stats text (`bed`, `stats`), the plain recount's rows and counts
+    (`rows`, `counts`), and how many of the `oracle_sampled` reads the
+    per-read oracle calls otherwise than the vectorised caller
     (`oracle_calls_differing`)."""
     global _STATE
     cfg = reference_config(fc)
@@ -140,7 +155,7 @@ def reference(genome_arrays: dict, fastq_path, fc: dict, seed: int,
                     chrom_offsets=np.asarray(genome_arrays["chrom_offsets"]),
                     chrom_lengths=np.asarray(genome_arrays["chrom_lengths"]))
     index = build_index(genome, cfg)
-    items = read_fastq(fastq_path)
+    items = processed_reads(fastq_paths, bool(fc.get("pe", False)))
     workers = max(1, min(workers or os.cpu_count() or 1, 8))
     sample = oracle_sample(genome, index, items, cfg, seed)
     _STATE = (genome, index, cfg, bool(fc["prefilter"]))

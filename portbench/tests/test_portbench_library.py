@@ -1,13 +1,14 @@
 """The genome generator and the traffic generator: the configuration fixes
-the genome and its loci, `--seed` draws only the library, and the
-unique-flanks mix draws no locus whose flanks touch a planted repeat."""
+the genome and its loci, `--seed` draws only the library, the
+unique-flanks mix draws no locus whose flanks touch a planted repeat,
+and a paired library's mates are the two ends of one fragment."""
 
 import numpy as np
 import pytest
 
 from portbench import genome as pg
 from portbench import library
-from portbench.tests.tiny import tiny_conf, tiny_traffic
+from portbench.tests.tiny import pe_traffic, tiny_conf, tiny_traffic
 
 A = 20
 
@@ -112,3 +113,88 @@ def test_unique_flanks_draws_no_locus_in_repeats(g):
     assert not _found(unique, kmers)
     enriched = library.make_reads(g, tiny_traffic("enriched"), 9, A)
     assert _found(enriched, kmers)
+
+
+def _fragment(codes, info, i) -> np.ndarray:
+    """Pair i's fragment from its geometry, base by base."""
+    src, n, bp, j1, j2 = (int(info[k][i])
+                          for k in ("source", "ins", "bp", "j1", "j2"))
+    if src == 0:
+        return np.array([codes[j1 + (j2 - j1 - bp + k) % (j2 - j1)]
+                         for k in range(n)])
+    if src == 1:
+        return np.array([codes[j1 - bp + k] if k < bp else codes[j2 + k - bp]
+                         for k in range(n)])
+    return codes[j1:j1 + n]
+
+
+@pytest.fixture(scope="module")
+def g_short():
+    """Circles of 100 to 400 bases, many shorter than their fragments."""
+    conf = tiny_conf(n_circ=150, n_linear=30)
+    conf["loci"]["circ_span"] = [100, 400]
+    return pg.make_genome(conf)
+
+
+@pytest.mark.parametrize("revcomp_frac", [1.0, 0.5],
+                         ids=["dutp", "either_strand"])
+def test_mates_are_the_ends_of_one_fragment(g_short, revcomp_frac):
+    """Mate 1 the fragment's first read_len bases and mate 2 the reverse
+    complement of its last, or the two the other way round on a fragment
+    read from its other strand; the junction in mate 1, mate 2, both or
+    neither; every circle base from the circle, short circles read round
+    again."""
+    t = dict(pe_traffic(), errors_per_read=0.0, revcomp_frac=revcomp_frac)
+    g = g_short
+    m1, m2, info = library.make_pairs(g, t, 2 ** 31 + 3, A)
+    L = t["read_len"]
+    assert m1.shape == m2.shape and m1.shape[1] == L
+    for i in range(m1.shape[0]):
+        if info["source"][i] == 3:
+            continue
+        f = _fragment(g["codes"], info, i)
+        head, tail = f[:L], 3 - f[-L:][::-1]
+        pair = (tail, head) if info["flip"][i] else (head, tail)
+        np.testing.assert_array_equal(m1[i], pair[0])
+        np.testing.assert_array_equal(m2[i], pair[1])
+    assert info["flip"].all() == (revcomp_frac == 1.0)
+    assert info["flip"].any()
+    j = info["bp"] >= 0
+    ins, bp = info["ins"][j], info["bp"][j]
+    assert (ins >= L).all() and ((bp >= A) & (bp <= ins - A)).all()
+    in1, in2 = bp < L, bp > ins - L
+    for where in (in1 & ~in2, ~in1 & in2, in1 & in2, ~in1 & ~in2):
+        assert where.sum() > 10
+    circ = info["source"] == 0
+    assert (info["ins"][circ] > info["j2"][circ] - info["j1"][circ]).any()
+    fq = library.fastq_files([m1[:2], m2[:2]])
+    assert fq[0].startswith(b"@r0/1\n") and b"\n@r1/1\n" in fq[0]
+    assert fq[1].startswith(b"@r0/2\n") and b"\n@r1/2\n" in fq[1]
+
+
+def test_pair_counts_do_not_move_with_the_seed(g):
+    """Every seed makes as many fragments of each source with the same
+    depths; the same seed the same library, another seed another."""
+    t = pe_traffic()
+    big = 2 ** 31 + 12345
+    a, b, c = (library.make_pairs(g, t, s, A) for s in (big, big, big + 1))
+    for x, y in zip(a[:2], b[:2]):
+        np.testing.assert_array_equal(x, y)
+    assert not np.array_equal(a[0], c[0])
+    assert a[0].shape == c[0].shape
+    np.testing.assert_array_equal(np.bincount(a[2]["source"]),
+                                  np.bincount(c[2]["source"]))
+    for src in (0, 1):
+        depth = [np.sort(np.unique(r[2]["j1"][r[2]["source"] == src],
+                                   return_counts=True)[1])
+                 for r in (a, c)]
+        np.testing.assert_array_equal(*depth)
+    assert [m.shape for m in library.make_library(g, t, big, A)] == \
+        [a[0].shape, a[1].shape]
+
+
+def test_pairs_need_loci_traffic(g):
+    t = dict(tiny_traffic("mixed"), n_reads=2000, mates=2, read_len=150,
+             insert_mean=300, insert_sd=60)
+    with pytest.raises(ValueError, match="loci"):
+        library.make_library(g, t, 7, A)

@@ -24,7 +24,7 @@ def stub_run(profile=True):
         stage_s={"device_dispatch": 0.8, "aggregate": 0.3,
                  "slowpath_rescue": 0.4, "explore_dispatch": 0.1,
                  "pass.rows": 1.0, "pass.write": 0.2},
-        stage_n={"device_dispatch": 48}, routed=38_000,
+        stage_n={"device_dispatch": 48},
         profile=prof if profile else None,
         bounds=dict(detect_s=0.0002, explore_s=0.0001, detect_batches=48,
                     explore_chunks=48))
@@ -37,7 +37,6 @@ EXPECT = {
     "table.rows_us_per_read": 5.0,
     "table.write_us_per_read": 1.0,
     "explore.dispatch_us_per_read": 0.5,
-    "explore.routed_pct": 19.0,
     "detect.device_us_per_batch": 2000.0 / 48,
     "detect_roofline": 10.0,
     "explore_roofline": 2.5,

@@ -1,8 +1,9 @@
 """Whole runs of a tiny cell on the CPU through the function the command
 calls (the port's plain versions take CPU tensors): sound, with the timed
-path broken underneath, and with the control's settings; a cell and a
-metric added as new files; the index cache; the command without a card
-and without the program."""
+path broken underneath, and with the control's settings; a paired-end
+cell against `find_circ --pe` itself; a cell and a metric added as new
+files; the index cache; the command without a card and without the
+program."""
 
 import json
 import os
@@ -44,34 +45,32 @@ def test_sound_run_is_correct(tree):
 
 
 def _library(tree, seed=SEED):
-    """The tiny cell's genome arrays, its library for `seed` and the
-    library's FASTQ path."""
-    from portbench import library
+    """The tiny cell's genome arrays, the number of reads of its library
+    for `seed` and the library's FASTQ paths."""
     cell = harness.Cell(tree, tiny.CELL)
     g = harness.setup(tree, tiny.CELL, "cpu")[2]
-    reads = library.make_reads(g, cell.traffic, seed, 20)
-    path = os.path.join(tree, f"ref_{seed}.fastq")
-    with open(path, "wb") as fh:
-        fh.write(library.fastq_bytes(reads))
-    return g, reads, path
+    out = os.path.join(tree, f"ref_{seed}")
+    os.makedirs(out, exist_ok=True)
+    paths, n_reads = harness.write_library(g, cell.traffic, seed, 20, out)
+    return g, n_reads, paths
 
 
 def _reference(tree, seed=SEED):
     from portbench.reference import compare
-    g, reads, path = _library(tree, seed)
+    g, n_reads, paths = _library(tree, seed)
     fc = harness.Cell(tree, tiny.CELL).conf["find_circ"]
-    return compare.reference(g, path, fc, seed, 2), reads
+    return compare.reference(g, paths, fc, seed, 2), n_reads
 
 
 def test_reference_finds_junctions(tree):
     from portbench.reference import compare
-    ref, reads = _reference(tree)
+    ref, n_reads = _reference(tree)
     assert ref.bed.count("\n") > 20
-    assert f"reads_total\t{reads.shape[0]}" in ref.stats
+    assert f"reads_total\t{n_reads}" in ref.stats
     d = compare.differences(ref.bed, ref.stats, ref)
     assert d["bytes_differ"] == 0
     assert all(d[k] == 0 for k in harness.PASS_NUMBERS)
-    assert ref.oracle_sampled == min(compare.ORACLE_SAMPLE, reads.shape[0])
+    assert ref.oracle_sampled == min(compare.ORACLE_SAMPLE, n_reads)
     assert ref.oracle_calls_differing == 0
 
 
@@ -80,11 +79,11 @@ def test_oracle_sample_takes_rescued_and_routed_reads_first(tree):
     from portbench.reference.seedindex import build_index
     cell = harness.Cell(tree, tiny.CELL)
     cfg = compare.reference_config(cell.conf["find_circ"])
-    g, _, path = _library(tree)
+    g, _, paths = _library(tree)
     genome = compare.Genome(**{k: g[k] for k in (
         "codes", "chrom_names", "chrom_offsets", "chrom_lengths")})
     index = build_index(genome, cfg)
-    items = compare.read_fastq(path)
+    items = compare.read_fastq(paths[0])
     s1 = compare.oracle_sample(genome, index, items, cfg, SEED)
     assert s1 == compare.oracle_sample(genome, index, items, cfg, SEED)
     assert s1 != compare.oracle_sample(genome, index, items, cfg, SEED + 1)
@@ -182,6 +181,115 @@ def test_control_fails_and_sound_passes(tree):
     assert max(s[k]["control_min"] for k in harness.PASS_NUMBERS) > 0
 
 
+def _revcomp_args(monkeypatch) -> list:
+    """The `revcomp` of every later run_fastq call, bound by name."""
+    import inspect
+    from find_circ2_tpu_torch.models import stream
+    orig = stream.run_fastq
+    sig = inspect.signature(orig)
+    seen = []
+
+    def recorded(*a, **k):
+        bound = sig.bind(*a, **k)
+        bound.apply_defaults()
+        seen.append(bound.arguments["revcomp"])
+        return orig(*a, **k)
+    monkeypatch.setattr(stream, "run_fastq", recorded)
+    return seen
+
+
+@pytest.mark.parametrize("cell,want", [(tiny.CELL, [False]),
+                                       (tiny.PE_CELL, [False, True])],
+                         ids=["single_end", "paired"])
+def test_pass_calls_run_fastq_once_a_file(tree, monkeypatch, cell, want):
+    """A single-end pass makes the one call it always made; a paired
+    pass one a mate file, mate 2's reverse-complemented."""
+    from find_circ2_tpu_torch.utils.profiling import StageTimes
+    program = _program(tree, cell, os.path.join(tree, "calls"))
+    seen = _revcomp_args(monkeypatch)
+    program.one_pass(StageTimes())
+    assert seen == want
+
+
+@pytest.mark.parametrize("pe,files", [(True, 1), (False, 2)],
+                         ids=["pe_single_end_library", "pairs_without_pe"])
+def test_pe_and_the_library_must_agree(tmp_path, pe, files):
+    """A `pe` configuration over one file, or two mate files under a
+    configuration without `pe`, is refused before any pass."""
+    paths = [str(tmp_path / f"library_{k + 1}.fastq") for k in range(files)]
+    with pytest.raises(SystemExit, match="pe"):
+        harness.Program(None, None, None, None, {"pe": pe}, paths,
+                        str(tmp_path))
+
+
+def _fasta(genome, path) -> None:
+    with open(path, "wb") as fh:
+        for name, off, n in zip(genome.chrom_names, genome.chrom_offsets,
+                                genome.chrom_lengths):
+            seq = np.frombuffer(b"ACGTN", np.uint8)[
+                genome.codes[off:off + n]]
+            fh.write(b">%s\n%s\n" % (name.encode(), seq.tobytes()))
+
+
+def test_paired_pass_writes_what_find_circ_pe_writes(tree, tmp_path):
+    """The paired cell's pass against the port's own command,
+    `find_circ --pe --stranded --filter`, over the same two files; the
+    strandmatch column is filled."""
+    from find_circ2_tpu_torch.cli import find_circ
+    from find_circ2_tpu_torch.utils.profiling import StageTimes
+    program = _program(tree, tiny.PE_CELL, str(tmp_path / "lib"))
+    bed, stats = program.one_pass(StageTimes())
+    fc = program.fc
+    _fasta(program.genome, tmp_path / "genome.fa")
+    out = tmp_path / "cli.bed"
+    rc = find_circ.main([
+        *program.fastqs, "-G", str(tmp_path / "genome.fa"),
+        "--reads-format", "fastq", "--pe", "--stranded", "--filter",
+        "--device", "cpu", "-a", str(fc["anchor_len"]),
+        "--batch-size", str(fc["batch_size"]),
+        "--max-span", str(fc["max_span"]),
+        "--min-support", str(fc["min_support"]),
+        "--max-edits", str(fc["max_edits"]), "-n", fc["name"],
+        "-p", fc["prefix"], "-o", str(out), "-s", str(tmp_path / "cli.st")])
+    assert rc == 0
+    assert bed == out.read_text()
+    assert stats == (tmp_path / "cli.st").read_text()
+    rows = [ln.split("\t") for ln in bed.splitlines()
+            if ln and not ln.startswith("#")]
+    assert len(rows) > 20
+    assert {r[16] for r in rows} - {"NA"}
+
+
+def _pe_run(tree, seconds=0.5):
+    return harness.run_cell(tree, tiny.PE_CELL, SEED, seconds, False,
+                            time.perf_counter(), device="cpu")
+
+
+def test_paired_run_is_correct(tree):
+    from portbench import library
+    r = _pe_run(tree)
+    assert r["correct"] is True and r["failed"] == 0
+    assert all(c["value"] == 0 for c in r["checks"].values())
+    cell = harness.Cell(tree, tiny.PE_CELL)
+    mates = library.make_library(
+        harness.setup(tree, tiny.PE_CELL, "cpu")[2], cell.traffic, SEED, 20)
+    assert len(mates) == 2
+    n_reads = sum(m.shape[0] for m in mates)
+    assert r["attempted"] % n_reads == 0 and r["attempted"] >= 2 * n_reads
+
+
+def test_paired_mate2_left_unflipped_is_not_correct(tree, monkeypatch):
+    """Mate 2 read in its sequenced orientation: the junctions are the
+    same, their strandmatch is not."""
+    from find_circ2_tpu_torch.models import stream
+    orig = stream.run_fastq
+    monkeypatch.setattr(stream, "run_fastq",
+                        lambda *a, **k: orig(*a, **{**k, "revcomp": False}))
+    r = _pe_run(tree)
+    assert r["correct"] is False and r["failed"] > 0
+    assert r["checks"]["bed_rows_differing"]["value"] > 0
+
+
 def test_new_cell_and_metric_as_files(tmp_path, monkeypatch):
     root = tiny.make_tree(str(tmp_path))
     pb = os.path.join(root, "portbench")
@@ -221,35 +329,43 @@ def test_new_cell_and_metric_as_files(tmp_path, monkeypatch):
     assert "tiny.passes" not in {m["name"] for m in other.per_layer}
 
 
-def _captured(tree, sabotage=lambda: None):
-    """One pass of the tiny cell under the traced run's captures, with
+def _program(tree, cell_name, out):
+    """The cell's Program after its set-up, over its library for SEED
+    written under `out`."""
+    cell, cfg, garr, genome, index, dindex = harness.setup(tree, cell_name,
+                                                           "cpu")
+    os.makedirs(out, exist_ok=True)
+    paths, _ = harness.write_library(garr, cell.traffic, SEED,
+                                     cfg.anchor_len, out)
+    return harness.Program(genome, index, dindex, cfg,
+                           cell.conf["find_circ"], paths, out)
+
+
+def _captured(tree, sabotage=lambda: None, cell=tiny.CELL):
+    """One pass of a tiny cell under the traced run's captures, with
     `sabotage` called once they are in place: check_capture's arguments."""
     from find_circ2_tpu_torch.utils.profiling import StageTimes
-    from portbench import library
-    cell, cfg, garr, genome, index, dindex = harness.setup(tree, tiny.CELL,
-                                                           "cpu")
-    reads = library.make_reads(garr, cell.traffic, SEED, cfg.anchor_len)
-    path = os.path.join(tree, "capture.fastq")
-    with open(path, "wb") as fh:
-        fh.write(library.fastq_bytes(reads))
-    program = harness.Program(genome, index, dindex, cfg,
-                              cell.conf["find_circ"], path, tree)
+    program = _program(tree, cell, os.path.join(tree, "capture"))
     work, counts, times = {}, {}, StageTimes()
     with harness.capture_work(work), harness.count_routed(counts):
         sabotage()
         program.one_pass(times)
-    return harness.tally_bounds(work, cfg), counts, times.counts
+    return harness.tally_bounds(work, program.cfg), counts, times.counts
 
 
-@pytest.mark.parametrize("chunk", [None, 100_000],
-                         ids=["one_chunk", "batches_cut_at_chunks"])
-def test_captures_agree_with_the_program(tree, monkeypatch, chunk):
+@pytest.mark.parametrize("cell,chunk", [(tiny.CELL, None),
+                                        (tiny.CELL, 100_000),
+                                        (tiny.PE_CELL, None)],
+                         ids=["one_chunk", "batches_cut_at_chunks",
+                              "paired"])
+def test_captures_agree_with_the_program(tree, monkeypatch, cell, chunk):
     """Also where the FASTQ reader's chunks cut the library into more
-    batches than its reads fill."""
+    batches than its reads fill, and where each mate file's loop times
+    its own stages."""
     from find_circ2_tpu_torch.models import stream
     if chunk:
         monkeypatch.setattr(stream, "CHUNK", chunk)
-    tallies, counts, stage_n = _captured(tree)
+    tallies, counts, stage_n = _captured(tree, cell=cell)
     harness.check_capture(tallies, counts, stage_n)
     assert tallies["detect_batches"] == stage_n["device_dispatch"] > 0
     if chunk:
@@ -257,6 +373,7 @@ def test_captures_agree_with_the_program(tree, monkeypatch, chunk):
     assert tallies["explore_chunks"] >= counts["dispatches"] > 0
     assert tallies["detect_s"] > 0 and tallies["explore_s"] > 0
     assert counts["routed"] > 0
+    assert stage_n["stream_start"] == (2 if cell == tiny.PE_CELL else 1)
 
 
 def _owner(path: str):

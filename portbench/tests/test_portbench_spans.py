@@ -1,16 +1,20 @@
 """The readers of the program's own spans and counters on stub runs:
 each number from its key, 0 where the span's parent never ran, and
 nothing from a program that times no such span (the parent of the
-commit that added them)."""
+commit that added them); and the loop's routed-read counter against the
+harness's wrapper around the routing call, on a pass of the program."""
 
 import pytest
 
+from portbench import harness
 from portbench.harness import Cell
+from portbench.tests import tiny
 from portbench.tests.test_portbench_metrics import stub_run
+from portbench.tests.test_portbench_pass import _captured
 from portbench.tests.tiny import REPO
 
 SPANS = {
-    "device_dispatch/revcomp": 0.4, "device_dispatch/upload": 0.1,
+    "device_dispatch/upload": 0.1,
     "device_dispatch/launch": 0.2, "device_dispatch/readback": 0.06,
     "pass.rows/drain": 0.3, "pass.rows/build": 0.5,
     "pass.rows/renumber": 0.1, "stream_start": 0.12, "stream_stop": 0.08}
@@ -19,7 +23,6 @@ COUNTERS = {"explore_dispatch/reads": 38_000,
 # (value on the stub run of 200,000 reads, the root stage whose absence
 # reads 0; None where the metric reads nothing without its own keys).
 EXPECT = {
-    "dispatch.revcomp_us_per_read": (2.0, "device_dispatch"),
     "dispatch.upload_us_per_read": (0.5, "device_dispatch"),
     "dispatch.launch_us_per_read": (1.0, "device_dispatch"),
     "dispatch.readback_us_per_read": (0.3, "device_dispatch"),
@@ -60,11 +63,20 @@ def test_span_reader_on_a_stub_run(name):
         assert read(run) == 0.0
 
 
-def test_routed_reads_pct_equals_the_wrappers_count():
-    """The loop's counter and the harness's wrapper count the same reads
-    in the same window."""
-    run = traced_run()
-    run.routed = COUNTERS["explore_dispatch/reads"]
-    cell = Cell(REPO, "rnase_r_16mb.enriched")
-    assert (cell.reader("explore.routed_reads_pct")(run)
-            == cell.reader("explore.routed_pct")(run))
+@pytest.fixture(scope="module")
+def tree(tmp_path_factory):
+    return tiny.make_tree(str(tmp_path_factory.mktemp("spans")))
+
+
+def test_routed_reads_counter_equals_the_wrappers_count(tree):
+    """The loop's counter `explore_dispatch/reads`, which
+    `explore.routed_reads_pct` reads, and the harness's wrapper around
+    DeviceExplorer.dispatch_arrays count the same reads in one pass; the
+    traced run's check holds them equal and fails a wrapper that missed
+    a read."""
+    _, counts, stage_n = _captured(tree)
+    assert counts["routed"] == stage_n["explore_dispatch/reads"] > 0
+    harness.check_routed(counts, stage_n)
+    with pytest.raises(SystemExit, match="routing wrapper"):
+        harness.check_routed({**counts, "routed": counts["routed"] - 1},
+                             stage_n)
