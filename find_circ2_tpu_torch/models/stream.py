@@ -47,7 +47,7 @@ from find_circ2_tpu_torch.models.pipeline import (
     DeviceExplorer, DeviceIndex, HostCopy, call_from_row, dispatch_packed,
     encode_batch, redo_if_overflow, revcomp_batch, unpack_results)
 from find_circ2_tpu_torch.utils.journal import FastBatch
-from find_circ2_tpu_torch.utils.profiling import count, timed
+from find_circ2_tpu_torch.utils.profiling import count, span, timed
 
 CHUNK = 16 << 20  # bytes per read(2) chunk
 # Batches the loop dispatches ahead of their readback, and batches whose
@@ -262,7 +262,11 @@ class _Loop:
         the calls now)."""
         if not rows.size:
             return stage, rows, None, []
-        items = [b.read(i) for i in rows]
+        # Each row's (name, seq), cut from the file's buffer (a `--pe`
+        # mate 2 reverse-complemented read by read), is a stage of its
+        # own, apart from the re-calls' timers.
+        with timed(self.times, "recall_items"):
+            items = [b.read(i) for i in rows]
         if self.rpool is not None:
             with timed(self.times, "rescue_dispatch"):
                 return stage, rows, self.rpool.submit(items), None
@@ -289,6 +293,8 @@ class _Loop:
             if self.slowpath is not None and cfg.rescue_anchor_mm >= 2:
                 rescue = (np.isin(status, (ST_UNALIGNED_A, ST_UNALIGNED_B))
                           & ((multi & 2) != 0))
+                # The reads handed to the rescue, in the worker or inline.
+                count("rescue_reads", int(np.count_nonzero(rescue)))
             else:
                 rescue = np.zeros(n, bool)
             if self.slowpath is not None or self.explorer is not None:
@@ -442,7 +448,8 @@ def run_fastq(dindex: DeviceIndex | None, path, agg: Aggregator,
                                     arr[:sel.size], lens[:sel.size],
                                     _CODE_LUT)
                 if revcomp:
-                    arr = revcomp_batch(arr, lens)
+                    with span("revcomp"):
+                        arr = revcomp_batch(arr, lens)
             loop.put(_Batch(batch_id, int(sel.size), arr, lens,
                             reader(buf, spans, sel)))
 

@@ -28,14 +28,13 @@ DATA = os.path.join(ROOT, "test_data")
 CFG = Config(batch_size=128)
 TWIST = dict(zip("ACGTN", "CGTAN"))
 # Every key the benchmark's span and counter metrics read
-# (portbench/metrics), for one pass as the benchmark's harness runs it,
-# but device_dispatch/revcomp: the detect kernel builds each read's
-# reverse complement, so the host has none to time.
+# (portbench/metrics), for one single-end pass as the benchmark's harness
+# runs it; a paired pass adds mate 2's `encode/revcomp`.
 BENCH_KEYS = ("device_dispatch/upload", "device_dispatch/launch",
               "device_dispatch/readback",
               "pass.rows/drain", "pass.rows/build", "pass.rows/renumber",
               "stream_start", "stream_stop", "explore_dispatch/reads",
-              "slowpath_rescue/worker_us")
+              "slowpath_rescue/worker_us", "aggregate/rescue_reads")
 
 
 def helper():
@@ -180,6 +179,61 @@ def test_one_pass_records_every_key_the_benchmark_reads(lib, monkeypatch):
     assert t.counts["stream_start"] == t.counts["stream_stop"] == 1
 
 
+@pytest.mark.parametrize("revcomp", [False, True],
+                         ids=["single_end", "mate_2"])
+def test_mate_2s_reverse_complement_has_its_own_span(lib, revcomp):
+    """`run_fastq(revcomp=True)`, a `--pe` mate 2, times its host reverse
+    complement under `encode/revcomp`, once a batch; a single-end file
+    has none to time."""
+    t = StageTimes()
+    one_pass(lib, t, revcomp=revcomp)
+    if revcomp:
+        assert t.counts["encode/revcomp"] == t.counts["device_dispatch"] > 0
+        assert t.totals["encode/revcomp"] <= t.totals["encode"]
+    else:
+        assert "encode/revcomp" not in t.counts
+
+
+def _recalled_rows(monkeypatch) -> list:
+    """(stage, rows) of every later host re-call the loop makes."""
+    seen = []
+    orig = stream._Loop._host_recall
+
+    def watched(self, b, rows, stage):
+        seen.append((stage, rows.size))
+        return orig(self, b, rows, stage)
+    monkeypatch.setattr(stream._Loop, "_host_recall", watched)
+    return seen
+
+
+class _NoPool(stream._RescuePool):
+    """A rescue pool whose fork failed: the re-calls run inline."""
+    def __init__(self, *args):
+        self.args, self.pool = args, None
+
+
+@pytest.mark.parametrize("path", ["worker", "inline", "host_twin"])
+def test_rescue_counter_counts_the_reads_handed_to_the_rescue(
+        lib, monkeypatch, path):
+    """`aggregate/rescue_reads` counts the reads the loop selects for the
+    2-mm rescue (every fourth read of the library has two substitutions
+    in an anchor), whether the forked worker or the inline path re-calls
+    them, and never the §2b reads that the host twin re-calls
+    (`explore=False`). Each re-call's items are built under
+    `recall_items`, apart from the re-calls' own stages."""
+    if path == "inline":
+        monkeypatch.setattr(stream, "_RescuePool", _NoPool)
+    seen = _recalled_rows(monkeypatch)
+    t = StageTimes()
+    one_pass(lib, t, **({"explore": False} if path == "host_twin" else {}))
+    rescued = sum(n for stage, n in seen if stage == "slowpath_rescue")
+    assert t.counts["aggregate/rescue_reads"] == rescued > 0
+    if path == "host_twin":
+        assert sum(n for stage, n in seen
+                   if stage == "slowpath_multihit") > 0
+    assert t.counts["recall_items"] == sum(1 for _, n in seen if n)
+
+
 def test_final_table_counts_its_reads_and_junctions(lib):
     """The final table's spans, and the counters under `drain`: the
     junction reads it grouped and the junctions (BED rows) they gave."""
@@ -234,10 +288,7 @@ def test_the_writer_counts_its_lines_by_path(lib):
 def test_inline_rescue_counts_its_own_worker_time(lib, monkeypatch):
     """With no worker (a fork that fails), the host re-calls run inline
     and still count their microseconds; the output is the same."""
-    class NoPool(stream._RescuePool):
-        def __init__(self, *args):
-            self.args, self.pool = args, None
-    monkeypatch.setattr(stream, "_RescuePool", NoPool)
+    monkeypatch.setattr(stream, "_RescuePool", _NoPool)
     t = StageTimes()
     out = one_pass(lib, t)
     assert "rescue_dispatch" not in t.counts
